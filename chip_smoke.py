@@ -1,0 +1,510 @@
+#!/usr/bin/env python3
+"""On-card smoke of the PyTorch/H100 port (``dynamo_tpu_torch``).
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, in order, each printing one JSON line; any failure exits non-zero
+with a traceback and prints no result:
+
+1. device    — the card's name and power limit (nvidia-smi).
+2. build     — builds the CUDA kernels from ``dynamo_tpu_torch/ops/csrc``.
+3. kernels   — every kernel of the serving path against its plain torch
+               version on the card, in bf16, at Llama-3-8B (and Gemma2-9B)
+               head shapes; kernel, plain and library times.
+4. serve     — the OpenAI HTTP service with the torch engine serving
+               Llama-3-8B (full width and depth, random weights from the
+               seed) answers concurrent completions/chat requests, streamed
+               and not; the kernels' launch counters must account for every
+               prefill dispatch and decode step.
+5. reference — the served weights' logits through the kernels agree with
+               the dense attention path on a small input.
+
+Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
+last ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM published HBM3 rate
+BF16_FLOPS = 989e12            # H100 SXM published dense bf16 rate
+TOL = 2e-2                     # bf16 kernel vs plain, O(1) outputs
+DEVICE = "cuda"
+PRESET = "llama-3-8b"
+ENGINE_ARGS = dict(preset=PRESET, max_batch=8, max_context=2048,
+                   page_size=64, prefill_chunk=512, decode_steps=8)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, iters: int) -> float:
+    """Mean device time of fn() over iters launches (after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def flash_case(torch, att, name, B, T, S, Hq, Hkv, Dh, scale=None,
+               softcap=None, window=None, library=True, ragged=True):
+    import torch.nn.functional as F
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+    q = torch.randn((B, T, Hq, Dh), generator=g, device=dev).to(bf)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=dev).to(bf)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device=dev).to(bf)
+    k_pos = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+    k_valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+    # every lane's chunk is the last T positions of its S-token context;
+    # with ``ragged`` lane 1 instead has a 700-token context whose last 32
+    # query rows are padding (position 0, key 0 invalid: nothing to attend
+    # to, so they must come out exactly 0)
+    q_pos = torch.arange(S - T, S, dtype=torch.int32, device=dev)[None] \
+        .repeat(B, 1)
+    if ragged:
+        n1 = 700
+        k_valid[1, n1:] = False
+        k_valid[1, 0] = False
+        q_pos[1] = torch.arange(n1 - T, n1, dtype=torch.int32, device=dev)
+        q_pos[1, T - 32:] = 0
+    kw = dict(scale=scale, softcap=softcap, window=window)
+    got = att.flash_attention(q, k, v, q_pos, k_pos, k_valid, **kw)
+    want = att.flash_attention_plain(q, k, v, q_pos, k_pos, k_valid, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    pad_max = got[1, T - 32:].float().abs().max().item() if ragged else 0.0
+    finite = bool(torch.isfinite(got.float()).all())
+    mask = k_valid[:, None, :] & (k_pos[:, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        mask = mask & (k_pos[:, None, :] > q_pos[:, :, None] - window)
+    visible = int(mask.sum())
+    nbytes = (2 * q.numel() * 2 + 2 * k.numel() * 2 + q_pos.numel() * 4
+              + k_pos.numel() * 4 + k_valid.numel())
+    flops = 4.0 * visible * Hq * Dh
+    b_ms, b_by = bound_ms(nbytes, flops)
+    ms = time_ms(torch, lambda: att.flash_attention(
+        q, k, v, q_pos, k_pos, k_valid, **kw), 20)
+    plain_ms = time_ms(torch, lambda: att.flash_attention_plain(
+        q, k, v, q_pos, k_pos, k_valid, **kw), 5)
+    lib_ms = None
+    if library:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        am = mask[:, None]
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=am, scale=scale, enable_gqa=True), 20)
+    row = dict(case=name, B=B, T=T, S=S, Hq=Hq, Hkv=Hkv, Dh=Dh,
+               softcap=softcap, window=window, ragged=ragged,
+               max_abs_err=err, tol=TOL,
+               padded_rows_max=pad_max, finite=finite, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+               bound_by=b_by, bytes=nbytes, flops=flops)
+    emit({"phase": "kernels", "kernel": "flash_attention", **row})
+    if not (finite and err <= TOL and pad_max == 0.0):
+        raise AssertionError(f"flash_attention {name} disagrees: {row}")
+    return row
+
+
+def paged_case(torch, att, name, softcap=None, window=None,
+               lengths_l=(1, 64, 100, 777, 1024, 1500, 2000, 2048)):
+    dev = torch.device(DEVICE)
+    B, page, Hkv, G, Dh, P = 8, 64, 8, 4, 128, 32
+    Hq = Hkv * G
+    n_pages = B * P + 1
+    g = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+    q = torch.randn((B, Hq, Dh), generator=g, device=dev).to(bf)
+    kp = torch.randn((Hkv, n_pages, page, Dh), generator=g, device=dev).to(bf)
+    vp = torch.randn((Hkv, n_pages, page, Dh), generator=g, device=dev).to(bf)
+    lengths_l = list(lengths_l)
+    # a shuffled page table; pages past a lane's length stay the scratch 0
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator()
+                          .manual_seed(3)) + 1
+    pt = torch.zeros((B, P), dtype=torch.int32)
+    for b, n in enumerate(lengths_l):
+        need = -(-n // page)
+        pt[b, :need] = perm[b * P:b * P + need].to(torch.int32)
+    pt = pt.to(dev)
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    kw = dict(softcap=softcap, window=window)
+    got = att.paged_attention(q, kp, vp, pt, lengths, **kw)
+    want = att.paged_attention_plain(q, kp, vp, pt, lengths, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    finite = bool(torch.isfinite(got.float()).all())
+    active = sum(min(n, window) if window else n for n in lengths_l)
+    nbytes = (2 * q.numel() * 2 + active * Hkv * Dh * 2 * 2 + pt.numel() * 4
+              + lengths.numel() * 4)
+    flops = 4.0 * active * Hq * Dh
+    b_ms, b_by = bound_ms(nbytes, flops)
+    ms = time_ms(torch, lambda: att.paged_attention(
+        q, kp, vp, pt, lengths, **kw), 50)
+    plain_ms = time_ms(torch, lambda: att.paged_attention_plain(
+        q, kp, vp, pt, lengths, **kw), 5)
+    row = dict(case=name, B=B, page=page, Hq=Hq, Hkv=Hkv, Dh=Dh,
+               lengths=lengths_l, softcap=softcap, window=window,
+               max_abs_err=err, tol=TOL, finite=finite, ms=ms,
+               plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, bytes=nbytes, flops=flops)
+    emit({"phase": "kernels", "kernel": "paged_attention", **row})
+    if not (finite and err <= TOL):
+        raise AssertionError(f"paged_attention {name} disagrees: {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serve over HTTP
+# ---------------------------------------------------------------------------
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def http_post(port: int, path: str, body: dict, results: dict, key: str):
+    t0 = time.perf_counter()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        status = resp.status
+        if body.get("stream"):
+            chunks, stamps, done = [], [], False
+            for raw in resp:
+                line = raw.decode().strip()
+                if not line.startswith("data:"):
+                    continue
+                data = line[5:].strip()
+                if data == "[DONE]":
+                    done = True
+                    continue
+                stamps.append(time.perf_counter() - t0)
+                chunks.append(json.loads(data))
+            last = chunks[-1]
+            results[key] = dict(status=status, done=done, chunks=len(chunks),
+                                usage=last.get("usage"),
+                                finish=last["choices"][0].get("finish_reason"),
+                                ttft_s=stamps[0], last_s=stamps[-1])
+        else:
+            out = json.loads(resp.read())
+            results[key] = dict(status=status, usage=out.get("usage"),
+                                finish=out["choices"][0].get("finish_reason"),
+                                seconds=time.perf_counter() - t0)
+
+
+def serve_phase(torch, att, smi: str):
+    import asyncio
+
+    from dynamo_tpu_torch.cli.run import make_card, make_engines, parse_args
+    from dynamo_tpu_torch.llm.http_service import (HttpService, ModelManager,
+                                                   ServedModel)
+
+    t0 = time.perf_counter()
+    args = parse_args(["in=http", "out=torch", "--model-name", PRESET,
+                       "--device", DEVICE,
+                       "--extra-engine-args", json.dumps(ENGINE_ARGS)])
+    card = make_card(args)
+    chat, comp, core = make_engines(args, card)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    loop = asyncio.new_event_loop()
+    manager = ModelManager()
+    manager.add(ServedModel(card, chat, comp))
+    svc = HttpService(manager, host="127.0.0.1", port=0)
+    port = loop.run_until_complete(svc.start())
+    server = threading.Thread(target=loop.run_forever, name="http",
+                              daemon=True)
+    server.start()
+    try:
+        warm: dict = {}
+        http_post(port, "/v1/completions",
+                  {"model": PRESET, "prompt": "warm up", "max_tokens": 2},
+                  warm, "warm")
+        long_prompt = ("The port serves Llama on the card through two "
+                       "hand-written kernels. " * 22)
+        reqs = {
+            "completion": ("/v1/completions", {
+                "model": PRESET, "prompt": "The quick brown fox",
+                "max_tokens": 48}),
+            "completion_stream": ("/v1/completions", {
+                "model": PRESET, "prompt": "Once upon a time",
+                "max_tokens": 64, "stream": True, "logprobs": 1}),
+            "chat": ("/v1/chat/completions", {
+                "model": PRESET, "max_tokens": 48,
+                "messages": [{"role": "user", "content": "Say hello."}]}),
+            "chat_stream_sampled": ("/v1/chat/completions", {
+                "model": PRESET, "max_tokens": 48, "stream": True,
+                "temperature": 0.8, "top_p": 0.9, "seed": 7,
+                "messages": [{"role": "user", "content": "Tell a story."}]}),
+            "long_prompt": ("/v1/completions", {
+                "model": PRESET, "prompt": long_prompt, "max_tokens": 32}),
+            "completion_topk": ("/v1/completions", {
+                "model": PRESET, "prompt": "Paged attention", "max_tokens": 48,
+                "temperature": 1.0, "top_k": 20, "seed": 11}),
+        }
+        results: dict = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        att.flash_attention.launches = 0
+        att.paged_attention.launches = 0
+        c = core.core
+        pre0, dec0 = c.prefill_dispatches, c.decode_steps_run
+        pre_s0, dec_s0 = c.prefill_seconds, c.decode_seconds
+        t_serve = time.perf_counter()
+        threads = [threading.Thread(target=http_post,
+                                    args=(port, path, body, results, key))
+                   for key, (path, body) in reqs.items()]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t_serve
+        flash_n = att.flash_attention.launches
+        paged_n = att.paged_attention.launches
+        prefill_n = core.core.prefill_dispatches - pre0
+        steps_n = core.core.decode_steps_run - dec0
+        peak = torch.cuda.max_memory_allocated()
+        L = core.core.cfg.model.num_layers
+        for key in reqs:
+            r = results.get(key)
+            if r is None:
+                raise AssertionError(f"request {key} did not complete")
+            if r["status"] != 200 or not r["usage"] \
+                    or r["usage"]["completion_tokens"] < 1 \
+                    or r["finish"] not in ("length", "stop"):
+                raise AssertionError(f"request {key} failed: {r}")
+            if "done" in r and not r["done"]:
+                raise AssertionError(f"stream {key} missed [DONE]: {r}")
+        if results["long_prompt"]["usage"]["prompt_tokens"] <= \
+                ENGINE_ARGS["prefill_chunk"]:
+            raise AssertionError("long prompt did not exceed one chunk")
+        if not (prefill_n > 0 and steps_n > 0 and flash_n == L * prefill_n
+                and paged_n == L * steps_n):
+            raise AssertionError(
+                f"kernel launches do not account for the serving path: "
+                f"flash {flash_n} vs {L}x{prefill_n} prefill dispatches, "
+                f"paged {paged_n} vs {L}x{steps_n} decode steps")
+        tokens_out = sum(r["usage"]["completion_tokens"]
+                         for r in results.values())
+        st = results["completion_stream"]
+        stream_tok_s = ((st["chunks"] - 1) / (st["last_s"] - st["ttft_s"])
+                        if st["chunks"] > 1 else None)
+        row = dict(phase="serve", preset=PRESET, engine=ENGINE_ARGS,
+                   requests=len(reqs), init_s=init_s, wall_s=wall,
+                   completion_tokens=tokens_out,
+                   decode_tok_s=tokens_out / wall,
+                   stream_ttft_s=st["ttft_s"],
+                   stream_decode_tok_s=stream_tok_s,
+                   prefill_dispatches=prefill_n, decode_steps=steps_n,
+                   prefill_s=c.prefill_seconds - pre_s0,
+                   decode_s=c.decode_seconds - dec_s0,
+                   flash_launches=flash_n, paged_launches=paged_n,
+                   peak_mem_bytes=peak, weight_bytes=_nbytes(c.params),
+                   kv_pool_bytes=_nbytes([c.k_pool, c.v_pool]), card=smi,
+                   results=results)
+        emit(row)
+        profile_phase(torch, port)
+        ref = reference_phase(torch, core.core)
+    finally:
+        asyncio.run_coroutine_threadsafe(svc.stop(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        server.join(timeout=60)
+        loop.close()
+        core.shutdown()
+    return row, ref
+
+
+def profile_phase(torch, port: int) -> dict:
+    """Where the device time goes while serving: four concurrent 32-token
+    completions under torch.profiler (CUDA activity); kernel time by name
+    and the device's busy share of the wall time. The profiler's own
+    overhead is inside the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    results: dict = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=http_post, args=(
+            port, "/v1/completions",
+            {"model": PRESET, "prompt": f"Request {i} asks for a story.",
+             "max_tokens": 32}, results, str(i))) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + us)
+    busy_ms = sum(t for _, t in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    row = dict(phase="profile", requests=len(results), wall_ms=wall * 1e3,
+               device_busy_ms=busy_ms,
+               device_busy_share=busy_ms / (wall * 1e3),
+               kernels=[dict(name=k[:90], launches=n, ms=t / 1e3)
+                        for k, (n, t) in top])
+    emit(row)
+    if busy_ms <= 0.0:
+        raise AssertionError("the profiler recorded no device time")
+    return row
+
+
+def reference_phase(torch, core):
+    """The served weights through the kernel paths against the dense
+    attention path, prefill then one decode step, on a 40-token prompt in
+    a scratch pool (the engine is idle here)."""
+    from dynamo_tpu_torch.models import llama
+
+    m = core.cfg.model
+    dev = core.device
+    page, T = 64, 40
+    shape = (m.num_layers, m.num_kv_heads, 3, page, m.head_dim)
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, 256, (1, T + 1), generator=g).to(dev)
+    pos = torch.arange(T, dtype=torch.int32, device=dev)[None]
+    slots = (page + torch.arange(T, device=dev))[None]      # page 1
+    out = {}
+    for impl, dimpl in (("flash", "paged"), ("dense", "dense")):
+        kp = torch.zeros(shape, dtype=m.dtype, device=dev)
+        vp = torch.zeros(shape, dtype=m.dtype, device=dev)
+        with torch.no_grad():
+            lg, _, _ = llama.forward(
+                core.params, m, tokens[:, :T], pos, kp, vp, slots, slots, pos,
+                torch.ones((1, T), dtype=torch.bool, device=dev),
+                attn_impl=impl,
+                logits_idx=torch.tensor([T - 1], device=dev))
+            dl, _, _ = llama.forward_decode(
+                core.params, m, tokens[:, T], kp, vp,
+                torch.tensor([[1, 2]], dtype=torch.int32, device=dev),
+                torch.tensor([T + 1], dtype=torch.int32, device=dev),
+                attn_impl=dimpl)
+        out[impl] = (lg[0, 0].float(), dl[0, 0].float())
+    row = {"phase": "reference"}
+    ok = True
+    for i, name in enumerate(("prefill", "decode")):
+        a, b = out["flash"][i], out["dense"][i]
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+        finite = bool(torch.isfinite(a).all())
+        row[name] = dict(shape=list(a.shape), finite=finite, cosine=cos,
+                         max_abs_diff=(a - b).abs().max().item(),
+                         argmax_equal=int(a.argmax()) == int(b.argmax()))
+        ok = ok and finite and cos > 0.99 and a.shape[0] == m.vocab_size
+    emit(row)
+    if not ok:
+        raise AssertionError(f"kernel-path logits disagree with dense: {row}")
+    return row
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from dynamo_tpu_torch.ops import _build
+    from dynamo_tpu_torch.ops import attention as att
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    emit({"phase": "device", "name": kind, "count": torch.cuda.device_count(),
+          "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    ptxas = {k: [ln for ln in v.splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for k, v in _build.build_log.items()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "ptxas": ptxas})
+
+    flash = flash_case(torch, att, "llama3-8b", 2, 512, 1024, 32, 8, 128)
+    flash_case(torch, att, "gemma2-9b-softcap-window", 2, 512, 1024, 16, 8,
+               256, scale=1 / 16.0, softcap=50.0, window=256, library=False)
+    # the first 512-token chunk of one prompt (a prefill's common shape)
+    flash_case(torch, att, "llama3-8b-first-chunk", 1, 512, 512, 32, 8, 128,
+               ragged=False)
+    paged = paged_case(torch, att, "llama3-8b")
+    paged_case(torch, att, "llama3-8b-window-softcap", softcap=50.0,
+               window=512)
+    # every lane at 1024 tokens (the paged byte bound of one layer)
+    paged_case(torch, att, "llama3-8b-b8-len1024", lengths_l=[1024] * 8)
+
+    serve, _ = serve_phase(torch, att, smi)
+
+    src = "dynamo_tpu_torch/ops/csrc/"
+    kernels = [
+        dict(name="flash_attention", route="cuda",
+             source=src + "flash_attention.cu",
+             replaces="dynamo_tpu/ops/attention.py:166",
+             launches=serve["flash_launches"],
+             max_abs_err=flash["max_abs_err"], ms=flash["ms"],
+             plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
+             bound_by=flash["bound_by"], library_ms=flash["library_ms"]),
+        dict(name="paged_attention", route="cuda",
+             source=src + "paged_attention.cu",
+             replaces="dynamo_tpu/ops/attention.py:400",
+             also_replaces="dynamo_tpu/ops/attention.py:552",
+             launches=serve["paged_launches"],
+             max_abs_err=paged["max_abs_err"], ms=paged["ms"],
+             plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
+             bound_by=paged["bound_by"], library_ms=None),
+    ]
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,106 @@
+"""Build the port's CUDA kernels at first use and bind them with ctypes.
+
+Each ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface under ``build/dynamo_tpu_torch/`` at
+the repository root. A library's file name carries a hash of its source, the
+shared headers and the flags, so an edited kernel rebuilds and an unchanged
+one is reused. All sources compile in parallel, one ``nvcc`` process each.
+Nothing here runs at import time: the first kernel launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dynamo_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, ctypes._CFuncPtr] = {}
+# per-source compiler output of this process's builds (ptxas registers,
+# shared memory, spills); empty for libraries found already built
+build_log: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _library_path(src: Path, headers: Sequence[Path]) -> Path:
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in headers:
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, ctypes.CDLL]:
+    """Compile (if needed) and load every kernel library; returns them by
+    source stem. Raises with the compiler's output if a build fails."""
+    with _lock:
+        if _libs:
+            return _libs
+        headers = sorted(CSRC.glob("*.cuh"))
+        sources = sorted(CSRC.glob("*.cu"))
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        pending: List[tuple] = []
+        try:
+            for src in sources:
+                lib = _library_path(src, headers)
+                if lib.exists():
+                    continue
+                tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+                proc = subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                     str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                pending.append((src, lib, tmp, proc))
+            failures = []
+            for src, lib, tmp, proc in pending:
+                out, _ = proc.communicate()
+                build_log[src.stem] = out
+                if proc.returncode != 0:
+                    failures.append(f"nvcc failed for {src.name}:\n{out}")
+                else:
+                    os.replace(tmp, lib)
+            if failures:
+                raise RuntimeError("\n".join(failures))
+        finally:
+            for _, _, tmp, proc in pending:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                tmp.unlink(missing_ok=True)
+        for src in sources:
+            _libs[src.stem] = ctypes.CDLL(str(_library_path(src, headers)))
+        return _libs
+
+
+def kernel(source: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C entry ``symbol`` of ``csrc/<source>.cu``, with its argument
+    types declared (every pointer and the stream as ``c_void_p``); it
+    returns the launch's ``cudaError_t``."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(build_all()[source], symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return fn
