@@ -9,10 +9,13 @@ Phases, in order, each printing one JSON line; any failure exits non-zero
 with a traceback and prints no result:
 
 1. device    — the card's name and power limit (nvidia-smi).
-2. build     — builds the CUDA kernels from ``dynamo_tpu_torch/ops/csrc``.
+2. build     — builds the CUDA kernels from ``dynamo_tpu_torch/ops/csrc``;
+               ptxas's registers and spills for each kernel instance.
 3. kernels   — every kernel of the serving path against its plain torch
                version on the card, in bf16, at Llama-3-8B (and Gemma2-9B)
-               head shapes; kernel, plain and library times.
+               head shapes, the flash kernel also on a ragged dispatch in
+               the serve path's strided gather layout; kernel, plain and
+               library times, and each time's share of its bound.
 4. serve     — the OpenAI HTTP service with the torch engine serving
                Llama-3-8B (full width and depth, random weights from the
                seed) answers concurrent completions/chat requests, streamed
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -58,17 +62,40 @@ def smi_line() -> str:
 
 
 def time_ms(torch, fn, iters: int) -> float:
-    """Mean device time of fn() over iters launches (after a warm-up)."""
+    """Mean device time of fn() over iters launches (after a warm-up).
+
+    A spin kernel holds the card while the host enqueues the launches, so
+    the events time the card's work back to back and not the wrappers'
+    Python overhead (tens of microseconds, more than a fast kernel)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)            # ~25 ms at 1.98 GHz
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_instances(log: str) -> dict:
+    """ptxas's register and spill lines (``nvcc -Xptxas -v``) for each
+    kernel instance of one build log, keyed ``name<template args>``."""
+    out: dict = {}
+    name = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            sym = m.group(1)
+            k = re.search(r"([a-z][a-z_]*_kernel)I((?:L[ib]\d+E)+)E", sym)
+            args = re.findall(r"L[ib](\d+)E", k.group(2)) if k else []
+            name = f"{k.group(1)}<{','.join(args)}>" if k else sym
+            out[name] = []
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name].append(ln.replace("ptxas info    :", "").strip())
+    return out
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -82,10 +109,12 @@ def bound_ms(nbytes: float, flops: float):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def flash_case(torch, att, name, B, T, S, Hq, Hkv, Dh, scale=None,
-               softcap=None, window=None, library=True, ragged=True):
-    import torch.nn.functional as F
-
+def flash_inputs(torch, B, T, S, Hq, Hkv, Dh, ragged=True):
+    """Contiguous q/k/v; every lane's chunk is the last T positions of its
+    S-token context. With ``ragged`` lane 1 instead has a 700-token context
+    whose last 32 query rows are padding (position 0, key 0 invalid:
+    nothing to attend to, so they must come out exactly 0). Returns the
+    inputs and the padded rows as (lane, first row)."""
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(1)
     bf = torch.bfloat16
@@ -94,31 +123,82 @@ def flash_case(torch, att, name, B, T, S, Hq, Hkv, Dh, scale=None,
     v = torch.randn((B, S, Hkv, Dh), generator=g, device=dev).to(bf)
     k_pos = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(B, 1)
     k_valid = torch.ones((B, S), dtype=torch.bool, device=dev)
-    # every lane's chunk is the last T positions of its S-token context;
-    # with ``ragged`` lane 1 instead has a 700-token context whose last 32
-    # query rows are padding (position 0, key 0 invalid: nothing to attend
-    # to, so they must come out exactly 0)
     q_pos = torch.arange(S - T, S, dtype=torch.int32, device=dev)[None] \
         .repeat(B, 1)
+    pad = []
     if ragged:
         n1 = 700
         k_valid[1, n1:] = False
         k_valid[1, 0] = False
         q_pos[1] = torch.arange(n1 - T, n1, dtype=torch.int32, device=dev)
         q_pos[1, T - 32:] = 0
+        pad = [(1, T - 32)]
+    return (q, k, v, q_pos, k_pos, k_valid), pad
+
+
+def serve_layout_inputs(torch, chunks=(512, 200, 37),
+                        contexts=(1024, 600, 37), Hq=32, Hkv=8, Dh=128,
+                        page=64):
+    """A prefill dispatch as ``engine._prefill_dispatch`` builds it: lane b
+    prefills its last ``chunks[b]`` tokens of ``contexts[b]``; T and S are
+    the longest chunk and context, neither bucketed; pad query rows sit at
+    position 0 and pad context slots point at scratch page 0, invalid. k/v
+    are the strided [B, S, Hkv, Dh] views of a gather from a shuffled page
+    pool that ``models/llama.forward`` passes to the kernel."""
+    dev = torch.device(DEVICE)
+    B, T, S = len(chunks), max(chunks), max(contexts)
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+    n_pages = 1 + sum(-(-n // page) for n in contexts)
+    k_pool = torch.randn((Hkv, n_pages, page, Dh), generator=g,
+                         device=dev).to(bf)
+    v_pool = torch.randn((Hkv, n_pages, page, Dh), generator=g,
+                         device=dev).to(bf)
+    q = torch.randn((B, T, Hq, Dh), generator=g, device=dev).to(bf)
+    pages = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                            .manual_seed(4)) + 1).tolist()
+    read_idx = torch.zeros((B, S), dtype=torch.int64)
+    k_pos = torch.zeros((B, S), dtype=torch.int32)
+    k_valid = torch.zeros((B, S), dtype=torch.bool)
+    q_pos = torch.zeros((B, T), dtype=torch.int32)
+    for b, (c, n) in enumerate(zip(chunks, contexts)):
+        own = [pages.pop() for _ in range(-(-n // page))]
+        t = torch.arange(n)
+        read_idx[b, :n] = torch.tensor(own)[t // page] * page + t % page
+        k_pos[b, :n] = t.to(torch.int32)
+        k_valid[b, :n] = True
+        q_pos[b, :c] = torch.arange(n - c, n, dtype=torch.int32)
+    read_idx = read_idx.to(dev)
+    rp, ro = read_idx // page, read_idx % page
+    k = k_pool[:, rp, ro].permute(1, 2, 0, 3)
+    v = v_pool[:, rp, ro].permute(1, 2, 0, 3)
+    return (q, k, v, q_pos.to(dev), k_pos.to(dev), k_valid.to(dev)), []
+
+
+def flash_case(torch, att, name, inputs, pad=(), scale=None, softcap=None,
+               window=None, library=True):
+    import torch.nn.functional as F
+
+    q, k, v, q_pos, k_pos, k_valid = inputs
+    B, T, Hq, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
     kw = dict(scale=scale, softcap=softcap, window=window)
     got = att.flash_attention(q, k, v, q_pos, k_pos, k_valid, **kw)
     want = att.flash_attention_plain(q, k, v, q_pos, k_pos, k_valid, **kw)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    pad_max = got[1, T - 32:].float().abs().max().item() if ragged else 0.0
+    pad_max = max([got[b, r:].float().abs().max().item() for b, r in pad],
+                  default=0.0)
     finite = bool(torch.isfinite(got.float()).all())
     mask = k_valid[:, None, :] & (k_pos[:, None, :] <= q_pos[:, :, None])
     if window is not None:
         mask = mask & (k_pos[:, None, :] > q_pos[:, :, None] - window)
     visible = int(mask.sum())
-    nbytes = (2 * q.numel() * 2 + 2 * k.numel() * 2 + q_pos.numel() * 4
-              + k_pos.numel() * 4 + k_valid.numel())
+    # bytes: q and out once, the K/V rows some query of the lane can see
+    # (the kernel loads no other tile), positions and validity once
+    keys = int(mask.any(dim=1).sum())
+    nbytes = (2 * q.numel() * 2 + 2 * keys * Hkv * Dh * 2
+              + q_pos.numel() * 4 + k_pos.numel() * 4 + k_valid.numel())
     flops = 4.0 * visible * Hq * Dh
     b_ms, b_by = bound_ms(nbytes, flops)
     ms = time_ms(torch, lambda: att.flash_attention(
@@ -132,11 +212,12 @@ def flash_case(torch, att, name, B, T, S, Hq, Hkv, Dh, scale=None,
         lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=am, scale=scale, enable_gqa=True), 20)
     row = dict(case=name, B=B, T=T, S=S, Hq=Hq, Hkv=Hkv, Dh=Dh,
-               softcap=softcap, window=window, ragged=ragged,
+               k_strides=list(k.stride()), softcap=softcap, window=window,
                max_abs_err=err, tol=TOL,
                padded_rows_max=pad_max, finite=finite, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-               bound_by=b_by, bytes=nbytes, flops=flops)
+               bound_by=b_by, bound_frac=b_ms / ms, bytes=nbytes,
+               flops=flops)
     emit({"phase": "kernels", "kernel": "flash_attention", **row})
     if not (finite and err <= TOL and pad_max == 0.0):
         raise AssertionError(f"flash_attention {name} disagrees: {row}")
@@ -183,7 +264,8 @@ def paged_case(torch, att, name, softcap=None, window=None,
                lengths=lengths_l, softcap=softcap, window=window,
                max_abs_err=err, tol=TOL, finite=finite, ms=ms,
                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by, bytes=nbytes, flops=flops)
+               bound_by=b_by, bound_frac=b_ms / ms, bytes=nbytes,
+               flops=flops)
     emit({"phase": "kernels", "kernel": "paged_attention", **row})
     if not (finite and err <= TOL):
         raise AssertionError(f"paged_attention {name} disagrees: {row}")
@@ -338,6 +420,8 @@ def serve_phase(torch, att, smi: str):
                    stream_decode_tok_s=stream_tok_s,
                    prefill_dispatches=prefill_n, decode_steps=steps_n,
                    prefill_s=c.prefill_seconds - pre_s0,
+                   prefill_ms_per_dispatch=1e3 * (c.prefill_seconds - pre_s0)
+                   / prefill_n if prefill_n else None,
                    decode_s=c.decode_seconds - dec_s0,
                    flash_launches=flash_n, paged_launches=paged_n,
                    peak_mem_bytes=peak, weight_bytes=_nbytes(c.params),
@@ -461,18 +545,21 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all()
-    ptxas = {k: [ln for ln in v.splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for k, v in _build.build_log.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas})
+          "ptxas": {k: ptxas_instances(v)
+                    for k, v in _build.build_log.items()}})
 
-    flash = flash_case(torch, att, "llama3-8b", 2, 512, 1024, 32, 8, 128)
-    flash_case(torch, att, "gemma2-9b-softcap-window", 2, 512, 1024, 16, 8,
-               256, scale=1 / 16.0, softcap=50.0, window=256, library=False)
+    flash = flash_case(torch, att, "llama3-8b",
+                       *flash_inputs(torch, 2, 512, 1024, 32, 8, 128))
+    flash_case(torch, att, "gemma2-9b-softcap-window",
+               *flash_inputs(torch, 2, 512, 1024, 16, 8, 256),
+               scale=1 / 16.0, softcap=50.0, window=256, library=False)
     # the first 512-token chunk of one prompt (a prefill's common shape)
-    flash_case(torch, att, "llama3-8b-first-chunk", 1, 512, 512, 32, 8, 128,
-               ragged=False)
+    flash_case(torch, att, "llama3-8b-first-chunk",
+               *flash_inputs(torch, 1, 512, 512, 32, 8, 128, ragged=False))
+    # a ragged batched dispatch in the serve path's own layout
+    flash_case(torch, att, "llama3-8b-serve-layout",
+               *serve_layout_inputs(torch))
     paged = paged_case(torch, att, "llama3-8b")
     paged_case(torch, att, "llama3-8b-window-softcap", softcap=50.0,
                window=512)
@@ -489,7 +576,8 @@ def main() -> int:
              launches=serve["flash_launches"],
              max_abs_err=flash["max_abs_err"], ms=flash["ms"],
              plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
-             bound_by=flash["bound_by"], library_ms=flash["library_ms"]),
+             bound_by=flash["bound_by"], bound_frac=flash["bound_frac"],
+             library_ms=flash["library_ms"]),
         dict(name="paged_attention", route="cuda",
              source=src + "paged_attention.cu",
              replaces="dynamo_tpu/ops/attention.py:400",
@@ -497,7 +585,8 @@ def main() -> int:
              launches=serve["paged_launches"],
              max_abs_err=paged["max_abs_err"], ms=paged["ms"],
              plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
-             bound_by=paged["bound_by"], library_ms=None),
+             bound_by=paged["bound_by"], bound_frac=paged["bound_frac"],
+             library_ms=None),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

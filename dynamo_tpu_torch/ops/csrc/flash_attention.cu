@@ -1,186 +1,512 @@
 // Flash attention for prefill chunks, hand-written for Hopper (sm_90a).
 //
-// Replaces: dynamo_tpu/ops/attention.py:flash_attention (Pallas kernel
-// _flash_kernel). Same contract: q [B,T,Hq,Dh], gathered GQA context k/v
+// Replaces: dynamo_tpu/ops/attention.py:_flash_kernel (the pallas_call at
+// :166). Same contract: q [B,T,Hq,Dh], gathered GQA context k/v
 // [B,S,Hkv,Dh] (bf16), explicit positions q_pos [B,T] / k_pos [B,S] (int32)
 // and validity k_valid [B,S] (bool). A query at position p attends to keys
 // with k_pos <= p and k_valid, and on sliding layers also k_pos > p - window.
 // The softcap tanh(s/c)*c comes before masking; a fully masked row gives 0.
 // Output [B,T,Hq,Dh] bf16; m, l and the accumulator stay in f32.
 //
-// Bound on the H100: for a first 512-token chunk of Llama-3-8B (Hq=32,
-// Dh=128) one layer moves about 10 MB of q/k/v/out (about 3 us at
-// 3.35 TB/s) and does 2*512*512*32*128 = 2.1 GFLOP of causal products
-// (about 2.2 us at 989 TFLOP/s in bf16): the two are close, and a long
-// context makes it bound by operations.
+// Bound on the H100: a 512-token chunk of Llama-3-8B (Hq=32, Hkv=8, Dh=128)
+// over a 1024-token context does 4*Dh*Hq flops per visible (query, key)
+// pair, 9.8 GFLOP for two lanes: 9.9 us at 989 TFLOP/s (bf16 tensor cores),
+// against 3.8 us for its 12.6 MB of q/k/v/out at 3.35 TB/s. Long contexts
+// are bound by operations; a first chunk (T = S = 512, causal) sits near the
+// line of the two. mma.sync reaches only about two thirds of that bf16 rate
+// on this card (ops/flash_probe.py measures it).
 //
-// Design: one block of 256 threads per (tile of 64 query rows, q head, b);
-// four threads share a query row, each holding a quarter of the head dim
-// (d = part + 4*i, so neighbouring threads read neighbouring shared-memory
-// words). The Pallas grid's sequential key axis becomes a loop inside the
-// block: each key tile is staged once in shared memory as f32, and the
-// online softmax is updated every 16 keys. The [T,S] score matrix never
-// reaches device memory. A key tile that no query of the block can see
-// (causally in the future, invalid, or wholly below every query's window) is
-// skipped before its K/V are loaded. This first version multiplies with
-// f32 FMAs on the CUDA cores; tensor cores (wgmma), TMA loads and
-// warp-specialised pipelining are the next step toward the bound.
+// Design (what it does about that bound):
+// - Both products run on the tensor cores: mma.sync.m16n8k16 bf16 -> f32.
+//   S = Q.K^T takes K through ldmatrix.x4; O += P.V takes V through
+//   ldmatrix.x4.trans, all of a k-step's V fragments before its MMAs; P is
+//   re-packed from the S accumulators into bf16 A fragments in registers
+//   (the Pallas kernel casts p to bf16 before P.V in the same way), so
+//   scores never touch shared memory.
+// - One block of 4 warps per (64 rows, kv head, sequence). The rows are the
+//   flattened (position, query head of the group) pairs of that kv head, as
+//   the Pallas block [G, BT, Dh] holds the whole GQA group: each K/V tile
+//   reaches shared memory once per group, not once per query head. Each
+//   warp owns 16 rows (the m16 of the MMA); masks depend only on a row's
+//   position, which each thread keeps in registers.
+// - K/V tiles are staged as bf16 in a two-stage ring filled by 16-byte
+//   cp.async copies, so tile j+1 loads while tile j computes. Rows are
+//   padded by 16 bytes, which makes every ldmatrix conflict-free for any
+//   global row stride that is a multiple of 8 elements (the serve path
+//   passes a permuted view of a pool gather).
+// - Q fragments stay in registers for the whole key loop (Dh <= 128); at
+//   Dh = 256 they are re-read from shared memory each tile instead, so the
+//   f32 accumulator (128 registers a thread) fits without spilling.
+// - Online softmax per row in registers: the row max is reduced across the
+//   four threads of a quad once per key tile, the row sum once at the end.
+//   The finite -1e30 sentinel and explicit p = 0 for masked slots keep a
+//   fully masked row at exactly 0. A tile whose every key every row of the
+//   block sees (a vote at the tile's barrier) skips the mask and folds the
+//   scale into one FMA before each exp.
+// - The block computes its live key tiles up front (a key is live if some
+//   row of the block can see it: valid, not in the causal future, not below
+//   every row's window) and loads and multiplies only the tiles between the
+//   first and the last live one.
+// Next step toward the bound: wgmma with TMA loads into an mbarrier ring
+// and warp specialisation (a producer warp, two consumer warpgroups).
 
+#include <cfloat>
 #include <climits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;           // query rows per block
-constexpr int PARTS = 4;         // threads per query row
-constexpr int NT = BQ * PARTS;   // threads per block
-constexpr int KC = 16;           // keys per online-softmax update
+constexpr int NW = 4;             // warps per block, 16 rows (one m16) each
+constexpr int NT = NW * 32;       // threads per block
+constexpr int BM = NW * 16;       // rows (position x group head) per block
+constexpr float LOG2E = 1.4426950408889634f;
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; src_ok = false fills the 16 bytes with 0
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool src_ok) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(src_ok ? 16 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+        "{%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+// c[16x8] += a[16x16] . b[16x8], bf16 inputs, f32 accumulators. Lane l
+// (g = l/4, q = l%4) holds a {(g, 2q..), (g+8, 2q..), (g, 2q+8..),
+// (g+8, 2q+8..)}, b {(k 2q.., n g), (k 2q+8.., n g)} and c {(g, 2q),
+// (g, 2q+1), (g+8, 2q), (g+8, 2q+1)}.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit (inputs here are <= 0; tiny results
+// flush to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// a key's position, or INT_MAX (never visible) when it is invalid or past
+// S; the two loads are independent, so they share one round trip
+__device__ __forceinline__ int key_code(const int* k_pos,
+                                        const unsigned char* k_valid,
+                                        long long base, int key, int S) {
+    if (key >= S) return INT_MAX;
+    const int p = k_pos[base + key];
+    return k_valid[base + key] ? p : INT_MAX;
+}
+
+// shared memory: Q [BM][DH+8], the two-slot K and V rings [2][BK][DH+8]
+// each, and the ring's key codes [2][BK]
 template <int DH, int BK>
+constexpr size_t smem_bytes() {
+    return sizeof(bf16) * (BM + 4 * BK) * (DH + 8) + sizeof(int) * 2 * BK;
+}
+
+// DH head dim, BK keys per tile; QREG: Q fragments stay in registers for
+// the whole key loop (else they are re-read from shared memory each tile,
+// which keeps the Dh=256 accumulator within the register file)
+template <int DH, int BK, bool QREG>
 __global__ void __launch_bounds__(NT)
-flash_kernel(const __nv_bfloat16* __restrict__ q,
-             const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v,
-             const int* __restrict__ q_pos,
+flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, const int* __restrict__ q_pos,
              const int* __restrict__ k_pos,
              const unsigned char* __restrict__ k_valid,
-             __nv_bfloat16* __restrict__ out,
-             int T, int S, int Hq, int G,
+             bf16* __restrict__ out, int T, int S, int Hq, int G,
              long long q_sb, long long q_st, long long q_sh,
              long long k_sb, long long k_ss, long long k_sh,
              long long v_sb, long long v_ss, long long v_sh,
              float scale, float softcap, int window) {
-    constexpr int DP = DH / PARTS;   // head-dim elements per thread
-    constexpr int C8 = DH / 8;       // 16-byte chunks per K/V row
-    extern __shared__ float smem[];
-    float* Ks = smem;                                  // [BK][DH]
-    float* Vs = Ks + BK * DH;                          // [BK][DH]
-    int* Kp = reinterpret_cast<int*>(Vs + BK * DH);    // [BK] key positions
-    int* Kv = Kp + BK;                                 // [BK] key validity
-    __shared__ int q_lo, q_hi;                         // block's query range
+    constexpr int LD = DH + 8;          // padded shared row (elements)
+    constexpr int C8 = DH / 8;          // 16-byte chunks per row
+    constexpr int KSTEPS = DH / 16;     // k-steps of Q.K^T
+    constexpr int NS = BK / 8;          // score n-tiles per warp
+    constexpr int NO = DH / 8;          // output n-tiles per warp
+    static_assert(BK % 16 == 0 && BK <= NT, "key tile");
+
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* sQ = reinterpret_cast<bf16*>(smem_raw);       // [BM][LD]
+    bf16* sK = sQ + BM * LD;                            // [2][BK][LD]
+    bf16* sV = sK + 2 * BK * LD;                        // [2][BK][LD]
+    int* sKp = reinterpret_cast<int*>(sV + 2 * BK * LD);  // [2][BK]
+    __shared__ int s_lo, s_hi, s_first, s_last;
 
     const int tid = threadIdx.x;
-    const int row = tid / PARTS;
-    const int part = tid % PARTS;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
-    const int hk = h / G;
-    const int t = blockIdx.x * BQ + row;
-    const bool row_ok = t < T;
+    const int warp = tid / 32, lane = tid % 32;
+    const int gid = lane >> 2, tig = lane & 3;
+    const int b = blockIdx.z, hk = blockIdx.y;
+    // the rows with the most keys (latest positions) start first
+    const int R0 = (gridDim.x - 1 - blockIdx.x) * BM;
+    const int rows = T * G;
+    const long long kb = (long long)b * S;              // k_pos/k_valid row
+    const bf16* kbase = k + b * k_sb + hk * k_sh;
+    const bf16* vbase = v + b * v_sb + hk * v_sh;
 
-    float qr[DP];
-    const __nv_bfloat16* qp = q + b * q_sb + (long long)(row_ok ? t : 0) * q_st
-                              + h * q_sh + part;
-#pragma unroll
-    for (int i = 0; i < DP; ++i)
-        qr[i] = row_ok ? __bfloat162float(qp[PARTS * i]) : 0.f;
-    const int my_pos = row_ok ? q_pos[(long long)b * T + t] : 0;
+    // 1. Q tile -> shared (padded rows past T*G become zeros)
+    for (int c = tid; c < BM * C8; c += NT) {
+        const int r = c / C8, d = (c % C8) * 8;
+        const int R = R0 + r;
+        const bool ok = R < rows;
+        const int t = ok ? R / G : 0, g = ok ? R % G : 0;
+        cp_async16(sQ + r * LD + d,
+                   q + b * q_sb + t * q_st + (hk * G + g) * q_sh + d, ok);
+    }
+    cp_async_commit();
 
+    // K/V rows of one tile into a ring slot (keys past S become 0)
+    auto load_kv = [&](int tile, int slot) {
+        bf16* dk = sK + slot * BK * LD;
+        bf16* dv = sV + slot * BK * LD;
+        for (int c = tid; c < BK * C8; c += NT) {
+            const int r = c / C8, d = (c % C8) * 8;
+            const int key = tile * BK + r;
+            const bool ok = key < S;
+            const long long kr = ok ? key : 0;
+            cp_async16(dk + r * LD + d, kbase + kr * k_ss + d, ok);
+            cp_async16(dv + r * LD + d, vbase + kr * v_ss + d, ok);
+        }
+    };
+
+    // 2. the block's query positions and the live key tiles, with the
+    // positions and the scan's first keys loaded in one round trip
     if (tid == 0) {
-        q_lo = INT_MAX;
-        q_hi = INT_MIN;
+        s_lo = INT_MAX;
+        s_hi = INT_MIN;
+        s_first = INT_MAX;
+        s_last = -1;
     }
-    __syncthreads();
-    if (row_ok && part == 0) {
-        atomicMin(&q_lo, my_pos);
-        atomicMax(&q_hi, my_pos);
-    }
-    __syncthreads();
-    const int lo = q_lo, hi = q_hi;
-
-    float m = dtt::NEG_INF, l = 0.f;
-    float acc[DP];
+    constexpr int SCAN = 8;             // keys a thread loads per round
+    int kp[SCAN];
+    bool kv[SCAN];
+    auto scan_load = [&](int s0) {
 #pragma unroll
-    for (int i = 0; i < DP; ++i) acc[i] = 0.f;
+        for (int u = 0; u < SCAN; ++u) {
+            const int s = s0 + u * NT;
+            kp[u] = s < S ? k_pos[kb + s] : 0;
+            kv[u] = s < S && k_valid[kb + s];
+        }
+    };
+    scan_load(tid);
+    const int qp = tid < BM && R0 + tid < rows
+                   ? q_pos[(long long)b * T + (R0 + tid) / G] : INT_MIN;
+    __syncthreads();
+    if (qp != INT_MIN) {
+        atomicMin(&s_lo, qp);
+        atomicMax(&s_hi, qp);
+    }
+    __syncthreads();
+    const int lo = s_lo, hi = s_hi;
+    int first = INT_MAX, last = -1;
+    if (lo <= hi) {
+        for (int s0 = tid; s0 < S; s0 += SCAN * NT) {
+            if (s0 != tid) scan_load(s0);
+#pragma unroll
+            for (int u = 0; u < SCAN; ++u) {
+                const int s = s0 + u * NT;
+                if (kv[u] && kp[u] <= hi
+                        && (window <= 0 || kp[u] > lo - window)) {
+                    first = min(first, s / BK);
+                    last = max(last, s / BK);
+                }
+            }
+        }
+    }
+    first = __reduce_min_sync(0xffffffffu, first);
+    last = __reduce_max_sync(0xffffffffu, last);
+    if (lane == 0) {
+        atomicMin(&s_first, first);
+        atomicMax(&s_last, last);
+    }
+    __syncthreads();
+    first = s_first;
+    last = s_last;
 
-    for (int k0 = 0; k0 < S; k0 += BK) {
-        int seen = 0;
+    // this thread's two rows: warp*16 + gid and + 8
+    int qhi[2], qlo[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int R = R0 + warp * 16 + gid + 8 * i;
+        if (R < rows) {
+            const int p = q_pos[(long long)b * T + R / G];
+            qhi[i] = p;
+            qlo[i] = window > 0 ? p - window : INT_MIN;
+        } else {                        // padding row: sees nothing
+            qhi[i] = INT_MIN;
+            qlo[i] = INT_MAX;
+        }
+    }
+    // scores in log2 units: exp2(x - m) == exp(s - m') for x = s * log2(e)
+    const bool capped = softcap > 0.f;
+    const float sc = capped ? scale / softcap : scale * LOG2E;
+    const float cap2 = softcap * LOG2E;
+
+    float o[NO][4];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    float m[2] = {dtt::NEG_INF, dtt::NEG_INF}, l[2] = {0.f, 0.f};
+
+    // per-lane ldmatrix offsets (elements) inside the warp's 16-row Q
+    // slice, a 16-key x 16-d block of K (non-transposed) and of V
+    // (transposed)
+    const int q_off = (lane & 15) * LD + (lane >> 4) * 8;
+    const int k_off = ((lane & 7) + ((lane >> 4) << 3)) * LD
+                      + ((lane >> 3) & 1) * 8;
+    const int v_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD
+                      + (lane >> 4) * 8;
+    const bf16* sQw = sQ + warp * 16 * LD + q_off;
+
+    // a key every row of the block can see (a tile of such keys needs no
+    // mask); INT_MAX codes (invalid or past S) never qualify
+    auto sees_all = [&](int code) {
+        return code <= lo && (window <= 0 || code > hi - window);
+    };
+    unsigned full_bits = 0u;            // this thread's key, per ring slot
+
+    if (first <= last) {
+        load_kv(first, 0);
+        cp_async_commit();
+        const int code0 = tid < BK
+            ? key_code(k_pos, k_valid, kb, first * BK + tid, S) : INT_MAX;
+        uint32_t qf[QREG ? KSTEPS : 1][4];
+        if constexpr (QREG) {           // while tile `first` lands
+            cp_async_wait<1>();         // the Q tile has landed
+            __syncthreads();
+#pragma unroll
+            for (int kk = 0; kk < KSTEPS; ++kk)
+                ldsm_x4(qf[kk], sQw + kk * 16);
+        }
         if (tid < BK) {
-            const int kk = k0 + tid;
-            int kp = 0, kv = 0;
-            if (kk < S) {
-                kp = k_pos[(long long)b * S + kk];
-                kv = k_valid[(long long)b * S + kk] ? 1 : 0;
-            }
-            Kp[tid] = kp;
-            Kv[tid] = kv;
-            seen = kv && kp <= hi && (window <= 0 || kp > lo - window);
+            sKp[tid] = code0;
+            full_bits = (unsigned)sees_all(code0);
         }
-        // barrier + vote: skip the tile when no query of the block sees it
-        if (!__syncthreads_or(seen)) continue;
 
-        for (int idx = tid; idx < BK * C8; idx += NT) {
-            const int r = idx / C8;
-            const int c = (idx % C8) * 8;
-            const int kk = k0 + r;
-            float* kd = Ks + r * DH + c;
-            float* vd = Vs + r * DH + c;
-            if (kk < S) {
-                dtt::unpack8(*reinterpret_cast<const uint4*>(
-                                 k + b * k_sb + kk * k_ss + hk * k_sh + c), kd);
-                dtt::unpack8(*reinterpret_cast<const uint4*>(
-                                 v + b * v_sb + kk * v_ss + hk * v_sh + c), vd);
+        for (int j = first, slot = 0; j <= last; ++j, slot ^= 1) {
+            cp_async_wait<0>();         // tile j has landed for every
+            // thread, tile j - 1's slot is free, and the vote says whether
+            // every row sees every key of tile j
+            const bool full = __syncthreads_and(
+                tid >= BK || ((full_bits >> slot) & 1u));
+            int code_next = INT_MAX;
+            if (j < last) {
+                load_kv(j + 1, slot ^ 1);
+                if (tid < BK)           // lands while this tile computes
+                    code_next = key_code(k_pos, k_valid, kb,
+                                         (j + 1) * BK + tid, S);
+            }
+            cp_async_commit();
+
+            const bf16* Ks = sK + slot * BK * LD + k_off;
+            const bf16* Vs = sV + slot * BK * LD + v_off;
+            const int* kps = sKp + slot * BK + tig * 2;
+
+            // S = Q.K^T for this warp's 16 rows x BK keys
+            float s[NS][4];
+#pragma unroll
+            for (int n = 0; n < NS; ++n)
+                s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < KSTEPS; ++kk) {
+                uint32_t a[4];
+                if constexpr (QREG) {
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
+                } else {
+                    ldsm_x4(a, sQw + kk * 16);
+                }
+#pragma unroll
+                for (int n = 0; n < NS / 2; ++n) {
+                    uint32_t bk[4];
+                    ldsm_x4(bk, Ks + n * 16 * LD + kk * 16);
+                    mma_bf16(s[2 * n], a, bk[0], bk[1]);
+                    mma_bf16(s[2 * n + 1], a, bk[2], bk[3]);
+                }
+            }
+
+            // online softmax; the row max and alpha need the quad's values
+            float alpha[2], ls[2] = {0.f, 0.f};
+            if (full && !capped) {
+                // nothing masked: the max of the raw scores, then the scale
+                // folded into one FMA before each exp
+                float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+                for (int n = 0; n < NS; ++n) {
+                    mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+                    mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+                }
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    const float m_new = fmaxf(m[i], quad_max(mx[i]) * sc);
+                    alpha[i] = fast_exp2(m[i] - m_new);
+                    m[i] = m_new;
+                }
+#pragma unroll
+                for (int n = 0; n < NS; ++n) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int i = e >> 1;
+                        const float p = fast_exp2(fmaf(s[n][e], sc, -m[i]));
+                        s[n][e] = p;
+                        ls[i] += p;
+                    }
+                }
             } else {
-                dtt::zero8(kd);
-                dtt::zero8(vd);
+                // scale, softcap, mask (NEG_INF); the row max over the tile
+                float mx[2] = {dtt::NEG_INF, dtt::NEG_INF};
+#pragma unroll
+                for (int n = 0; n < NS; ++n) {
+                    const int2 kp2 =
+                        *reinterpret_cast<const int2*>(kps + n * 8);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int i = e >> 1;
+                        const int key = (e & 1) ? kp2.y : kp2.x;
+                        float x = s[n][e] * sc;
+                        if (capped) x = tanhf(x) * cap2;
+                        x = (key <= qhi[i] && key > qlo[i]) ? x
+                                                            : dtt::NEG_INF;
+                        s[n][e] = x;
+                        mx[i] = fmaxf(mx[i], x);
+                    }
+                }
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    const float m_new = fmaxf(m[i], quad_max(mx[i]));
+                    alpha[i] = fast_exp2(m[i] - m_new);
+                    m[i] = m_new;
+                }
+#pragma unroll
+                for (int n = 0; n < NS; ++n) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int i = e >> 1;   // masked slots: p = 0
+                        const float p = s[n][e] == dtt::NEG_INF
+                                        ? 0.f : fast_exp2(s[n][e] - m[i]);
+                        s[n][e] = p;
+                        ls[i] += p;
+                    }
+                }
             }
-        }
-        __syncthreads();
+#pragma unroll
+            for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + ls[i];
+#pragma unroll
+            for (int n = 0; n < NO; ++n) {
+                o[n][0] *= alpha[0];
+                o[n][1] *= alpha[0];
+                o[n][2] *= alpha[1];
+                o[n][3] *= alpha[1];
+            }
 
-        for (int kc = 0; kc < BK; kc += KC) {
-            float s[KC];
-            unsigned live = 0u;
+            // O += P.V, P re-packed from the score accumulators
 #pragma unroll
-            for (int j = 0; j < KC; ++j) {
-                const float* kr = Ks + (kc + j) * DH + part;
-                float a = 0.f;
+            for (int kk = 0; kk < BK / 16; ++kk) {
+                uint32_t a[4];
+                a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+                a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+                a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+                a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+                // all of this k-step's V fragments first, then the MMAs
+                // (8% faster at Dh=128 than loading each beside its MMA)
+                uint32_t bv[NO / 2][4];
 #pragma unroll
-                for (int i = 0; i < DP; ++i) a = fmaf(qr[i], kr[PARTS * i], a);
-                a += __shfl_xor_sync(0xffffffffu, a, 1);
-                a += __shfl_xor_sync(0xffffffffu, a, 2);
-                a = dtt::cap_score(a * scale, softcap);
-                const int kp = Kp[kc + j];
-                const bool ok = Kv[kc + j] && kp <= my_pos
-                                && (window <= 0 || kp > my_pos - window);
-                s[j] = ok ? a : dtt::NEG_INF;
-                live |= (ok ? 1u : 0u) << j;
+                for (int n = 0; n < NO / 2; ++n)
+                    ldsm_x4_trans(bv[n], Vs + kk * 16 * LD + n * 16);
+#pragma unroll
+                for (int n = 0; n < NO / 2; ++n) {
+                    mma_bf16(o[2 * n], a, bv[n][0], bv[n][1]);
+                    mma_bf16(o[2 * n + 1], a, bv[n][2], bv[n][3]);
+                }
             }
-            if (live == 0u) continue;   // nothing visible: state unchanged
-            float mc = dtt::NEG_INF;
-#pragma unroll
-            for (int j = 0; j < KC; ++j) mc = fmaxf(mc, s[j]);
-            const float m_new = fmaxf(m, mc);
-            const float alpha = expf(m - m_new);
-            float ps = 0.f;
-#pragma unroll
-            for (int j = 0; j < KC; ++j) {
-                s[j] = ((live >> j) & 1u) ? expf(s[j] - m_new) : 0.f;
-                ps += s[j];
+
+            // tile j + 1's slot was tile j - 1's: every thread is past it
+            if (j < last && tid < BK) {
+                sKp[(slot ^ 1) * BK + tid] = code_next;
+                full_bits = (full_bits & (1u << slot))
+                            | ((unsigned)sees_all(code_next) << (slot ^ 1));
             }
-            l = l * alpha + ps;
-#pragma unroll
-            for (int i = 0; i < DP; ++i) {
-                const float* vc = Vs + kc * DH + part + PARTS * i;
-                float a = acc[i] * alpha;
-#pragma unroll
-                for (int j = 0; j < KC; ++j) a = fmaf(s[j], vc[j * DH], a);
-                acc[i] = a;
-            }
-            m = m_new;
         }
-        __syncthreads();
     }
+    cp_async_wait<0>();
+    __syncthreads();                    // sQ is free for the output
 
-    if (row_ok) {
-        const float den = l == 0.f ? 1.f : l;
-        __nv_bfloat16* op = out + (((long long)b * T + t) * Hq + h) * DH + part;
+    // normalise (l == 0: the row saw nothing and stays 0) and stage the
+    // bf16 rows in sQ, then write them out in 16-byte pieces
 #pragma unroll
-        for (int i = 0; i < DP; ++i) op[PARTS * i] = __float2bfloat16(acc[i] / den);
+    for (int i = 0; i < 2; ++i) {
+        const float li = quad_sum(l[i]);
+        const float inv = li == 0.f ? 1.f : 1.f / li;
+        bf16* row = sQ + (warp * 16 + gid + 8 * i) * LD + tig * 2;
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+            *reinterpret_cast<uint32_t*>(row + n * 8) =
+                pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+    }
+    __syncthreads();
+    for (int c = tid; c < BM * C8; c += NT) {
+        const int r = c / C8, d = (c % C8) * 8;
+        const int R = R0 + r;
+        if (R < rows) {
+            const int t = R / G, g = R % G;
+            *reinterpret_cast<uint4*>(
+                out + (((long long)b * T + t) * Hq + hk * G + g) * DH + d) =
+                *reinterpret_cast<const uint4*>(sQ + r * LD + d);
+        }
     }
 }
 
-template <int DH, int BK>
+template <int DH, int BK, bool QREG>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* q_pos, const int* k_pos,
                    const unsigned char* k_valid, void* out,
@@ -190,17 +516,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    long long v_sb, long long v_ss, long long v_sh,
                    float scale, float softcap, int window,
                    cudaStream_t stream) {
-    const size_t smem = 2 * sizeof(float) * BK * DH + 2 * sizeof(int) * BK;
+    constexpr size_t smem = smem_bytes<DH, BK>();
+    auto* kernel = flash_kernel<DH, BK, QREG>;
     cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<DH, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
-    const dim3 grid((T + BQ - 1) / BQ, Hq, B);
-    flash_kernel<DH, BK><<<grid, NT, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), q_pos, k_pos, k_valid,
-        static_cast<__nv_bfloat16*>(out), T, S, Hq, Hq / Hkv,
+    const int G = Hq / Hkv;
+    const dim3 grid((unsigned)(((long long)T * G + BM - 1) / BM), Hkv, B);
+    kernel<<<grid, NT, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), q_pos, k_pos, k_valid,
+        static_cast<bf16*>(out), T, S, Hq, G,
         q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
         scale, softcap, window);
     return cudaGetLastError();
@@ -209,7 +535,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success). Strides are in
-// elements; the head dim must be contiguous and 16-byte aligned.
+// elements; the head dim must be contiguous and every other stride a
+// multiple of 8 elements, with 16-byte aligned bases. Positions must be
+// below INT_MAX (the kernel's code for an invalid key).
 extern "C" int dtt_flash_attention(
     const void* q, const void* k, const void* v, const void* q_pos,
     const void* k_pos, const void* k_valid, void* out,
@@ -222,14 +550,14 @@ extern "C" int dtt_flash_attention(
     const int* kp = static_cast<const int*>(k_pos);
     const unsigned char* kv = static_cast<const unsigned char*>(k_valid);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DTT_FLASH(DH, BK)                                                    \
-    launch<DH, BK>(q, k, v, qp, kp, kv, out, B, T, S, Hq, Hkv, q_sb, q_st,   \
-                   q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, softcap, \
-                   window, st)
+#define DTT_FLASH(DH, BK, QREG)                                              \
+    launch<DH, BK, QREG>(q, k, v, qp, kp, kv, out, B, T, S, Hq, Hkv, q_sb,    \
+                         q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,      \
+                         scale, softcap, window, st)
     switch (Dh) {
-        case 64: return (int)DTT_FLASH(64, 64);
-        case 128: return (int)DTT_FLASH(128, 64);
-        case 256: return (int)DTT_FLASH(256, 32);
+        case 64: return (int)DTT_FLASH(64, 64, true);
+        case 128: return (int)DTT_FLASH(128, 64, true);
+        case 256: return (int)DTT_FLASH(256, 32, false);
         default: return (int)cudaErrorInvalidValue;
     }
 #undef DTT_FLASH

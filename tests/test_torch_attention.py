@@ -76,6 +76,19 @@ def test_flash_plain_window_softcap_scale(window, softcap, scale):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("window,softcap", [
+    (None, None),
+    (5, 30.0),                   # a window far narrower than any tile
+])
+def test_flash_plain_matches_pallas_kernel_head_dim(window, softcap):
+    """The CUDA kernel's own head dim (64) and a GQA group of 8, with T and
+    S that fill none of its 64-row / 64-key tiles, and padded rows."""
+    args = _flash_inputs(17, 2, 24, 40, 8, 1, 64, padded=True)
+    got, want = _run_flash_both(args, window=window, softcap=softcap)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert np.all(got[-1, 12:] == 0.0)
+
+
 def test_flash_plain_fully_padded_rows_are_zero():
     args = _flash_inputs(3, 2, 16, 64, 4, 2, 16, padded=True)
     got, want = _run_flash_both(args, softcap=50.0)
