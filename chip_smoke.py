@@ -14,8 +14,11 @@ with a traceback and prints no result:
 3. kernels   — every kernel of the serving path against its plain torch
                version on the card, in bf16, at Llama-3-8B (and Gemma2-9B)
                head shapes, the flash kernel also on a ragged dispatch in
-               the serve path's strided gather layout; kernel, plain and
-               library times, and each time's share of its bound.
+               the serve path's strided gather layout, the paged kernel
+               also on one 2048-token stream and on the serve burst's own
+               decode shape (``paged_probe.PAGED_CASES``); kernel, plain
+               and library times, each time's share of its bound, and the
+               paged kernel's split plan.
 4. serve     — the OpenAI HTTP service with the torch engine serving
                Llama-3-8B (full width and depth, random weights from the
                seed) answers concurrent completions/chat requests, streamed
@@ -32,7 +35,6 @@ from __future__ import annotations
 
 import json
 import os
-import re
 import subprocess
 import sys
 import threading
@@ -78,24 +80,6 @@ def time_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def ptxas_instances(log: str) -> dict:
-    """ptxas's register and spill lines (``nvcc -Xptxas -v``) for each
-    kernel instance of one build log, keyed ``name<template args>``."""
-    out: dict = {}
-    name = None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", ln)
-        if m:
-            sym = m.group(1)
-            k = re.search(r"([a-z][a-z_]*_kernel)I((?:L[ib]\d+E)+)E", sym)
-            args = re.findall(r"L[ib](\d+)E", k.group(2)) if k else []
-            name = f"{k.group(1)}<{','.join(args)}>" if k else sym
-            out[name] = []
-        elif name and ("registers" in ln or "spill" in ln):
-            out[name].append(ln.replace("ptxas info    :", "").strip())
-    return out
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -224,27 +208,19 @@ def flash_case(torch, att, name, inputs, pad=(), scale=None, softcap=None,
     return row
 
 
-def paged_case(torch, att, name, softcap=None, window=None,
-               lengths_l=(1, 64, 100, 777, 1024, 1500, 2000, 2048)):
+def paged_case(torch, att, name, softcap=None, window=None, **shape):
+    """The paged kernel against its plain version at one of
+    ``paged_probe.PAGED_CASES``: ``shape`` goes to ``paged_inputs``."""
+    from dynamo_tpu_torch.ops.paged_probe import paged_inputs
+
     dev = torch.device(DEVICE)
-    B, page, Hkv, G, Dh, P = 8, 64, 8, 4, 128, 32
-    Hq = Hkv * G
-    n_pages = B * P + 1
-    g = torch.Generator(device=dev).manual_seed(2)
-    bf = torch.bfloat16
-    q = torch.randn((B, Hq, Dh), generator=g, device=dev).to(bf)
-    kp = torch.randn((Hkv, n_pages, page, Dh), generator=g, device=dev).to(bf)
-    vp = torch.randn((Hkv, n_pages, page, Dh), generator=g, device=dev).to(bf)
-    lengths_l = list(lengths_l)
-    # a shuffled page table; pages past a lane's length stay the scratch 0
-    perm = torch.randperm(n_pages - 1, generator=torch.Generator()
-                          .manual_seed(3)) + 1
-    pt = torch.zeros((B, P), dtype=torch.int32)
-    for b, n in enumerate(lengths_l):
-        need = -(-n // page)
-        pt[b, :need] = perm[b * P:b * P + need].to(torch.int32)
-    pt = pt.to(dev)
-    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    q, kp, vp, pt, lengths = paged_inputs(dev, **shape)
+    B, Hq, Dh = q.shape
+    Hkv, _, page, _ = kp.shape
+    P = pt.shape[1]
+    lengths_l = lengths.tolist()
+    split, nsplit = att.paged_split_plan(B, Hq, Hkv, Dh, P, page,
+                                         att._sm_count(dev.index))
     kw = dict(softcap=softcap, window=window)
     got = att.paged_attention(q, kp, vp, pt, lengths, **kw)
     want = att.paged_attention_plain(q, kp, vp, pt, lengths, **kw)
@@ -260,8 +236,9 @@ def paged_case(torch, att, name, softcap=None, window=None,
         q, kp, vp, pt, lengths, **kw), 50)
     plain_ms = time_ms(torch, lambda: att.paged_attention_plain(
         q, kp, vp, pt, lengths, **kw), 5)
-    row = dict(case=name, B=B, page=page, Hq=Hq, Hkv=Hkv, Dh=Dh,
+    row = dict(case=name, B=B, P=P, page=page, Hq=Hq, Hkv=Hkv, Dh=Dh,
                lengths=lengths_l, softcap=softcap, window=window,
+               split=split, splits=nsplit,
                max_abs_err=err, tol=TOL, finite=finite, ms=ms,
                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                bound_by=b_by, bound_frac=b_ms / ms, bytes=nbytes,
@@ -471,7 +448,12 @@ def profile_phase(torch, port: int) -> dict:
                device_busy_ms=busy_ms,
                device_busy_share=busy_ms / (wall * 1e3),
                kernels=[dict(name=k[:90], launches=n, ms=t / 1e3)
-                        for k, (n, t) in top])
+                        for k, (n, t) in top],
+               # the port's own kernels, whatever their rank
+               attention_kernels=[
+                   dict(name=k[:90], launches=n, ms=t / 1e3)
+                   for k, (n, t) in by_name.items()
+                   if "::flash_kernel<" in k or "::paged_" in k])
     emit(row)
     if busy_ms <= 0.0:
         raise AssertionError("the profiler recorded no device time")
@@ -546,7 +528,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": {k: ptxas_instances(v)
+          "ptxas": {k: _build.ptxas_instances(v)
                     for k, v in _build.build_log.items()}})
 
     flash = flash_case(torch, att, "llama3-8b",
@@ -560,11 +542,10 @@ def main() -> int:
     # a ragged batched dispatch in the serve path's own layout
     flash_case(torch, att, "llama3-8b-serve-layout",
                *serve_layout_inputs(torch))
-    paged = paged_case(torch, att, "llama3-8b")
-    paged_case(torch, att, "llama3-8b-window-softcap", softcap=50.0,
-               window=512)
-    # every lane at 1024 tokens (the paged byte bound of one layer)
-    paged_case(torch, att, "llama3-8b-b8-len1024", lengths_l=[1024] * 8)
+    from dynamo_tpu_torch.ops.paged_probe import PAGED_CASES
+
+    paged = {name: paged_case(torch, att, name, **kw)
+             for name, kw in PAGED_CASES.items()}["llama3-8b"]
 
     serve, _ = serve_phase(torch, att, smi)
 
@@ -582,7 +563,7 @@ def main() -> int:
              source=src + "paged_attention.cu",
              replaces="dynamo_tpu/ops/attention.py:400",
              also_replaces="dynamo_tpu/ops/attention.py:552",
-             launches=serve["paged_launches"],
+             launches=serve["paged_launches"], splits=paged["splits"],
              max_abs_err=paged["max_abs_err"], ms=paged["ms"],
              plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
              bound_by=paged["bound_by"], bound_frac=paged["bound_frac"],

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -104,3 +105,21 @@ def kernel(source: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return fn
+
+
+def ptxas_instances(log: str) -> Dict[str, List[str]]:
+    """ptxas's register and spill lines (``nvcc -Xptxas -v``) for each
+    kernel instance of one build log, keyed ``name<template args>``."""
+    out: dict = {}
+    name = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            sym = m.group(1)
+            k = re.search(r"([a-z][a-z_]*_kernel)I((?:L[ib]\d+E)+)E", sym)
+            args = re.findall(r"L[ib](\d+)E", k.group(2)) if k else []
+            name = f"{k.group(1)}<{','.join(args)}>" if k else sym
+            out[name] = []
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name].append(ln.replace("ptxas info    :", "").strip())
+    return out

@@ -25,6 +25,7 @@ reference's engine adapters (SURVEY §2.1 engine rows).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -36,8 +37,11 @@ NEG_INF = -1e30
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FLASH_ARGS = [_P] * 7 + [_I] * 6 + [_I64] * 9 + [_F, _F, _I, _P]
-_PAGED_ARGS = [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P]
+_PAGED_ARGS = [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P]
 KERNEL_HEAD_DIMS = (64, 128, 256)
+# the paged kernel's grid aims at this many blocks an SM; about half of them
+# exit at once when lanes are shorter than the table
+PAGED_BLOCKS_PER_SM = 4
 
 
 def _masked_softmax_av(s: torch.Tensor, mask: torch.Tensor,
@@ -218,6 +222,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     only [max(0, length - window), length), and the kernel never touches
     pages below the window. ``softcap`` tanh-caps scores pre-softmax;
     ``scale`` overrides rsqrt(Dh). Returns [B, Hq, Dh].
+
+    On the card the context is split over blocks (:func:`paged_split_plan`)
+    and the splits' partials merge in a fixed order in a second kernel, so
+    the output is bitwise the same from run to run.
     """
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_tables,
@@ -236,6 +244,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if Dh not in KERNEL_HEAD_DIMS:
         raise ValueError(f"paged_attention: head dim {Dh} not in "
                          f"{KERNEL_HEAD_DIMS}")
+    if P * page == 0:
+        raise ValueError("paged_attention: the page table holds no tokens")
     dev = q.device
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         _check_cuda(name, t, torch.bfloat16, dev)
@@ -250,12 +260,18 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                              f"{shape}, got {tuple(t.shape)}")
     if scale is None:
         scale = 1.0 / math.sqrt(Dh)
+    split, nsplit = paged_split_plan(B, Hq, Hkv, Dh, P, page,
+                                     _sm_count(dev.index))
     out = torch.empty((B, Hq, Dh), dtype=q.dtype, device=dev)
+    # per split: acc [Dh] and (m, l), f32; none with one split
+    ws = (torch.empty(B * Hq * nsplit * (Dh + 2), dtype=torch.float32,
+                      device=dev) if nsplit > 1 else None)
     fn = _build.kernel("paged_attention", "dtt_paged_attention", _PAGED_ARGS)
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 B, Hq, Hkv, Dh, n_pages, page, P,
+                 None if ws is None else ws.data_ptr(),
+                 B, Hq, Hkv, Dh, n_pages, page, P, split, nsplit,
                  float(scale), float(softcap or 0.0), int(window or 0),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
@@ -266,3 +282,37 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_attention.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: Optional[int]) -> int:
+    return torch.cuda.get_device_properties(index or 0).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_granule(Dh: int) -> int:
+    return _build.kernel("paged_attention", "dtt_paged_granule",
+                         [ctypes.c_int])(Dh)
+
+
+@functools.lru_cache(maxsize=None)
+def paged_split_plan(B: int, Hq: int, Hkv: int, Dh: int, P: int, page: int,
+                     n_sm: int, granule: Optional[int] = None,
+                     blocks_per_sm: int = PAGED_BLOCKS_PER_SM
+                     ) -> Tuple[int, int]:
+    """(split, nsplit): the paged kernel's tokens per split and its number
+    of splits, from host-known shapes only (never from ``lengths``, which
+    live on the device), so the launch adds no host sync. The grid
+    (nsplit, Hkv x head chunks, B) aims at ``blocks_per_sm`` blocks an SM;
+    a split is a whole number of the kernel's block rounds
+    (``granule`` tokens, from the built kernel unless given) and the splits
+    cover the table's ``P * page`` tokens."""
+    if granule is None:
+        granule = _paged_granule(Dh)
+    G = Hq // Hkv
+    chunks = -(-G // 16)          # a block holds up to 16 query heads
+    ctx = P * page
+    want = -(-blocks_per_sm * n_sm // (B * Hkv * chunks))
+    nsplit = max(1, min(want, -(-ctx // granule)))
+    split = -(-(-(-ctx // nsplit)) // granule) * granule
+    return split, -(-ctx // split)

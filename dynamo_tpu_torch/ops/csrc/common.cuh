@@ -1,4 +1,6 @@
-// Helpers shared by the attention kernels of dynamo_tpu_torch/ops/csrc.
+// Helpers shared by the attention kernels of dynamo_tpu_torch/ops/csrc:
+// the online softmax's constants, cp.async copies, ldmatrix fragment loads
+// and the bf16 mma.sync of sm_80+ (both kernels run on sm_90a).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,40 +13,82 @@ namespace dtt {
 // fully masked row keeps m = NEG_INF, so exp(m_old - m_new) stays finite, and
 // masked slots get p = 0 explicitly instead of exp(NEG_INF - m).
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-// 8 bf16 values (one 16-byte load) -> 8 floats.
-__device__ __forceinline__ void unpack8(const uint4& u, float* dst) {
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(p[i]);
-        dst[2 * i] = f.x;
-        dst[2 * i + 1] = f.y;
-    }
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void zero8(float* dst) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[i] = 0.f;
+// 16-byte global -> shared copy; src_ok = false fills the 16 bytes with 0
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool src_ok) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(src_ok ? 16 : 0)
+                 : "memory");
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    return v;
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Gemma2 score softcap, applied before masking; softcap <= 0 means off.
-__device__ __forceinline__ float cap_score(float s, float softcap) {
-    return softcap > 0.f ? tanhf(s / softcap) * softcap : s;
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
+                                        const __nv_bfloat16* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const __nv_bfloat16* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+        "{%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+// c[16x8] += a[16x16] . b[16x8], bf16 inputs, f32 accumulators. Lane l
+// (g = l/4, q = l%4) holds a {(g, 2q..), (g+8, 2q..), (g, 2q+8..),
+// (g+8, 2q+8..)}, b {(k 2q.., n g), (k 2q+8.., n g)} and c {(g, 2q),
+// (g, 2q+1), (g+8, 2q), (g+8, 2q+1)}.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit (inputs here are <= 0; tiny results
+// flush to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 }  // namespace dtt

@@ -60,84 +60,8 @@ namespace {
 constexpr int NW = 4;             // warps per block, 16 rows (one m16) each
 constexpr int NT = NW * 32;       // threads per block
 constexpr int BM = NW * 16;       // rows (position x group head) per block
-constexpr float LOG2E = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-    return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; src_ok = false fills the 16 bytes with 0
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool src_ok) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(src_ok ? 16 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-        "{%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)));
-}
-
-// c[16x8] += a[16x16] . b[16x8], bf16 inputs, f32 accumulators. Lane l
-// (g = l/4, q = l%4) holds a {(g, 2q..), (g+8, 2q..), (g, 2q+8..),
-// (g+8, 2q+8..)}, b {(k 2q.., n g), (k 2q+8.., n g)} and c {(g, 2q),
-// (g, 2q+1), (g+8, 2q), (g+8, 2q+1)}.
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x on the special-function unit (inputs here are <= 0; tiny results
-// flush to 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // a key's position, or INT_MAX (never visible) when it is invalid or past
 // S; the two loads are independent, so they share one round trip
@@ -201,10 +125,11 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int R = R0 + r;
         const bool ok = R < rows;
         const int t = ok ? R / G : 0, g = ok ? R % G : 0;
-        cp_async16(sQ + r * LD + d,
-                   q + b * q_sb + t * q_st + (hk * G + g) * q_sh + d, ok);
+        dtt::cp_async16(
+            sQ + r * LD + d,
+            q + b * q_sb + t * q_st + (hk * G + g) * q_sh + d, ok);
     }
-    cp_async_commit();
+    dtt::cp_async_commit();
 
     // K/V rows of one tile into a ring slot (keys past S become 0)
     auto load_kv = [&](int tile, int slot) {
@@ -215,8 +140,8 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const int key = tile * BK + r;
             const bool ok = key < S;
             const long long kr = ok ? key : 0;
-            cp_async16(dk + r * LD + d, kbase + kr * k_ss + d, ok);
-            cp_async16(dv + r * LD + d, vbase + kr * v_ss + d, ok);
+            dtt::cp_async16(dk + r * LD + d, kbase + kr * k_ss + d, ok);
+            dtt::cp_async16(dv + r * LD + d, vbase + kr * v_ss + d, ok);
         }
     };
 
@@ -290,8 +215,8 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     // scores in log2 units: exp2(x - m) == exp(s - m') for x = s * log2(e)
     const bool capped = softcap > 0.f;
-    const float sc = capped ? scale / softcap : scale * LOG2E;
-    const float cap2 = softcap * LOG2E;
+    const float sc = capped ? scale / softcap : scale * dtt::LOG2E;
+    const float cap2 = softcap * dtt::LOG2E;
 
     float o[NO][4];
 #pragma unroll
@@ -317,16 +242,16 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     if (first <= last) {
         load_kv(first, 0);
-        cp_async_commit();
+        dtt::cp_async_commit();
         const int code0 = tid < BK
             ? key_code(k_pos, k_valid, kb, first * BK + tid, S) : INT_MAX;
         uint32_t qf[QREG ? KSTEPS : 1][4];
         if constexpr (QREG) {           // while tile `first` lands
-            cp_async_wait<1>();         // the Q tile has landed
+            dtt::cp_async_wait<1>();         // the Q tile has landed
             __syncthreads();
 #pragma unroll
             for (int kk = 0; kk < KSTEPS; ++kk)
-                ldsm_x4(qf[kk], sQw + kk * 16);
+                dtt::ldsm_x4(qf[kk], sQw + kk * 16);
         }
         if (tid < BK) {
             sKp[tid] = code0;
@@ -334,7 +259,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
 
         for (int j = first, slot = 0; j <= last; ++j, slot ^= 1) {
-            cp_async_wait<0>();         // tile j has landed for every
+            dtt::cp_async_wait<0>();         // tile j has landed for every
             // thread, tile j - 1's slot is free, and the vote says whether
             // every row sees every key of tile j
             const bool full = __syncthreads_and(
@@ -346,7 +271,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     code_next = key_code(k_pos, k_valid, kb,
                                          (j + 1) * BK + tid, S);
             }
-            cp_async_commit();
+            dtt::cp_async_commit();
 
             const bf16* Ks = sK + slot * BK * LD + k_off;
             const bf16* Vs = sV + slot * BK * LD + v_off;
@@ -364,14 +289,14 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
                     for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
                 } else {
-                    ldsm_x4(a, sQw + kk * 16);
+                    dtt::ldsm_x4(a, sQw + kk * 16);
                 }
 #pragma unroll
                 for (int n = 0; n < NS / 2; ++n) {
                     uint32_t bk[4];
-                    ldsm_x4(bk, Ks + n * 16 * LD + kk * 16);
-                    mma_bf16(s[2 * n], a, bk[0], bk[1]);
-                    mma_bf16(s[2 * n + 1], a, bk[2], bk[3]);
+                    dtt::ldsm_x4(bk, Ks + n * 16 * LD + kk * 16);
+                    dtt::mma_bf16(s[2 * n], a, bk[0], bk[1]);
+                    dtt::mma_bf16(s[2 * n + 1], a, bk[2], bk[3]);
                 }
             }
 
@@ -388,8 +313,8 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 }
 #pragma unroll
                 for (int i = 0; i < 2; ++i) {
-                    const float m_new = fmaxf(m[i], quad_max(mx[i]) * sc);
-                    alpha[i] = fast_exp2(m[i] - m_new);
+                    const float m_new = fmaxf(m[i], dtt::quad_max(mx[i]) * sc);
+                    alpha[i] = dtt::fast_exp2(m[i] - m_new);
                     m[i] = m_new;
                 }
 #pragma unroll
@@ -397,7 +322,8 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
                     for (int e = 0; e < 4; ++e) {
                         const int i = e >> 1;
-                        const float p = fast_exp2(fmaf(s[n][e], sc, -m[i]));
+                        const float p =
+                            dtt::fast_exp2(fmaf(s[n][e], sc, -m[i]));
                         s[n][e] = p;
                         ls[i] += p;
                     }
@@ -423,8 +349,8 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 }
 #pragma unroll
                 for (int i = 0; i < 2; ++i) {
-                    const float m_new = fmaxf(m[i], quad_max(mx[i]));
-                    alpha[i] = fast_exp2(m[i] - m_new);
+                    const float m_new = fmaxf(m[i], dtt::quad_max(mx[i]));
+                    alpha[i] = dtt::fast_exp2(m[i] - m_new);
                     m[i] = m_new;
                 }
 #pragma unroll
@@ -433,7 +359,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     for (int e = 0; e < 4; ++e) {
                         const int i = e >> 1;   // masked slots: p = 0
                         const float p = s[n][e] == dtt::NEG_INF
-                                        ? 0.f : fast_exp2(s[n][e] - m[i]);
+                                        ? 0.f : dtt::fast_exp2(s[n][e] - m[i]);
                         s[n][e] = p;
                         ls[i] += p;
                     }
@@ -453,20 +379,20 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
             for (int kk = 0; kk < BK / 16; ++kk) {
                 uint32_t a[4];
-                a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-                a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-                a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-                a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+                a[0] = dtt::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+                a[1] = dtt::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+                a[2] = dtt::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+                a[3] = dtt::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
                 // all of this k-step's V fragments first, then the MMAs
                 // (8% faster at Dh=128 than loading each beside its MMA)
                 uint32_t bv[NO / 2][4];
 #pragma unroll
                 for (int n = 0; n < NO / 2; ++n)
-                    ldsm_x4_trans(bv[n], Vs + kk * 16 * LD + n * 16);
+                    dtt::ldsm_x4_trans(bv[n], Vs + kk * 16 * LD + n * 16);
 #pragma unroll
                 for (int n = 0; n < NO / 2; ++n) {
-                    mma_bf16(o[2 * n], a, bv[n][0], bv[n][1]);
-                    mma_bf16(o[2 * n + 1], a, bv[n][2], bv[n][3]);
+                    dtt::mma_bf16(o[2 * n], a, bv[n][0], bv[n][1]);
+                    dtt::mma_bf16(o[2 * n + 1], a, bv[n][2], bv[n][3]);
                 }
             }
 
@@ -478,20 +404,20 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             }
         }
     }
-    cp_async_wait<0>();
+    dtt::cp_async_wait<0>();
     __syncthreads();                    // sQ is free for the output
 
     // normalise (l == 0: the row saw nothing and stays 0) and stage the
     // bf16 rows in sQ, then write them out in 16-byte pieces
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-        const float li = quad_sum(l[i]);
+        const float li = dtt::quad_sum(l[i]);
         const float inv = li == 0.f ? 1.f : 1.f / li;
         bf16* row = sQ + (warp * 16 + gid + 8 * i) * LD + tig * 2;
 #pragma unroll
         for (int n = 0; n < NO; ++n)
             *reinterpret_cast<uint32_t*>(row + n * 8) =
-                pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+                dtt::pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
     }
     __syncthreads();
     for (int c = tid; c < BM * C8; c += NT) {

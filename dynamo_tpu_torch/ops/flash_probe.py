@@ -67,14 +67,16 @@ extern "C" int mma_rate_run(float* out, int blocks, int threads, int iters,
 _ABLATIONS = {
     "intact": [],
     "no_k_fragment_loads": [(
-        "ldsm_x4(bk, Ks + n * 16 * LD + kk * 16);",
+        "dtt::ldsm_x4(bk, Ks + n * 16 * LD + kk * 16);",
         "bk[0] = bk[1] = bk[2] = bk[3] = 0x3c003c00u ^ (n + kk);")],
     "no_v_fragment_loads": [(
-        "ldsm_x4_trans(bv[n], Vs + kk * 16 * LD + n * 16);",
+        "dtt::ldsm_x4_trans(bv[n], Vs + kk * 16 * LD + n * 16);",
         "bv[n][0] = bv[n][1] = bv[n][2] = bv[n][3] = 0x3c003c00u ^ n;")],
     "no_exponentials": [
-        ("fast_exp2(fmaf(s[n][e], sc, -m[i]))", "fmaf(s[n][e], sc, -m[i])"),
-        ("? 0.f : fast_exp2(s[n][e] - m[i]);", "? 0.f : (s[n][e] - m[i]);")],
+        ("dtt::fast_exp2(fmaf(s[n][e], sc, -m[i]))",
+         "fmaf(s[n][e], sc, -m[i])"),
+        ("? 0.f : dtt::fast_exp2(s[n][e] - m[i]);",
+         "? 0.f : (s[n][e] - m[i]);")],
 }
 
 

@@ -8,7 +8,8 @@ it runs without the suite's conftest:
 
 Inputs are made with numpy from a seed and cast to bf16; tolerance 2e-2,
 for O(1) outputs in bf16. Each case also checks that the wrapper counted
-exactly one launch.
+its launches. ``test_paged_split_plan`` checks the paged kernel's host-side
+split plan and runs on the CPU.
 """
 
 import numpy as np
@@ -122,20 +123,62 @@ def test_flash_kernel_tiling(G, Dh, gather, kw):
     assert got[2].abs().max().item() == 0.0
 
 
+def _paged_lengths(spec, B, P, page, split):
+    """Lengths of a paged case: the default mix, every lane at the table's
+    P*page tokens ("full"), or one below, at and one above a split boundary
+    plus a lane past the second boundary ("split")."""
+    if spec is None:
+        return [1, page, page + 3, P * page][:B]
+    if spec == "full":
+        return [P * page] * B
+    if spec == "split":
+        return [split - 1, split, split + 1, 2 * split + 3][:B]
+    return list(spec)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("page,Dh,kw", [
-    (64, 128, {}),
-    (64, 128, {"softcap": 50.0, "window": 96}),
-    (16, 64, {}),
-    (32, 256, {"window": 40}),
+@pytest.mark.parametrize("page,Dh,kw,shape", [
+    (64, 128, {}, {}),
+    (64, 128, {"softcap": 50.0, "window": 96}, {}),
+    (16, 64, {}, {}),
+    (32, 256, {"window": 40}, {}),
+    # one sequence at the table's full 2048 tokens: the most splits
+    (64, 128, {}, {"B": 1, "P": 32, "lengths": "full"}),
+    # lengths at split - 1, split, split + 1 and past a second boundary
+    (64, 128, {}, {"P": 32, "lengths": "split"}),
+    (16, 64, {}, {"P": 64, "lengths": "split"}),
+    (32, 256, {"softcap": 30.0}, {"P": 16, "lengths": "split"}),
+    # a window straddling a split boundary, and one narrower than a tile
+    (64, 128, {"window": "straddle"}, {"P": 32, "lengths": "split"}),
+    (64, 128, {"window": 5}, {"P": 32, "lengths": "split"}),
+    (128, 128, {}, {"B": 3, "P": 8, "lengths": (700, 1024, 129)}),
+    # GQA groups of 1, 2 and 8 query heads (4 above); 6 (rows of the
+    # block's 16 left idle) and 20 (two blocks of query heads)
+    (64, 128, {}, {"G": 1, "P": 8}),
+    (64, 64, {"window": 70}, {"G": 2, "P": 8}),
+    (64, 128, {}, {"G": 8, "P": 8}),
+    (16, 128, {}, {"G": 6, "P": 16}),
+    (32, 64, {"softcap": 30.0}, {"G": 20, "P": 8}),
+    # lengths above P*page clamp to it
+    (32, 128, {}, {"P": 4, "lengths": (5000, 3, 128, 129)}),
 ])
-def test_paged_kernel_matches_plain(page, Dh, kw):
+def test_paged_kernel_matches_plain(page, Dh, kw, shape):
+    """Each case also runs the same call twice: the split merge has a fixed
+    order, so the two outputs must be bitwise equal."""
     dev = _card()
     rng = np.random.default_rng(6)
-    B, Hkv, G, P = 4, 2, 4, 4
+    B, G, P = shape.get("B", 4), shape.get("G", 4), shape.get("P", 4)
+    Hkv = 2
+    Hq = Hkv * G
+    split, nsplit = tatt.paged_split_plan(
+        B, Hq, Hkv, Dh, P, page, tatt._sm_count(dev.index))
+    lengths_l = _paged_lengths(shape.get("lengths"), B, P, page, split)
+    kw = dict(kw)
+    if kw.get("window") == "straddle":
+        kw["window"] = split // 2 + 7
     n_pages = B * P + 1
     bf = torch.bfloat16
-    q = torch.from_numpy(rng.standard_normal((B, Hkv * G, Dh), np.float32))
+    q = torch.from_numpy(rng.standard_normal((B, Hq, Dh), np.float32))
     kp = torch.from_numpy(rng.standard_normal((Hkv, n_pages, page, Dh),
                                               np.float32))
     vp = torch.from_numpy(rng.standard_normal((Hkv, n_pages, page, Dh),
@@ -143,10 +186,38 @@ def test_paged_kernel_matches_plain(page, Dh, kw):
     q, kp, vp = (x.to(dev, bf) for x in (q, kp, vp))
     pt = torch.from_numpy((rng.permutation(n_pages - 1)[:B * P] + 1)
                           .reshape(B, P).astype(np.int32)).to(dev)
-    lengths = torch.tensor([1, page, page + 3, P * page], dtype=torch.int32,
-                           device=dev)
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
     n0 = tatt.paged_attention.launches
-    got = tatt.paged_attention(q, kp, vp, pt, lengths, **kw).float()
+    got = tatt.paged_attention(q, kp, vp, pt, lengths, **kw)
+    again = tatt.paged_attention(q, kp, vp, pt, lengths, **kw)
     want = tatt.paged_attention_plain(q, kp, vp, pt, lengths, **kw).float()
-    assert tatt.paged_attention.launches == n0 + 1
-    assert (got - want).abs().max().item() <= TOL
+    assert tatt.paged_attention.launches == n0 + 2
+    assert torch.equal(got, again)
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Dh,P,page", [
+    (8, 32, 8, 128, 32, 64),           # Llama-3-8B, 2048-token table
+    (1, 32, 8, 128, 32, 64),           # one stream: splits are all there is
+    (6, 32, 8, 128, 25, 64),           # the serve burst's decode shape
+    (8, 16, 8, 256, 32, 64),           # Gemma2-9B heads
+    (64, 64, 8, 128, 4, 16),           # wide batch, short table: one split
+    (2, 28, 4, 128, 3, 16),            # G = 7, one block of query heads
+    (1, 64, 2, 64, 1, 128),            # G = 32: two blocks of 16 heads
+])
+def test_paged_split_plan(B, Hq, Hkv, Dh, P, page):
+    """The paged kernel's split plan, from shapes alone: a whole number of
+    block rounds per split, the splits cover the table with no empty one,
+    and the grid aims at PAGED_BLOCKS_PER_SM blocks an SM of an H100 where
+    the table is long enough."""
+    n_sm, granule = 132, 64
+    split, nsplit = tatt.paged_split_plan(B, Hq, Hkv, Dh, P, page, n_sm,
+                                          granule=granule)
+    ctx = P * page
+    assert split % granule == 0 and nsplit >= 1
+    assert (nsplit - 1) * split < ctx <= nsplit * split
+    blocks = B * Hkv * -(-(Hq // Hkv) // 16) * nsplit
+    assert split == granule or \
+        blocks >= tatt.PAGED_BLOCKS_PER_SM * n_sm // 2
+    assert nsplit == 1 or blocks < 2 * tatt.PAGED_BLOCKS_PER_SM * n_sm
