@@ -26,6 +26,15 @@ with a traceback and prints no result:
                prefill dispatch and decode step.
 5. reference — the served weights' logits through the kernels agree with
                the dense attention path on a small input.
+6. reuse     — KV block reuse on the same engine (prefix reuse on by
+               default, a 128-block host tier): a seeded 1496-token prompt
+               served cold (hit 0), warm from the device pool (hit 1472 =
+               23 pages), and, after every reusable block was offloaded,
+               warm from the host tier (hit 1472), twice; the warm streams
+               are token-identical, the restored pages equal the host copies
+               bit for bit, and a warm 24-token prefill over cached pages
+               gives the cold chunked prefill's last logits (cosine > 0.99).
+               TTFT, dispatches, copy bytes and rates, hashing time.
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2.
@@ -48,7 +57,9 @@ TOL = 2e-2                     # bf16 kernel vs plain, O(1) outputs
 DEVICE = "cuda"
 PRESET = "llama-3-8b"
 ENGINE_ARGS = dict(preset=PRESET, max_batch=8, max_context=2048,
-                   page_size=64, prefill_chunk=512, decode_steps=8)
+                   page_size=64, prefill_chunk=512, decode_steps=8,
+                   host_cache_blocks=128)
+REUSE_PROMPT, REUSE_SEED, REUSE_TOKENS = 1496, 1496, 16
 
 
 def emit(obj) -> None:
@@ -407,6 +418,7 @@ def serve_phase(torch, att, smi: str):
         emit(row)
         profile_phase(torch, port)
         ref = reference_phase(torch, core.core)
+        row["reuse"] = reuse_phase(torch, att, core, loop)
     finally:
         asyncio.run_coroutine_threadsafe(svc.stop(), loop).result(60)
         loop.call_soon_threadsafe(loop.stop)
@@ -506,6 +518,215 @@ def reference_phase(torch, core):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 6: KV block reuse (device pool, host tier)
+# ---------------------------------------------------------------------------
+
+def _generate(engine, loop, prompt):
+    """One greedy request straight through the engine's AsyncEngine entry
+    point on the server's loop: (tokens, kv_prefix_hit_tokens, TTFT s,
+    total s)."""
+    import asyncio
+
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       FinishReason,
+                                                       StopConditions)
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    async def go():
+        toks, hit, ttft = [], None, None
+        t0 = time.perf_counter()
+        async for o in engine.generate(BackendInput(
+                token_ids=prompt, stop=StopConditions(
+                    max_tokens=REUSE_TOKENS, ignore_eos=True)), Context()):
+            if o.finish_reason == FinishReason.ERROR:
+                raise AssertionError(f"reuse request failed: {o.error}")
+            if ttft is None:
+                ttft = time.perf_counter() - t0
+                hit = o.kv_prefix_hit_tokens
+            toks.extend(o.token_ids)
+        return toks, hit, ttft, time.perf_counter() - t0
+
+    return asyncio.run_coroutine_threadsafe(go(), loop).result(600)
+
+
+def _prefix_logits(torch, core, prompt, warm_tokens: int):
+    """Last-position logits of ``prompt`` through ``llama.forward`` in a
+    scratch pool: a cold chunked prefill (chunks of the engine's
+    ``prefill_chunk``), then a warm prefill of only the last
+    ``warm_tokens`` over the cold pass's cached pages."""
+    from dynamo_tpu_torch.models import llama
+
+    m, dev, page = core.cfg.model, core.device, core.page_size
+    n = len(prompt)
+    n_pages = -(-n // page) + 1                  # + scratch page 0
+    shape = (m.num_layers, m.num_kv_heads, n_pages, page, m.head_dim)
+    kp = torch.zeros(shape, dtype=m.dtype, device=dev)
+    vp = torch.zeros(shape, dtype=m.dtype, device=dev)
+    toks = torch.tensor(prompt, device=dev)[None]
+
+    def chunk(c0, c1):
+        pos = torch.arange(c0, c1, dtype=torch.int32, device=dev)[None]
+        ctx = torch.arange(c1, device=dev)[None]
+        lg, _, _ = llama.forward(
+            core.params, m, toks[:, c0:c1], pos, kp, vp, page + pos.long(),
+            page + ctx, ctx.to(torch.int32),
+            torch.ones((1, c1), dtype=torch.bool, device=dev),
+            attn_impl="flash",
+            logits_idx=torch.tensor([c1 - c0 - 1], device=dev))
+        return lg[0, 0].float()
+
+    with torch.no_grad():
+        step = core.cfg.prefill_chunk
+        for c0 in range(0, n, step):
+            cold = chunk(c0, min(n, c0 + step))
+        warm = chunk(n - warm_tokens, n)
+    return cold, warm
+
+
+def _copy_rates(torch, core, hashes, reps: int = 3) -> dict:
+    """The card's copy rates for these host blocks, each copy ending in a
+    synchronize: pinned host -> scratch device pages (``h2d_pages``), and
+    the pages back (``d2h_pages``: gather, pinned copy, event)."""
+    from dynamo_tpu_torch.llm.kvbm.transfer import CopyStream
+
+    tiers = core.tiered
+    n = len(hashes)
+    blk = tiers.peek(hashes[0])[0].shape
+    hk, hv = CopyStream.host_blocks(n, blk, core.k_pool.dtype,
+                                    core.k_pool.is_cuda)
+    for i, h in enumerate(hashes):
+        hk[i], hv[i] = tiers.peek(h)
+    L, Hkv, page, Dh = blk
+    pools = [torch.empty((L, Hkv, n, page, Dh), dtype=core.k_pool.dtype,
+                         device=core.device) for _ in range(2)]
+    cs = CopyStream()
+    out = {"blocks": n, "bytes": hk.nbytes + hv.nbytes}
+    for name, fn in (("h2d", lambda: cs.h2d_pages(*pools, range(n), hk, hv)),
+                     ("d2h", lambda: cs.d2h_pages(*pools, range(n)))):
+        fn()                                   # warm-up (pinned allocation)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        s = (time.perf_counter() - t0) / reps
+        out[f"{name}_s"] = s
+        out[f"{name}_gb_s"] = out["bytes"] / s / 1e9
+    return out
+
+
+def reuse_phase(torch, att, engine, loop) -> dict:
+    """KV block reuse on the serving engine (idle between requests)."""
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.tokens import compute_seq_hashes
+
+    core = engine.core
+    page = core.page_size
+    L = core.cfg.model.num_layers
+    cs, tiers = core.copy_stream, core.tiered
+    vocab = core.cfg.model.vocab_size
+    prompt = np.random.default_rng(REUSE_SEED).integers(
+        0, vocab, REUSE_PROMPT).tolist()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        hashes = compute_seq_hashes(prompt, page)
+    hash_ms = 1e3 * (time.perf_counter() - t0) / 10
+    n_blocks = (REUSE_PROMPT - 1) // page          # the match stops at n-1
+    expect_hit = n_blocks * page
+
+    def run(tag):
+        att.flash_attention.launches = 0
+        att.paged_attention.launches = 0
+        pre0, steps0 = core.prefill_dispatches, core.decode_steps_run
+        restore0 = core.restore_seconds
+        d2h0, h2d0 = (cs.d2h_bytes, cs.d2h_seconds), (cs.h2d_bytes,
+                                                      cs.h2d_seconds)
+        hits0 = tiers.stats()["hits"]
+        toks, hit, ttft, total = _generate(engine, loop, prompt)
+        torch.cuda.synchronize()
+        r = dict(run=tag, tokens=len(toks), kv_prefix_hit_tokens=hit,
+                 ttft_s=ttft, total_s=total,
+                 prefill_dispatches=core.prefill_dispatches - pre0,
+                 decode_steps=core.decode_steps_run - steps0,
+                 flash_launches=att.flash_attention.launches,
+                 paged_launches=att.paged_attention.launches,
+                 tier_hits=tiers.stats()["hits"] - hits0,
+                 d2h_bytes=cs.d2h_bytes - d2h0[0],
+                 d2h_s=cs.d2h_seconds - d2h0[1],
+                 h2d_bytes=cs.h2d_bytes - h2d0[0],
+                 h2d_enqueue_s=cs.h2d_seconds - h2d0[1],
+                 restore_s=core.restore_seconds - restore0)
+        emit({"phase": "reuse", **r})
+        if not (r["flash_launches"] == L * r["prefill_dispatches"] > 0
+                and r["paged_launches"] == L * r["decode_steps"] > 0):
+            raise AssertionError(f"reuse run {tag}: kernel launches do not "
+                                 f"account for its dispatches: {r}")
+        return toks, r
+
+    _, cold = run("cold")
+    warm_toks, warm = run("warm_device")
+    # offload every reusable device block to the host tier
+    d2h0 = (cs.d2h_bytes, cs.d2h_seconds)
+    flushed = core.flush_reusable()
+    flush = dict(blocks=flushed, d2h_bytes=cs.d2h_bytes - d2h0[0],
+                 d2h_s=cs.d2h_seconds - d2h0[1], tier=tiers.stats())
+    flush["d2h_gb_s"] = flush["d2h_bytes"] / flush["d2h_s"] / 1e9
+    emit({"phase": "reuse", "run": "flush", **flush})
+    resident = sum(h in tiers for h in hashes[:n_blocks])
+    host_toks, host = run("warm_host")
+    # once more from the host: the first restore in a process also pays
+    # for its pinned upload buffers, which the allocator then keeps
+    core.flush_reusable()
+    again_toks, again = run("warm_host_again")
+    # the restored pages hold exactly the host tier's bytes
+    pages = [core.pool.blocks._by_hash[h] for h in hashes[:n_blocks]]
+    idx = torch.tensor(pages, device=core.device)
+    bitwise = True
+    for pool, which in ((core.k_pool, 0), (core.v_pool, 1)):
+        dev_bits = (pool.index_select(2, idx).permute(2, 0, 1, 3, 4)
+                    .view(torch.int16).cpu().numpy().view(np.uint16))
+        host_bits = np.stack([tiers.peek(h)[which]
+                              for h in hashes[:n_blocks]])
+        bitwise = bitwise and np.array_equal(dev_bits, host_bits)
+    rates = _copy_rates(torch, core, hashes[:n_blocks])
+    cold_lg, warm_lg = _prefix_logits(torch, core, prompt,
+                                      REUSE_PROMPT - expect_hit)
+    cos = torch.nn.functional.cosine_similarity(cold_lg, warm_lg,
+                                                dim=0).item()
+    row = dict(phase="reuse", prompt_tokens=REUSE_PROMPT, page=page,
+               blocks=n_blocks, hash_ms_per_prompt=hash_ms,
+               hits=[cold["kv_prefix_hit_tokens"],
+                     warm["kv_prefix_hit_tokens"],
+                     host["kv_prefix_hit_tokens"]],
+               ttft_s=dict(cold=cold["ttft_s"], warm_device=warm["ttft_s"],
+                           warm_host=host["ttft_s"],
+                           warm_host_again=again["ttft_s"]),
+               restore_s=dict(warm_host=host["restore_s"],
+                              warm_host_again=again["restore_s"]),
+               host_resident_after_flush=resident,
+               warm_streams_equal=warm_toks == host_toks == again_toks,
+               restored_bitwise_equal=bitwise, copy_rates=rates,
+               logits=dict(cosine=cos,
+                           max_abs_diff=(cold_lg - warm_lg).abs().max().item(),
+                           argmax_equal=int(cold_lg.argmax())
+                           == int(warm_lg.argmax()),
+                           finite=bool(torch.isfinite(warm_lg).all())),
+               block_bytes=2 * int(core.k_pool[:, :, 0].numel())
+               * core.k_pool.element_size())
+    emit(row)
+    ok = (row["hits"] == [0, expect_hit, expect_hit]
+          and again["kv_prefix_hit_tokens"] == expect_hit
+          and resident == n_blocks and host["tier_hits"] >= n_blocks
+          and row["warm_streams_equal"] and bitwise
+          and row["logits"]["finite"] and cos > 0.99
+          and cold["tokens"] == warm["tokens"] == REUSE_TOKENS)
+    if not ok:
+        raise AssertionError(f"reuse phase failed: {row}")
+    return dict(row, runs=[cold, warm, host, again], flush=flush)
+
+
 def main() -> int:
     import torch
 
@@ -542,6 +763,9 @@ def main() -> int:
     # a ragged batched dispatch in the serve path's own layout
     flash_case(torch, att, "llama3-8b-serve-layout",
                *serve_layout_inputs(torch))
+    # the chunk after a restored prefix: the last 24 of 1496 positions
+    flash_case(torch, att, "llama3-8b-prefix-hit",
+               *flash_inputs(torch, 1, 24, 1496, 32, 8, 128, ragged=False))
     from dynamo_tpu_torch.ops.paged_probe import PAGED_CASES
 
     paged = {name: paged_case(torch, att, name, **kw)
@@ -555,6 +779,8 @@ def main() -> int:
              source=src + "flash_attention.cu",
              replaces="dynamo_tpu/ops/attention.py:166",
              launches=serve["flash_launches"],
+             reuse_launches=sum(r["flash_launches"]
+                                for r in serve["reuse"]["runs"]),
              max_abs_err=flash["max_abs_err"], ms=flash["ms"],
              plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
              bound_by=flash["bound_by"], bound_frac=flash["bound_frac"],
@@ -564,6 +790,8 @@ def main() -> int:
              replaces="dynamo_tpu/ops/attention.py:400",
              also_replaces="dynamo_tpu/ops/attention.py:552",
              launches=serve["paged_launches"], splits=paged["splits"],
+             reuse_launches=sum(r["paged_launches"]
+                                for r in serve["reuse"]["runs"]),
              max_abs_err=paged["max_abs_err"], ms=paged["ms"],
              plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
              bound_by=paged["bound_by"], bound_frac=paged["bound_frac"],

@@ -1,28 +1,36 @@
 """Host-side paged KV cache bookkeeping for the torch engine.
 
-The device tensors (``k_pool``/``v_pool``: [L, H_kv, n_pages, page, D_h]) are
-a head-major pool of fixed-size pages; a flat token slot
+The device tensors (``k_pool``/``v_pool``: [L, H_kv, n_pages, page, D_h]) are a
+head-major pool of fixed-size pages; a flat token slot
 ``page_id * page_size + offset`` addresses one token's KV. This module owns
-the *maps*: per-sequence page tables and the token-slot indices the forward
-passes scatter to and gather from. Page states (free/leased) live in
-:class:`~dynamo_tpu_torch.llm.kvbm.pool.DeviceBlockPool`.
+the *maps*: per-sequence page tables, token-slot index computation for
+scatter/gather, the sequence-hash chain, and — through
+:class:`~dynamo_tpu.llm.kvbm.pool.DeviceBlockPool` — block states
+(free/leased/reusable) enabling prefix reuse and tiered offload. Prefix
+reuse is on by default, as in the JAX engine, and the block-hash chain is the
+JAX package's bit for bit (:mod:`~dynamo_tpu_torch.llm.tokens`).
 
-Prefix reuse is off in this port: released pages go straight back to the
-free list. Reuse needs the xxh3-64 block-hash chain that the KV router shares
-across workers, which comes with the router.
+KV events: ``on_block_sealed`` fires when a page fills (router "stored"
+event); ``on_blocks_removed`` fires when a sealed block is *evicted* from
+the device pool (router "removed" event) — NOT on sequence release, because
+released blocks stay matchable until evicted. ``on_block_evicted`` runs
+first so the engine can offload the page to the host tier.
 
 Reference capability: the engine-side half of the KV block manager
-(lib/llm/src/kv/manager.rs:22-138 prepare_prefill_sequence).
+(lib/llm/src/kv/manager.rs:22-138 prepare_prefill_sequence, vllm patch block
+manager hooks, event_manager.py stored/removed semantics).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..llm.kvbm.pool import DeviceBlockPool
+from ..llm.kvbm.pool import DeviceBlockPool, OutOfBlocks
+from ..llm.tokens import (TokenSequence, chain_hash, hash_tokens,
+                          lora_chain_root)
 
 
 class OutOfPages(RuntimeError):
@@ -36,6 +44,8 @@ class SeqCache:
     seq_id: str
     pages: List[int] = field(default_factory=list)
     num_tokens: int = 0
+    # chained-hash view of the tokens in cache (block size == page size)
+    hashes: Optional[TokenSequence] = None
 
 
 class PagePool:
@@ -49,25 +59,79 @@ class PagePool:
         self.num_pages = num_pages
         self.page_size = page_size
         self.blocks = DeviceBlockPool(num_pages)
+        self.blocks.on_evict = self._evicted
         self.seqs: Dict[str, SeqCache] = {}
+        # hook: (seq_id, sealed TokenBlock, page, lora_id) when a page
+        # fills — feeds the KV event publisher ("stored") for the router
+        # index; lora_id is the adapter the sequence was created under.
+        # add_seal_hook registers ADDITIONAL listeners (the engine's
+        # cluster write-through) without displacing this primary slot.
+        self.on_block_sealed: Optional[Callable] = None
+        self._seal_hooks: List[Callable] = []
+        # hook: (seq_hashes: List[int]) when sealed blocks leave the device
+        # pool — the router "removed" event
+        self.on_blocks_removed: Optional[Callable] = None
+        # hook: (seq_hash, page) BEFORE an evicted page is recycled — the
+        # engine offloads the page to the host tier here
+        self.on_block_evicted: Optional[Callable] = None
+        self._removed_buf: List[int] = []
+
+    def add_seal_hook(self, cb: Callable) -> None:
+        """Subscribe an extra (seq_id, TokenBlock, page, lora_id) listener
+        for newly-registered sealed blocks (fires after on_block_sealed)."""
+        self._seal_hooks.append(cb)
+
+    def _fire_sealed(self, seq_id: str, sealed, page: int,
+                     lora_id: int) -> None:
+        if self.on_block_sealed:
+            self.on_block_sealed(seq_id, sealed, page, lora_id)
+        for cb in self._seal_hooks:
+            cb(seq_id, sealed, page, lora_id)
+
+    def _evicted(self, seq_hash: int, page: int) -> None:
+        if self.on_block_evicted:
+            self.on_block_evicted(seq_hash, page)
+        # buffer removals so a batched eviction (multi-page ensure_pages /
+        # extend) publishes ONE removed event, as the reference's event
+        # manager batches them, instead of N single-hash events
+        self._removed_buf.append(seq_hash)
+
+    def flush_reusable(self) -> int:
+        """Evict every reusable (parked) block back to the free list and
+        publish their removed events as one batch."""
+        n = self.blocks.flush_reusable()
+        self._flush_removed()
+        return n
+
+    def _flush_removed(self) -> None:
+        if self._removed_buf and self.on_blocks_removed:
+            buf, self._removed_buf = self._removed_buf, []
+            self.on_blocks_removed(buf)
+        else:
+            self._removed_buf.clear()
 
     # ------------------------------------------------------------------
     @property
     def free_pages(self) -> int:
-        """Pages a new allocation could obtain."""
+        """Pages a new allocation could obtain (free + evictable)."""
         return self.blocks.allocatable
 
     def pages_needed(self, num_tokens: int) -> int:
         return (num_tokens + self.page_size - 1) // self.page_size
 
-    def can_admit(self, prompt_tokens: int) -> bool:
-        return self.free_pages >= self.pages_needed(prompt_tokens)
+    def can_admit(self, prompt_tokens: int, reserve_pages: int = 0) -> bool:
+        return self.free_pages - reserve_pages >= self.pages_needed(prompt_tokens)
 
     # ------------------------------------------------------------------
-    def create(self, seq_id: str) -> SeqCache:
+    def create(self, seq_id: str, block_hashing: bool = True,
+               lora_id: int = 0) -> SeqCache:
+        """``lora_id`` salts the block-hash chain so blocks computed under
+        different adapters never alias in reuse or in the router index."""
         if seq_id in self.seqs:
             raise ValueError(f"sequence {seq_id} already exists")
-        sc = SeqCache(seq_id)
+        sc = SeqCache(seq_id,
+                      hashes=(TokenSequence(self.page_size, lora_id=lora_id)
+                              if block_hashing else None))
         self.seqs[seq_id] = sc
         return sc
 
@@ -81,23 +145,141 @@ class PagePool:
                 f"need {need} pages, {self.blocks.allocatable} allocatable")
         for _ in range(need):
             sc.pages.append(self.blocks.lease_new())
+        self._flush_removed()
 
     def account_tokens(self, seq_id: str, tokens: Sequence[int]) -> None:
-        """Record tokens as present (pages must already exist)."""
-        self.seqs[seq_id].num_tokens += len(tokens)
+        """Record tokens as present (pages must already exist); seals
+        full-page blocks, registering them for reuse and firing the
+        stored-event hook."""
+        sc = self.seqs[seq_id]
+        if sc.hashes is not None:
+            for t in tokens:
+                sealed = sc.hashes.append(int(t))
+                if sealed is not None:
+                    page = sc.pages[len(sc.hashes.blocks) - 1]
+                    registered = self.blocks.seal(page, sealed.sequence_hash)
+                    # stored events only for newly-registered blocks, so the
+                    # router's per-worker refcount balances the single
+                    # removed event fired at eviction
+                    if registered:
+                        self._fire_sealed(sc.seq_id, sealed, page,
+                                          sc.hashes.lora_id)
+        sc.num_tokens += len(tokens)
 
     def extend(self, seq_id: str, tokens: Sequence[int]) -> None:
         """Allocate-and-account in one call (prefill path)."""
-        self.ensure_pages(seq_id, self.seqs[seq_id].num_tokens + len(tokens))
+        sc = self.seqs[seq_id]
+        try:
+            self.ensure_pages(seq_id, sc.num_tokens + len(tokens))
+        except OutOfBlocks as e:
+            raise OutOfPages(str(e)) from e
         self.account_tokens(seq_id, tokens)
 
-    def release(self, seq_id: str) -> None:
-        """Drop the sequence; its pages return to the free list."""
+    def release(self, seq_id: str, written: Optional[int] = None) -> None:
+        """Drop the sequence. Sealed pages park as reusable (still matchable
+        by their sequence hash); partial pages return to the free list.
+
+        ``written``: how many leading tokens have their KV in the pool (the
+        engine's last sampled token has none until a later step feeds it
+        back). A sealed block reaching past it is unsealed and freed, with a
+        removed event, instead of parking with a stale slot. (The JAX
+        engine's chained decode dispatch writes that slot in the decode
+        case; after a request that ends on its prefill token it parks the
+        stale block.)"""
         sc = self.seqs.pop(seq_id, None)
         if sc is None:
             return
+        if written is not None and sc.hashes is not None:
+            for b in range(written // self.page_size,
+                           len(sc.hashes.blocks)):
+                h = self.blocks.unseal(sc.pages[b])
+                if h is not None:
+                    self._removed_buf.append(h)
+            self._flush_removed()
         for page in sc.pages:
             self.blocks.release(page)
+
+    # ------------------------------------------------------------------
+    # prefix reuse
+    # ------------------------------------------------------------------
+    def match_prefix(self, seq_id: str,
+                     prompt: Sequence[int], max_tokens: int,
+                     host_lookup: Optional[Callable[[int], bool]] = None
+                     ) -> Tuple[int, List[Tuple[int, int]]]:
+        """Walk the prompt's chained block hashes, claiming matching device
+        blocks for a freshly-created sequence. When a device miss occurs and
+        ``host_lookup(seq_hash)`` returns True, a fresh page is leased for an
+        upload instead (caller copies the data in).
+
+        Returns (tokens_satisfied, uploads) where uploads is
+        [(seq_hash, page)] the caller must fill from the host tier.
+        """
+        sc = self.seqs[seq_id]
+        assert sc.num_tokens == 0, "match_prefix on a non-empty sequence"
+        page_sz = self.page_size
+        # the query chain MUST carry the sequence's lora salt: an unsalted
+        # walk would adopt base-model blocks for adapter requests (and
+        # never re-match the adapter's own salted blocks)
+        parent: Optional[int] = lora_chain_root(
+            sc.hashes.lora_id if sc.hashes is not None else 0)
+        matched = 0
+        uploads: List[Tuple[int, int]] = []
+        limit = min(max_tokens, len(prompt))
+        for start in range(0, limit - page_sz + 1, page_sz):
+            blk = prompt[start:start + page_sz]
+            sh = chain_hash(parent, hash_tokens(blk))
+            page = self.blocks.match(sh)
+            fire_stored = False
+            if page is None and host_lookup is not None and host_lookup(sh):
+                try:
+                    page = self.blocks.lease_new()
+                except OutOfBlocks:
+                    break
+                # host->device restore re-registers a block that fired a
+                # removed event at eviction: publish stored again
+                fire_stored = self.blocks.seal(page, sh)
+                uploads.append((sh, page))
+            if page is None:
+                break
+            self._adopt_block(sc, blk, page, fire_stored)
+            parent = sh
+            matched += page_sz
+        self._flush_removed()
+        return matched, uploads
+
+    def probe_prefix(self, prompt: Sequence[int],
+                     host_lookup: Optional[Callable[[int], bool]] = None,
+                     lora_id: int = 0) -> int:
+        """Non-claiming prefix probe: how many leading prompt tokens could be
+        served from cache right now (device blocks + host tier). Feeds the
+        disagg router's prefix_hit input without touching block states."""
+        page_sz = self.page_size
+        parent: Optional[int] = lora_chain_root(lora_id)
+        n = 0
+        for start in range(0, len(prompt) - page_sz + 1, page_sz):
+            sh = chain_hash(parent,
+                            hash_tokens(prompt[start:start + page_sz]))
+            if not (self.blocks.contains(sh)
+                    or (host_lookup is not None and host_lookup(sh))):
+                break
+            parent = sh
+            n += page_sz
+        return n
+
+    def _adopt_block(self, sc: SeqCache, tokens: Sequence[int],
+                     page: int, fire_stored: bool = False) -> None:
+        """Attach an already-sealed device block to a fresh sequence.
+        ``fire_stored`` is True only for host-tier restores (the block
+        re-entered the device pool); plain device matches are already in
+        the router index and must not re-fire."""
+        sc.pages.append(page)
+        sealed = None
+        if sc.hashes is not None:
+            for t in tokens:
+                sealed = sc.hashes.append(int(t))
+        sc.num_tokens += len(tokens)
+        if fire_stored and sealed is not None:
+            self._fire_sealed(sc.seq_id, sealed, page, sc.hashes.lora_id)
 
     # ------------------------------------------------------------------
     # index computation for the forward passes

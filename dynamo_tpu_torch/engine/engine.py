@@ -11,12 +11,21 @@ Architecture:
   (paged attention straight off the pool). Sampling and penalties run on the
   device; each dispatch fetches one packed (token, logprob) tensor to the
   host.
+- KV block manager, on by default as in the JAX engine: full pages seal
+  under the xxh3-64 block-hash chain and park as reusable when their
+  sequence ends; admission claims the longest cached prefix of the prompt
+  (``_restore_prefix``), uploading blocks from the host/disk tiers
+  (``host_cache_blocks``, ``disk_cache_blocks``) where the device pool
+  evicted them. Evicted pages are offloaded right before the next dispatch
+  that could overwrite them (``_flush_evictions``). The pool's seal/evict
+  hooks are where a KV event publisher attaches.
 - :class:`TorchEngine` is the asyncio facade implementing the AsyncEngine
   contract (BackendInput -> stream of EngineOutput).
 
 Not ported yet (the JAX engine has them): the chained in-flight decode
-window, prefix reuse and KV tiers, speculative decoding, disaggregated
-prefill, the long-context paging lane, multimodal input, MoE and tp/pp/sp.
+window, cluster write-through and placement prefetch of the KV tiers,
+speculative decoding, disaggregated prefill, the long-context paging lane,
+multimodal input, MoE and tp/pp/sp.
 
 Reference capability: the role vLLM/TRT-LLM play behind the reference's
 adapters (continuous batching, paged KV, streaming detached tokens), per
@@ -32,6 +41,7 @@ import logging
 import os
 import queue as thread_queue
 import random
+import tempfile
 import threading
 import time
 from dataclasses import dataclass, fields
@@ -42,6 +52,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..llm.kvbm.tiers import DiskKvTier, HostKvTier, TieredKvCache
+from ..llm.kvbm.transfer import CopyStream, host_dtype
 from ..llm.model_card import ModelDeploymentCard
 from ..llm.protocols.common import BackendInput, EngineOutput, FinishReason
 from ..models import llama
@@ -56,10 +68,9 @@ log = logging.getLogger("dynamo_tpu_torch.engine")
 # raises instead of silently serving a different engine
 _NOT_PORTED = frozenset({
     "tp", "sp", "ep", "pp", "prefill_lanes", "params_path", "attn_impl",
-    "warmup", "enable_prefix_reuse", "host_cache_blocks",
-    "disk_cache_blocks", "disk_cache_path", "cluster_writethrough", "spec",
-    "spec_k", "spec_draft", "kvpage_budget", "kvpage_seg_pages",
-    "kvpage_prefetch", "kvpage_max_context", "kvpage_batch"})
+    "warmup", "cluster_writethrough", "spec", "spec_k", "spec_draft",
+    "kvpage_budget", "kvpage_seg_pages", "kvpage_prefetch",
+    "kvpage_max_context", "kvpage_batch"})
 
 
 @dataclass
@@ -74,6 +85,11 @@ class TorchEngineConfig:
     seed: int = 0
     preset: Optional[str] = None
     device: str = "cuda"
+    # KV block manager: prefix reuse + tiered offload
+    enable_prefix_reuse: bool = True
+    host_cache_blocks: int = 0          # host-DRAM KV tier capacity (0 = off)
+    disk_cache_blocks: int = 0          # mmap spill tier capacity (0 = off)
+    disk_cache_path: Optional[str] = None
 
     @classmethod
     def from_card(cls, card: ModelDeploymentCard,
@@ -111,6 +127,7 @@ class _Slot:
     request: BackendInput
     prompt: List[int]
     prefill_done: int = 0           # prompt tokens already in cache
+    kv_written: int = 0             # leading tokens whose KV the pool holds
     generated: int = 0
     last_token: int = 0
     cum_logprob: float = 0.0
@@ -130,6 +147,9 @@ class StepOutput:
     error_code: int = 500
     error_stage: Optional[str] = None
     error_reason: Optional[str] = None
+    # first output only: prompt tokens admission restored from the KV
+    # cache (device blocks + host/disk tiers) -> kv_prefix_hit_tokens
+    prefix_hit: Optional[int] = None
 
 
 class EngineCore:
@@ -173,6 +193,33 @@ class EngineCore:
                                           dtype=torch.int32,
                                           device=self.device)
 
+        # --- KV block manager: tiered offload + prefix reuse ----------
+        self.copy_stream = CopyStream()
+        self.tiered: Optional[TieredKvCache] = None
+        if cfg.host_cache_blocks > 0:
+            blk_shape = (m.num_layers, m.num_kv_heads, cfg.page_size,
+                         m.head_dim)
+            np_dtype = host_dtype(m.dtype)
+            host = HostKvTier(cfg.host_cache_blocks, blk_shape, np_dtype)
+            disk = None
+            if cfg.disk_cache_blocks > 0:
+                # default path is per-process: two engines on one host must
+                # not memmap the same spill files in w+ mode
+                path = cfg.disk_cache_path or os.path.join(
+                    tempfile.gettempdir(),
+                    f"dynamo_tpu_torch_kv_spill.{os.getpid()}")
+                disk = DiskKvTier(cfg.disk_cache_blocks, blk_shape, np_dtype,
+                                  path)
+            self.tiered = TieredKvCache(host, disk)
+        self._evict_buf: List[Tuple[int, int]] = []
+        self.pool.on_block_evicted = self._offload_evicted
+        # prefix-cache accounting
+        self.last_prefix_hit = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_query_tokens = 0
+        self.restore_seconds = 0.0      # host clock in _restore_prefix
+        self._pending_prefix_hit: Dict[str, int] = {}
+
         B = cfg.max_batch
         self.slots: List[Optional[_Slot]] = [None] * B
         self.by_seq: Dict[str, _Slot] = {}
@@ -199,6 +246,20 @@ class EngineCore:
     # ------------------------------------------------------------------
     # public API (engine thread)
     # ------------------------------------------------------------------
+    def close(self) -> None:
+        """Release host-side cache resources (the disk tier's spill memmaps
+        and files). Idempotent; called from TorchEngine.shutdown."""
+        if self.tiered is not None:
+            self.tiered.close()
+
+    def flush_reusable(self) -> int:
+        """Evict every reusable device block, offloading each to the host
+        tier when there is one (cache-clear admin op). Returns the number
+        evicted. Engine thread, or while the engine is idle."""
+        n = self.pool.flush_reusable()
+        self._flush_evictions()
+        return n
+
     def submit(self, seq_id: str, request: BackendInput) -> None:
         self.waiting.append((seq_id, request))
 
@@ -223,7 +284,10 @@ class EngineCore:
         ``flush``, when given, receives the outputs that exist before the
         decode dispatch (first tokens, rejections, cancellations) so they
         reach callers without waiting for it (TTFT); the rest are
-        returned."""
+        returned.
+
+        A sequence's first output carries admission's prefix-restore length
+        (``StepOutput.prefix_hit``)."""
         out = self._reap_cancelled()
         with torch.no_grad():
             prefill_work = any(s is not None and s.prefill_done < len(s.prompt)
@@ -231,11 +295,19 @@ class EngineCore:
             if prefill_work or (self.waiting and None in self.slots):
                 self._prefill_round(out)
             if flush is not None and out:
-                flush(out)
+                flush(self._tag_prefix_hits(out))
                 out = []
             if any(s is not None and s.prefill_done >= len(s.prompt)
                    for s in self.slots):
                 self._decode_round(out)
+        return self._tag_prefix_hits(out)
+
+    def _tag_prefix_hits(self, out: List[StepOutput]) -> List[StepOutput]:
+        if self._pending_prefix_hit:
+            for so in out:
+                hit = self._pending_prefix_hit.pop(so.seq_id, None)
+                if hit is not None:
+                    so.prefix_hit = hit
         return out
 
     # ------------------------------------------------------------------
@@ -254,9 +326,77 @@ class EngineCore:
             return
         self._decode_seen.pop(i, None)
         self.generators[i] = None
-        self.pool.release(slot.seq_id)
+        # the last sampled token's KV exists only once a later step fed it
+        # back: a block it completed must not stay matchable
+        self.pool.release(slot.seq_id, written=slot.kv_written)
         self.by_seq.pop(slot.seq_id, None)
         self.slots[i] = None
+
+    # ------------------------------------------------------------------
+    # KV block manager: offload at eviction, restore at admission
+    # ------------------------------------------------------------------
+    def _offload_evicted(self, seq_hash: int, page: int) -> None:
+        """Eviction hook: queue the page for host-tier offload. Its data
+        stays valid until the page's new owner WRITES (the next device
+        dispatch or restore), so :meth:`_flush_evictions` copies the batch
+        out right before any of those."""
+        if self.tiered is None:
+            return
+        self._evict_buf.append((seq_hash, page))
+
+    def _flush_evictions(self) -> None:
+        """Copy the queued evicted pages to the host tier. The d2h is
+        enqueued on the compute stream ahead of the dispatch that may
+        overwrite them, and the tier reads the pinned buffers only after
+        the copy's event completed (``CopyStream.d2h_pages``)."""
+        if not self._evict_buf:
+            return
+        buf = list(dict.fromkeys(self._evict_buf))
+        self._evict_buf = []
+        k, v = self.copy_stream.d2h_pages(self.k_pool, self.v_pool,
+                                          [p for _, p in buf])
+        for i, (seq_hash, _) in enumerate(buf):
+            self.tiered.offload(seq_hash, k[i], v[i])
+
+    def _restore_prefix(self, seq_id: str, prompt: List[int]) -> int:
+        """Prefix reuse at admission: claim matching device blocks and
+        upload matching host-tier blocks; returns tokens satisfied from
+        cache (always < len(prompt) so the last token still computes
+        logits)."""
+        t0 = time.perf_counter()
+        host_lookup = None
+        staged: List[np.ndarray] = []       # (k, v) host blocks, once used
+        n_up = 0
+        if self.tiered is not None:
+            def host_lookup(h):
+                # fetch (and copy) eagerly: leasing the upload page can
+                # evict a device block whose offload lands in — and
+                # LRU-drops from — the very host tier we matched against.
+                # The copy goes straight into (pinned) upload buffers.
+                nonlocal n_up
+                kv = self.tiered.lookup(h)
+                if kv is None:
+                    return False
+                if not staged:
+                    staged.extend(self.copy_stream.host_blocks(
+                        len(prompt) // self.page_size, kv[0].shape,
+                        self.k_pool.dtype, self.k_pool.is_cuda))
+                staged[0][n_up] = kv[0]
+                staged[1][n_up] = kv[1]
+                n_up += 1
+                return True
+        matched, uploads = self.pool.match_prefix(
+            seq_id, prompt, len(prompt) - 1, host_lookup)
+        if uploads:
+            # the upload pages may have been evicted just now: their old
+            # blocks go out before the h2d overwrites them
+            self._flush_evictions()
+            n = len(uploads)
+            self.copy_stream.h2d_pages(self.k_pool, self.v_pool,
+                                       [p for _, p in uploads],
+                                       staged[0][:n], staged[1][:n])
+        self.restore_seconds += time.perf_counter() - t0
+        return matched
 
     def _admit_one(self, out: List[StepOutput]):
         """Admit the head-of-line request into a free slot (no prefill yet).
@@ -294,7 +434,17 @@ class EngineCore:
         slot = _Slot(seq_id, req, prompt)
         self.slots[slot_idx] = slot
         self.by_seq[seq_id] = slot
-        self.pool.create(seq_id)
+        # lora_id salts the block-hash chain: blocks computed under
+        # different adapters never alias in reuse or in the router index
+        self.pool.create(seq_id, lora_id=getattr(req, "lora_id", 0))
+        matched = 0
+        if self.cfg.enable_prefix_reuse:
+            matched = self._restore_prefix(seq_id, prompt)
+            slot.prefill_done = slot.kv_written = matched
+        self.last_prefix_hit = matched
+        self.prefix_hit_tokens += matched
+        self._pending_prefix_hit[seq_id] = matched
+        self.prefix_query_tokens += len(prompt)
         self._load_sampling(slot_idx, req)
         return slot_idx, slot
 
@@ -357,6 +507,7 @@ class EngineCore:
                          start + count == len(slot.prompt)))
         if not work:
             return
+        self._flush_evictions()   # extend() may have evicted pages
         Bp = len(work)
         C = max(w[3] for w in work)
         S = max(w[2] + w[3] for w in work)
@@ -398,7 +549,7 @@ class EngineCore:
         self.prefill_dispatches += 1
         self.prefill_seconds += time.perf_counter() - t0
         for lane, (i, slot, start, count, is_last) in enumerate(work):
-            slot.prefill_done = start + count
+            slot.prefill_done = slot.kv_written = start + count
             if not is_last:
                 continue
             t = int(packed[lane, 0])
@@ -475,6 +626,7 @@ class EngineCore:
                           "continue decoding)"))
                 self._free_slot(i)
             return
+        self._flush_evictions()   # ensure_pages() may have evicted pages
         t0 = time.perf_counter()
         d = self.device
         idx = [i for i, _, _ in active]
@@ -515,7 +667,9 @@ class EngineCore:
         self.decode_dispatches += 1
         self.decode_steps_run += N
         self.decode_seconds += time.perf_counter() - t0
-        for a, (i, slot, _) in enumerate(active):
+        for a, (i, slot, phys) in enumerate(active):
+            # the N tokens fed in sit at positions phys-1 .. phys+N-2
+            slot.kv_written = phys + N - 1
             for j in range(N):
                 t = int(packed[j, a, 0])
                 self.pool.account_tokens(slot.seq_id, [t])
@@ -629,6 +783,8 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
                     cum_log_prob=so.logprob,
                     logprobs=[{str(so.token): so.token_logprob}],
                     finish_reason=so.finish,
+                    # first output only: admission's prefix-restore length
+                    kv_prefix_hit_tokens=so.prefix_hit,
                 )
                 if so.finish is not None:
                     return
@@ -643,3 +799,4 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
         self._running = False
         self._wake.set()
         self._thread.join(timeout=30)
+        self.core.close()

@@ -221,3 +221,91 @@ def test_paged_split_plan(B, Hq, Hkv, Dh, P, page):
     assert split == granule or \
         blocks >= tatt.PAGED_BLOCKS_PER_SM * n_sm // 2
     assert nsplit == 1 or blocks < 2 * tatt.PAGED_BLOCKS_PER_SM * n_sm
+
+
+# ---------------------------------------------------------------------------
+# KV block manager copies (llm/kvbm/transfer.py) on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_copy_stream_round_trips_bf16_pages():
+    """d2h of bf16 pages through pinned buffers gives their raw uint16
+    bits; h2d of those bits into other pages restores them bitwise."""
+    from dynamo_tpu_torch.llm.kvbm.transfer import (CopyStream,
+                                                    from_host_array)
+
+    dev = _card()
+    rng = np.random.default_rng(8)
+    shape = (4, 8, 10, 64, 128)            # [L, Hkv, pages, page, Dh]
+    k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+            .to(dev, torch.bfloat16) for _ in range(2))
+    cs = CopyStream()
+    src, dst = [7, 2, 5], [1, 3, 9]
+    hk, hv = cs.d2h_pages(k, v, src)
+    assert hk.dtype == np.uint16 and hk.shape == (3, 4, 8, 64, 128)
+    want_k = k[:, :, src].permute(2, 0, 1, 3, 4).cpu()
+    assert torch.equal(from_host_array(hk, torch.bfloat16).view(torch.int16),
+                       want_k.view(torch.int16))
+    k2, v2 = torch.zeros_like(k), torch.zeros_like(v)
+    cs.h2d_pages(k2, v2, dst, hk, hv)
+    torch.cuda.synchronize()
+    for a, b in ((k2, k), (v2, v)):
+        assert torch.equal(a[:, :, dst].view(torch.int16),
+                           b[:, :, src].view(torch.int16))
+    assert cs.d2h_bytes == cs.h2d_bytes == 2 * hk.nbytes
+
+
+@pytest.mark.cuda
+def test_eviction_offloads_the_old_bytes_before_the_overwriting_dispatch():
+    """Stream ordering: request B's prefill leases (evicts) pages of A's
+    cached prefix and its dispatch overwrites them; the host tier must
+    still receive A's bytes, and a restore of A's prefix must put them
+    back bitwise."""
+    from dynamo_tpu_torch.engine.engine import EngineCore, TorchEngineConfig
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+    from dynamo_tpu_torch.llm.tokens import compute_seq_hashes
+    from dynamo_tpu_torch.models import llama
+
+    _card()
+    cfg = TorchEngineConfig(
+        model=llama.preset("tiny-byte", head_dim=64), device="cuda",
+        page_size=16, max_batch=1, max_context=128, prefill_chunk=64,
+        decode_steps=4, num_pages=7, host_cache_blocks=8)
+    core = EngineCore(cfg)
+
+    def run(sid, toks):
+        core.submit(sid, BackendInput(token_ids=toks, stop=StopConditions(
+            max_tokens=3, ignore_eos=True)))
+        got = []
+        for _ in range(50):
+            for so in core.step():
+                got.append(so.token)
+                if so.finish is not None:
+                    return got
+        raise AssertionError(f"{sid} did not finish")
+
+    a = list(range(1, 65))                 # 4 full pages of 16
+    first = run("a", a)
+    hashes = compute_seq_hashes(a, 16)
+    pages = [core.pool.blocks._by_hash[h] for h in hashes]
+    before = {h: (core.k_pool[:, :, p].clone(), core.v_pool[:, :, p].clone())
+              for h, p in zip(hashes, pages)}
+    run("b", list(range(100, 164)))        # evicts and overwrites A's pages
+    offloaded = [h for h in hashes if h in core.tiered]
+    assert offloaded
+    for h in offloaded:
+        k, v = core.tiered.peek(h)
+        for got, want in ((k, before[h][0]), (v, before[h][1])):
+            assert np.array_equal(got, want.view(torch.uint16).cpu().numpy())
+    # A again: its first three blocks come back from the host tier (the
+    # fourth stays for the last prompt token's logits), bit for bit
+    run("a2", a)
+    assert core.last_prefix_hit == 48 and core.tiered.stats()["hits"] >= 2
+    for h in hashes[:3]:
+        p = core.pool.blocks._by_hash[h]
+        assert torch.equal(core.k_pool[:, :, p].view(torch.int16),
+                           before[h][0].view(torch.int16))
+        assert torch.equal(core.v_pool[:, :, p].view(torch.int16),
+                           before[h][1].view(torch.int16))
+    assert len(first) == 3

@@ -130,6 +130,17 @@ def test_config_from_card_validates_args():
         TorchEngineConfig.from_card(card, tp=2)
 
 
+def test_config_accepts_kv_block_manager_args():
+    card = ModelDeploymentCard.synthetic("t")
+    assert TorchEngineConfig.from_card(card).enable_prefix_reuse
+    cfg = TorchEngineConfig.from_card(card, enable_prefix_reuse=False,
+                                      host_cache_blocks=4)
+    assert not cfg.enable_prefix_reuse and cfg.host_cache_blocks == 4
+    with pytest.raises(NotImplementedError, match="cluster_writethrough"):
+        TorchEngineConfig.from_card(card, host_cache_blocks=4,
+                                    cluster_writethrough=True)
+
+
 def test_cuda_request_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -278,11 +289,13 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """...nor ``xxhash``, which the card's machine lacks: the port carries
+    its own XXH3-64 (``llm/xxh3.py``)."""
     files = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): sorted(
                r for r in set(_imported_roots(f))
-               if r in ("jax", "jaxlib", "dynamo_tpu"))
+               if r in ("jax", "jaxlib", "dynamo_tpu", "xxhash"))
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
