@@ -16,14 +16,18 @@ with a traceback and prints no result:
                head shapes, the flash kernel also on a ragged dispatch in
                the serve path's strided gather layout, the paged kernel
                also on one 2048-token stream and on the serve burst's own
-               decode shape (``paged_probe.PAGED_CASES``); kernel, plain
-               and library times, each time's share of its bound, and the
-               paged kernel's split plan.
+               decode shape (``paged_probe.PAGED_CASES``), and both at the
+               tiny presets' heads (Dh=16: tiny-byte, and tiny-gemma's one
+               kv head for paged); kernel, plain and library times, each
+               time's share of its bound, and the paged kernel's split plan.
 4. serve     — the OpenAI HTTP service with the torch engine serving
                Llama-3-8B (full width and depth, random weights from the
                seed) answers concurrent completions/chat requests, streamed
                and not; the kernels' launch counters must account for every
-               prefill dispatch and decode step.
+               prefill dispatch and decode step. Decode runs through the
+               chained in-flight window: decode dispatches and how many of
+               them chained, the decode-step reading, tokens/s, TTFT; the
+               profile phase gives the device's busy share.
 5. reference — the served weights' logits through the kernels agree with
                the dense attention path on a small input.
 6. reuse     — KV block reuse on the same engine (prefix reuse on by
@@ -35,6 +39,14 @@ with a traceback and prints no result:
                bit for bit, and a warm 24-token prefill over cached pages
                gives the cold chunked prefill's last logits (cosine > 0.99).
                TTFT, dispatches, copy bytes and rates, hashing time.
+7. chain     — on an engine sharing the served weights, one chained
+               steady-state decode enqueue under
+               ``torch.cuda.set_sync_debug_mode("error")``: no host sync.
+8. default   — the CLI's default model, tiny-byte (Dh=16, no preset
+               given), served over HTTP through the same entry point:
+               completions and chat, streamed and not, all 200 with tokens
+               and a finish reason; the launch counters account for every
+               prefill dispatch and decode step.
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2.
@@ -42,6 +54,7 @@ last ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -303,17 +316,22 @@ def http_post(port: int, path: str, body: dict, results: dict, key: str):
                                 seconds=time.perf_counter() - t0)
 
 
-def serve_phase(torch, att, smi: str):
+@contextlib.contextmanager
+def served(argv):
+    """The CLI's torch engine (``cli.run`` arguments ``argv``) behind the
+    OpenAI HTTP service on a free port, its loop on a thread of its own:
+    yields (TorchEngine, loop, port, model id, the engine's construction
+    seconds); stops both after."""
     import asyncio
+
+    import torch
 
     from dynamo_tpu_torch.cli.run import make_card, make_engines, parse_args
     from dynamo_tpu_torch.llm.http_service import (HttpService, ModelManager,
                                                    ServedModel)
 
     t0 = time.perf_counter()
-    args = parse_args(["in=http", "out=torch", "--model-name", PRESET,
-                       "--device", DEVICE,
-                       "--extra-engine-args", json.dumps(ENGINE_ARGS)])
+    args = parse_args(["in=http", "out=torch", "--device", DEVICE, *argv])
     card = make_card(args)
     chat, comp, core = make_engines(args, card)
     torch.cuda.synchronize()
@@ -327,10 +345,78 @@ def serve_phase(torch, att, smi: str):
                               daemon=True)
     server.start()
     try:
-        warm: dict = {}
         http_post(port, "/v1/completions",
-                  {"model": PRESET, "prompt": "warm up", "max_tokens": 2},
-                  warm, "warm")
+                  {"model": card.name, "prompt": "warm up", "max_tokens": 2},
+                  {}, "warm")
+        yield core, loop, port, card.name, init_s
+    finally:
+        asyncio.run_coroutine_threadsafe(svc.stop(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        server.join(timeout=60)
+        loop.close()
+        core.shutdown()
+
+
+def burst(att, core, port: int, reqs: dict, tag: str) -> dict:
+    """The requests of ``reqs`` (key -> (path, body)) at once, with the
+    kernels' launch counters set to 0 just before. Every request must end
+    200 with tokens and a finish reason (a stream with [DONE]), and the
+    launches must account for every prefill dispatch and decode step, one
+    a layer. Returns the results and the engine counters' deltas."""
+    c = core.core
+    before = (c.prefill_dispatches, c.decode_steps_run, c.prefill_seconds,
+              c.decode_seconds, c.decode_dispatches, c.decode_chained)
+    results: dict = {}
+    att.flash_attention.launches = 0
+    att.paged_attention.launches = 0
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=http_post,
+                                args=(port, path, body, results, key))
+               for key, (path, body) in reqs.items()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    out = dict(flash_launches=att.flash_attention.launches,
+               paged_launches=att.paged_attention.launches)
+    after = (c.prefill_dispatches, c.decode_steps_run, c.prefill_seconds,
+             c.decode_seconds, c.decode_dispatches, c.decode_chained)
+    for name, a, b in zip(("prefill_dispatches", "decode_steps",
+                           "prefill_s", "decode_s", "decode_dispatches",
+                           "chained_dispatches"), before, after):
+        out[name] = b - a
+    for key in reqs:
+        r = results.get(key)
+        if r is None:
+            raise AssertionError(f"{tag} request {key} did not complete")
+        if r["status"] != 200 or not r["usage"] \
+                or r["usage"]["completion_tokens"] < 1 \
+                or r["finish"] not in ("length", "stop"):
+            raise AssertionError(f"{tag} request {key} failed: {r}")
+        if "done" in r and not r["done"]:
+            raise AssertionError(f"{tag} stream {key} missed [DONE]: {r}")
+    L = c.cfg.model.num_layers
+    pre_n, steps_n = out["prefill_dispatches"], out["decode_steps"]
+    if not (pre_n > 0 and steps_n > 0
+            and out["flash_launches"] == L * pre_n
+            and out["paged_launches"] == L * steps_n):
+        raise AssertionError(
+            f"{tag}: kernel launches do not account for the serving path: "
+            f"flash {out['flash_launches']} vs {L}x{pre_n} prefill "
+            f"dispatches, paged {out['paged_launches']} vs {L}x{steps_n} "
+            f"decode steps")
+    tokens_out = sum(r["usage"]["completion_tokens"]
+                     for r in results.values())
+    return dict(out, requests=len(reqs), wall_s=wall,
+                completion_tokens=tokens_out, decode_tok_s=tokens_out / wall,
+                results=results)
+
+
+def serve_phase(torch, att, smi: str):
+    argv = ["--model-name", PRESET,
+            "--extra-engine-args", json.dumps(ENGINE_ARGS)]
+    with served(argv) as (core, loop, port, _, init_s):
         long_prompt = ("The port serves Llama on the card through two "
                        "hand-written kernels. " * 22)
         reqs = {
@@ -353,78 +439,34 @@ def serve_phase(torch, att, smi: str):
                 "model": PRESET, "prompt": "Paged attention", "max_tokens": 48,
                 "temperature": 1.0, "top_k": 20, "seed": 11}),
         }
-        results: dict = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        att.flash_attention.launches = 0
-        att.paged_attention.launches = 0
-        c = core.core
-        pre0, dec0 = c.prefill_dispatches, c.decode_steps_run
-        pre_s0, dec_s0 = c.prefill_seconds, c.decode_seconds
-        t_serve = time.perf_counter()
-        threads = [threading.Thread(target=http_post,
-                                    args=(port, path, body, results, key))
-                   for key, (path, body) in reqs.items()]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=600)
-        wall = time.perf_counter() - t_serve
-        flash_n = att.flash_attention.launches
-        paged_n = att.paged_attention.launches
-        prefill_n = core.core.prefill_dispatches - pre0
-        steps_n = core.core.decode_steps_run - dec0
+        b = burst(att, core, port, reqs, "serve")
         peak = torch.cuda.max_memory_allocated()
-        L = core.core.cfg.model.num_layers
-        for key in reqs:
-            r = results.get(key)
-            if r is None:
-                raise AssertionError(f"request {key} did not complete")
-            if r["status"] != 200 or not r["usage"] \
-                    or r["usage"]["completion_tokens"] < 1 \
-                    or r["finish"] not in ("length", "stop"):
-                raise AssertionError(f"request {key} failed: {r}")
-            if "done" in r and not r["done"]:
-                raise AssertionError(f"stream {key} missed [DONE]: {r}")
-        if results["long_prompt"]["usage"]["prompt_tokens"] <= \
+        c = core.core
+        if b["results"]["long_prompt"]["usage"]["prompt_tokens"] <= \
                 ENGINE_ARGS["prefill_chunk"]:
             raise AssertionError("long prompt did not exceed one chunk")
-        if not (prefill_n > 0 and steps_n > 0 and flash_n == L * prefill_n
-                and paged_n == L * steps_n):
-            raise AssertionError(
-                f"kernel launches do not account for the serving path: "
-                f"flash {flash_n} vs {L}x{prefill_n} prefill dispatches, "
-                f"paged {paged_n} vs {L}x{steps_n} decode steps")
-        tokens_out = sum(r["usage"]["completion_tokens"]
-                         for r in results.values())
-        st = results["completion_stream"]
+        st = b["results"]["completion_stream"]
         stream_tok_s = ((st["chunks"] - 1) / (st["last_s"] - st["ttft_s"])
                         if st["chunks"] > 1 else None)
         row = dict(phase="serve", preset=PRESET, engine=ENGINE_ARGS,
-                   requests=len(reqs), init_s=init_s, wall_s=wall,
-                   completion_tokens=tokens_out,
-                   decode_tok_s=tokens_out / wall,
-                   stream_ttft_s=st["ttft_s"],
+                   init_s=init_s, **b, stream_ttft_s=st["ttft_s"],
                    stream_decode_tok_s=stream_tok_s,
-                   prefill_dispatches=prefill_n, decode_steps=steps_n,
-                   prefill_s=c.prefill_seconds - pre_s0,
-                   prefill_ms_per_dispatch=1e3 * (c.prefill_seconds - pre_s0)
-                   / prefill_n if prefill_n else None,
-                   decode_s=c.decode_seconds - dec_s0,
-                   flash_launches=flash_n, paged_launches=paged_n,
+                   prefill_ms_per_dispatch=1e3 * b["prefill_s"]
+                   / b["prefill_dispatches"],
+                   # dispatch to results on the host, per step; chained
+                   # dispatches overlap, so this is not a share of the wall
+                   decode_step_ms=1e3 * b["decode_s"] / b["decode_steps"],
                    peak_mem_bytes=peak, weight_bytes=_nbytes(c.params),
-                   kv_pool_bytes=_nbytes([c.k_pool, c.v_pool]), card=smi,
-                   results=results)
+                   kv_pool_bytes=_nbytes([c.k_pool, c.v_pool]), card=smi)
         emit(row)
-        profile_phase(torch, port)
-        ref = reference_phase(torch, core.core)
+        if row["chained_dispatches"] <= 0:
+            raise AssertionError(f"no decode dispatch chained: {row}")
+        row["profile"] = profile_phase(torch, port)
+        ref = reference_phase(torch, c)
         row["reuse"] = reuse_phase(torch, att, core, loop)
-    finally:
-        asyncio.run_coroutine_threadsafe(svc.stop(), loop).result(60)
-        loop.call_soon_threadsafe(loop.stop)
-        server.join(timeout=60)
-        loop.close()
-        core.shutdown()
+        row["chain"] = chain_sync_phase(torch, c)
     return row, ref
 
 
@@ -727,6 +769,105 @@ def reuse_phase(torch, att, engine, loop) -> dict:
     return dict(row, runs=[cold, warm, host, again], flush=flush)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: a chained decode enqueue makes no host sync
+# ---------------------------------------------------------------------------
+
+def chain_sync_phase(torch, served) -> dict:
+    """On a second engine core that shares the served weights (the serving
+    core belongs to its engine thread), two requests decode until the next
+    dispatch can chain off the one in flight; that enqueue then runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, where any host sync (a
+    pageable copy, ``.item()``, a stream sync) raises."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine.engine import EngineCore
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+
+    cfg = dataclasses.replace(served.cfg, max_batch=2, num_pages=None,
+                              host_cache_blocks=0)
+    core = EngineCore(cfg, served.params)
+    for sid in ("a", "b"):
+        core.submit(sid, BackendInput(
+            token_ids=list(range(1, 65)) if sid == "a" else [7] * 40,
+            stop=StopConditions(max_tokens=48, ignore_eos=True)))
+    for _ in range(20):
+        core.step()
+        if len(core._inflight) == 1 and core._can_chain():
+            break
+    else:
+        raise AssertionError("the window never became chainable")
+    n = core.decode_dispatches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        core._dispatch_decode()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    enqueue_s = time.perf_counter() - t0
+    chained = core.decode_dispatches == n + 1 and core._inflight[-1]["chained"]
+    tokens = 0
+    for _ in range(40):
+        tokens += len(core.step())
+        if not core.has_work:
+            break
+    row = dict(phase="chain", sync_debug_mode="error", chained=chained,
+               enqueue_s=enqueue_s, decode_steps=core.cfg.decode_steps,
+               tokens_after=tokens, drained=not core.has_work,
+               pages_free=core.pool.free_pages == core.pool.num_pages - 1)
+    emit(row)
+    if not (chained and row["drained"] and row["pages_free"]):
+        raise AssertionError(f"chained enqueue check failed: {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the CLI's default model (tiny-byte, Dh=16) over HTTP
+# ---------------------------------------------------------------------------
+
+def serve_default_phase(torch, att, smi: str) -> dict:
+    """``in=http out=torch`` with no preset: the synthetic card falls back
+    to tiny-byte, whose head dim 16 runs the kernels' Dh=16 instances.
+    ``min_tokens`` keeps a random model's early EOS from ending a request
+    with no tokens."""
+    with served([]) as (core, _, port, model, _):
+        c = core.core
+        m = c.cfg.model
+        if (m.head_dim, m.num_heads, m.num_kv_heads, m.vocab_size) != \
+                (16, 4, 2, 259):
+            raise AssertionError(f"the CLI default is not tiny-byte: {m}")
+        common = {"model": model, "min_tokens": 4}
+        reqs = {
+            "completion": ("/v1/completions", {
+                **common, "prompt": "The quick brown fox", "max_tokens": 40}),
+            "completion_stream": ("/v1/completions", {
+                **common, "prompt": "Once upon a time", "max_tokens": 64,
+                "stream": True, "logprobs": 1}),
+            "chat": ("/v1/chat/completions", {
+                **common, "max_tokens": 40,
+                "messages": [{"role": "user", "content": "Say hello."}]}),
+            "chat_stream_sampled": ("/v1/chat/completions", {
+                **common, "max_tokens": 48, "stream": True,
+                "temperature": 0.8, "top_p": 0.9, "seed": 7, "logprobs": 1,
+                "messages": [{"role": "user", "content": "Tell a story."}]}),
+            "long_prompt": ("/v1/completions", {
+                **common, "prompt": "tiny byte model " * 40,
+                "max_tokens": 24}),
+        }
+        b = burst(att, core, port, reqs, "default")
+        row = dict(phase="default", model=model, preset="tiny-byte",
+                   head_dim=m.head_dim, dtype=str(m.dtype),
+                   engine=dict(page_size=c.page_size,
+                               max_batch=c.cfg.max_batch,
+                               decode_steps=c.cfg.decode_steps),
+                   **b, stream_ttft_s=b["results"]["completion_stream"][
+                       "ttft_s"], card=smi)
+        emit(row)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -766,12 +907,17 @@ def main() -> int:
     # the chunk after a restored prefix: the last 24 of 1496 positions
     flash_case(torch, att, "llama3-8b-prefix-hit",
                *flash_inputs(torch, 1, 24, 1496, 32, 8, 128, ragged=False))
+    # the CLI's default model, tiny-byte: Hq=4, Hkv=2, Dh=16
+    flash16 = flash_case(torch, att, "tiny-byte",
+                         *flash_inputs(torch, 2, 512, 1024, 4, 2, 16))
     from dynamo_tpu_torch.ops.paged_probe import PAGED_CASES
 
-    paged = {name: paged_case(torch, att, name, **kw)
-             for name, kw in PAGED_CASES.items()}["llama3-8b"]
+    paged_rows = {name: paged_case(torch, att, name, **kw)
+                  for name, kw in PAGED_CASES.items()}
+    paged, paged16 = paged_rows["llama3-8b"], paged_rows["tiny-byte"]
 
     serve, _ = serve_phase(torch, att, smi)
+    default = serve_default_phase(torch, att, smi)
 
     src = "dynamo_tpu_torch/ops/csrc/"
     kernels = [
@@ -795,6 +941,24 @@ def main() -> int:
              max_abs_err=paged["max_abs_err"], ms=paged["ms"],
              plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
              bound_by=paged["bound_by"], bound_frac=paged["bound_frac"],
+             library_ms=None),
+        # the Dh=16 instances, on the CLI default model's path
+        dict(name="flash_attention_dh16", route="cuda",
+             source=src + "flash_attention.cu",
+             replaces="dynamo_tpu/ops/attention.py:166",
+             launches=default["flash_launches"],
+             max_abs_err=flash16["max_abs_err"], ms=flash16["ms"],
+             plain_ms=flash16["plain_ms"], bound_ms=flash16["bound_ms"],
+             bound_by=flash16["bound_by"], bound_frac=flash16["bound_frac"],
+             library_ms=flash16["library_ms"]),
+        dict(name="paged_attention_dh16", route="cuda",
+             source=src + "paged_attention.cu",
+             replaces="dynamo_tpu/ops/attention.py:400",
+             also_replaces="dynamo_tpu/ops/attention.py:552",
+             launches=default["paged_launches"], splits=paged16["splits"],
+             max_abs_err=paged16["max_abs_err"], ms=paged16["ms"],
+             plain_ms=paged16["plain_ms"], bound_ms=paged16["bound_ms"],
+             bound_by=paged16["bound_by"], bound_frac=paged16["bound_frac"],
              library_ms=None),
     ]
     emit({"kernels": kernels})

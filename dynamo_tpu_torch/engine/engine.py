@@ -6,11 +6,16 @@ Architecture:
   — the single-owner actor discipline the reference uses for its schedulers.
 - Each iteration admits waiting requests and runs ONE batched prefill
   dispatch that advances every mid-prefill sequence by one chunk (flash
-  attention over the gathered context), then ONE decode dispatch of
+  attention over the gathered context), then enqueues ONE decode dispatch of
   ``decode_steps`` autoregressive steps over every decode-ready sequence
   (paged attention straight off the pool). Sampling and penalties run on the
   device; each dispatch fetches one packed (token, logprob) tensor to the
   host.
+- Decode is pipelined as in the JAX engine: a decode dispatch's results are
+  fetched one iteration later, while the next dispatch, chained off the
+  previous one's tokens on the device, is already enqueued. Its host inputs
+  go to the card through pinned memory without a host sync, so the fetch's
+  round trip and the host's accounting overlap the card's work.
 - KV block manager, on by default as in the JAX engine: full pages seal
   under the xxh3-64 block-hash chain and park as reusable when their
   sequence ends; admission claims the longest cached prefix of the prompt
@@ -22,8 +27,7 @@ Architecture:
 - :class:`TorchEngine` is the asyncio facade implementing the AsyncEngine
   contract (BackendInput -> stream of EngineOutput).
 
-Not ported yet (the JAX engine has them): the chained in-flight decode
-window, cluster write-through and placement prefetch of the KV tiers,
+Not ported yet (the JAX engine has them): cluster write-through and placement prefetch of the KV tiers,
 speculative decoding, disaggregated prefill, the long-context paging lane,
 multimodal input, MoE and tp/pp/sp.
 
@@ -51,12 +55,14 @@ from typing import (Any, AsyncIterator, Callable, Deque, Dict, List,
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, to_device
 from ..llm.kvbm.tiers import DiskKvTier, HostKvTier, TieredKvCache
 from ..llm.kvbm.transfer import CopyStream, host_dtype
 from ..llm.model_card import ModelDeploymentCard
 from ..llm.protocols.common import BackendInput, EngineOutput, FinishReason
 from ..models import llama
+from ..ops.attention import (check_kernel_support, flash_attention,
+                             paged_attention)
 from ..runtime.engine import AsyncEngine, Context
 from .cache import OutOfPages, PagePool
 from .sampling import (STATIC_K, apply_penalties, draw_uniforms,
@@ -127,11 +133,16 @@ class _Slot:
     request: BackendInput
     prompt: List[int]
     prefill_done: int = 0           # prompt tokens already in cache
-    kv_written: int = 0             # leading tokens whose KV the pool holds
+    # leading tokens whose KV the pool holds once every enqueued dispatch
+    # has run
+    kv_written: int = 0
     generated: int = 0
     last_token: int = 0
     cum_logprob: float = 0.0
     cancelled: bool = False
+    # physical tokens written after every ENQUEUED decode dispatch executes
+    # (runs ahead of `generated`, which advances when results are fetched)
+    sched_len: int = 0
 
 
 @dataclass
@@ -165,6 +176,10 @@ class EngineCore:
         self.cfg = cfg
         m = cfg.model
         self.device = resolve_device(cfg.device)
+        if self.device.type == "cuda":
+            # the JAX engine's construction-time kernel check, without its
+            # fallback: a model the CUDA kernels lack raises ValueError
+            check_kernel_support(m.head_dim, m.dtype)
         self.page_size = cfg.page_size
         # a dispatch may overshoot a finishing sequence by up to
         # decode_steps tokens: they land in its own pre-allocated pages
@@ -234,14 +249,44 @@ class EngineCore:
         self.generators: List[Optional[torch.Generator]] = [None] * B
         self._seed_source = random.Random(cfg.seed)
         self._decode_seen: Dict[int, str] = {}
+        # in-flight decode dispatches, oldest first: each record is a
+        # dispatch whose results are not on the host yet (at most two)
+        self._inflight: Deque[Dict[str, Any]] = collections.deque()
+        # (seq_id, written) releases held until the window drains
+        self._deferred_release: List[Tuple[str, int]] = []
         # dispatch counters and host-clock seconds per dispatch kind, each
         # ending in its result fetch (a run reads them beside the kernel
-        # launch counters)
+        # launch counters); decode seconds overlap between chained
+        # dispatches
         self.prefill_dispatches = 0
         self.decode_dispatches = 0
+        self.decode_chained = 0         # of those, chained off the window
         self.decode_steps_run = 0
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
+        if self.device.type == "cuda":
+            self._probe_kernels()
+
+    def _probe_kernels(self) -> None:
+        """Build both CUDA kernels and launch each once at this engine's
+        head shapes, so that a build or launch fault raises at construction
+        instead of failing the first request."""
+        m, d, page = self.cfg.model, self.device, self.page_size
+        kw = dict(scale=m.attn_scale, softcap=m.attn_logit_softcap,
+                  window=m.sliding_window)
+        q = torch.zeros((1, 1, m.num_heads, m.head_dim), dtype=m.dtype,
+                        device=d)
+        kv = torch.zeros((1, page, m.num_kv_heads, m.head_dim),
+                         dtype=m.dtype, device=d)
+        k_pos = torch.arange(page, dtype=torch.int32, device=d)[None]
+        with torch.no_grad():
+            flash_attention(q, kv, kv, k_pos[:, -1:].contiguous(), k_pos,
+                            torch.ones((1, page), dtype=torch.bool,
+                                       device=d), **kw)
+            paged_attention(q[:, 0], self.k_pool[0], self.v_pool[0],
+                            torch.zeros((1, 1), dtype=torch.int32, device=d),
+                            torch.ones(1, dtype=torch.int32, device=d), **kw)
+        torch.cuda.synchronize(d)
 
     # ------------------------------------------------------------------
     # public API (engine thread)
@@ -273,18 +318,25 @@ class EngineCore:
 
     @property
     def has_work(self) -> bool:
-        return bool(self.waiting or self.by_seq)
+        return bool(self.waiting or self.by_seq or self._inflight)
 
     def step(self, flush: Optional[Callable[[List[StepOutput]], None]] = None
              ) -> List[StepOutput]:
-        """Run one engine iteration: reap cancelled sequences, one batched
-        prefill dispatch (admitting as many waiting requests as fit), then
-        one multi-step decode dispatch over every decode-ready sequence.
+        """Run one engine iteration.
 
-        ``flush``, when given, receives the outputs that exist before the
-        decode dispatch (first tokens, rejections, cancellations) so they
-        reach callers without waiting for it (TTFT); the rest are
-        returned.
+        Steady-state decode is pipelined: a decode dispatch's tokens are
+        fetched one iteration later, while the next dispatch, chained off
+        the previous one's tokens on the device, is already enqueued.
+        Membership changes (admission, prefill, cancel) drain the window
+        first, and it drains when no live sequence is left; releases held
+        for in-flight dispatches apply once it is empty.
+
+        With the window empty, an iteration runs one batched prefill
+        dispatch (admitting as many waiting requests as fit), then enqueues
+        one multi-step decode dispatch over every decode-ready sequence.
+        ``flush``, when given, receives the outputs that exist before that
+        enqueue (first tokens, rejections, cancellations) so they reach
+        callers without waiting for it (TTFT); the rest are returned.
 
         A sequence's first output carries admission's prefix-restore length
         (``StepOutput.prefix_hit``)."""
@@ -292,15 +344,35 @@ class EngineCore:
         with torch.no_grad():
             prefill_work = any(s is not None and s.prefill_done < len(s.prompt)
                                for s in self.slots)
-            if prefill_work or (self.waiting and None in self.slots):
+            admit_possible = bool(self.waiting) and None in self.slots
+            sync_needed = prefill_work or admit_possible or bool(out)
+            if self._inflight:
+                if not sync_needed and self._can_chain():
+                    self._dispatch_decode()
+                out.extend(self._process_oldest_inflight())
+                while not self.by_seq and self._inflight:
+                    # every live sequence finished: drain the stale window
+                    # so its pages release instead of idling in limbo
+                    out.extend(self._process_oldest_inflight())
+                if not self._inflight:
+                    self._apply_deferred_release()
+                return self._tag_prefix_hits(out)
+            self._apply_deferred_release()
+            if prefill_work or admit_possible:
                 self._prefill_round(out)
             if flush is not None and out:
                 flush(self._tag_prefix_hits(out))
                 out = []
             if any(s is not None and s.prefill_done >= len(s.prompt)
                    for s in self.slots):
-                self._decode_round(out)
+                self._dispatch_decode(out)
         return self._tag_prefix_hits(out)
+
+    def drop_window(self) -> None:
+        """Forget the in-flight decode dispatches and apply the releases
+        held for them (after an engine error, so no page stays leased)."""
+        self._inflight.clear()
+        self._apply_deferred_release()
 
     def _tag_prefix_hits(self, out: List[StepOutput]) -> List[StepOutput]:
         if self._pending_prefix_hit:
@@ -328,9 +400,21 @@ class EngineCore:
         self.generators[i] = None
         # the last sampled token's KV exists only once a later step fed it
         # back: a block it completed must not stay matchable
-        self.pool.release(slot.seq_id, written=slot.kv_written)
+        if self._inflight:
+            # an enqueued decode dispatch may still write into this
+            # sequence's pages; hold the release until the window drains so
+            # the pages cannot be reallocated under the in-flight dispatch
+            self._deferred_release.append((slot.seq_id, slot.kv_written))
+        else:
+            self.pool.release(slot.seq_id, written=slot.kv_written)
         self.by_seq.pop(slot.seq_id, None)
         self.slots[i] = None
+
+    def _apply_deferred_release(self) -> None:
+        if self._deferred_release and not self._inflight:
+            for seq_id, written in self._deferred_release:
+                self.pool.release(seq_id, written=written)
+            self._deferred_release.clear()
 
     # ------------------------------------------------------------------
     # KV block manager: offload at eviction, restore at admission
@@ -481,9 +565,9 @@ class EngineCore:
 
     def _lane_tensors(self, idx: List[int]):
         d = self.device
-        return (torch.from_numpy(self.temperature[idx]).to(d),
-                torch.from_numpy(self.top_p[idx]).to(d),
-                torch.from_numpy(self.top_k[idx]).to(d))
+        return (to_device(self.temperature[idx], d),
+                to_device(self.top_p[idx], d),
+                to_device(self.top_k[idx], d))
 
     def _prefill_dispatch(self, chunks: List[Tuple[int, _Slot]],
                           out: List[StepOutput]) -> None:
@@ -537,14 +621,13 @@ class EngineCore:
         idx = [w[0] for w in work]
         temp, top_p, top_k = self._lane_tensors(idx)
         logits, _, _ = llama.forward(
-            self.params, cfg.model, torch.from_numpy(tokens).to(d),
-            torch.from_numpy(positions).to(d), self.k_pool, self.v_pool,
-            torch.from_numpy(write_idx).to(d), torch.from_numpy(read_idx).to(d),
-            torch.from_numpy(read_pos).to(d),
-            torch.from_numpy(read_valid).to(d), attn_impl="flash",
-            logits_idx=torch.from_numpy(last_i).to(d))
+            self.params, cfg.model, to_device(tokens, d),
+            to_device(positions, d), self.k_pool, self.v_pool,
+            to_device(write_idx, d), to_device(read_idx, d),
+            to_device(read_pos, d), to_device(read_valid, d),
+            attn_impl="flash", logits_idx=to_device(last_i, d))
         tok, logp = sample(logits[:, 0], temp, top_p, top_k,
-                           torch.from_numpy(uniforms).to(d))
+                           to_device(uniforms, d))
         packed = torch.stack([tok.float(), logp], -1).cpu().numpy()  # 1 fetch
         self.prefill_dispatches += 1
         self.prefill_seconds += time.perf_counter() - t0
@@ -586,14 +669,15 @@ class EngineCore:
 
     # ------------------------------------------------------------------
     def _decode_eligible(self):
-        """(slot_idx, slot, phys_len) for every decode-ready slot whose
-        dispatch's pages could be reserved; deferred = ready but no pages."""
+        """(slot_idx, slot, phys_len) for every decode-ready slot whose next
+        dispatch's pages could be reserved; deferred = ready but no pages.
+        ``phys_len`` counts the tokens every enqueued dispatch has fed."""
         N = self.cfg.decode_steps
         active, deferred = [], []
         for i, slot in enumerate(self.slots):
             if slot is None or slot.prefill_done < len(slot.prompt):
                 continue
-            phys = len(slot.prompt) + slot.generated
+            phys = slot.sched_len or (len(slot.prompt) + slot.generated)
             try:
                 # reserve room for N speculative tokens up front
                 self.pool.ensure_pages(slot.seq_id, phys + N)
@@ -604,27 +688,59 @@ class EngineCore:
             active.append((i, slot, phys))
         return active, deferred
 
-    def _decode_round(self, out: List[StepOutput]) -> None:
-        """One multi-step decode dispatch over every decode-ready lane:
-        ``decode_steps`` forward+sample iterations with the sampled token
-        fed straight back in on the device, then ONE packed host fetch.
-        Lanes that finish mid-dispatch overshoot harmlessly into their own
-        pre-allocated pages; the host trims afterwards."""
+    def _can_chain(self) -> bool:
+        """True if the next decode dispatch can be enqueued straight off the
+        in-flight one's tokens on the device: the same lanes holding the
+        same sequences, pages for every lane, and only one dispatch
+        outstanding."""
+        if len(self._inflight) != 1:
+            return False
+        rec = self._inflight[-1]
+        # the chained dispatch feeds the previous dispatch's final tokens to
+        # every lane, so the decode-ready set must be exactly its lanes: a
+        # deferred slot unblocking has a last_token the device lacks
+        ready_now = {i for i, s in enumerate(self.slots)
+                     if s is not None and s.prefill_done >= len(s.prompt)}
+        if ready_now != {i for i, _, _ in rec["active"]}:
+            return False
+        if any(self.slots[i] is not slot for i, slot, _ in rec["active"]):
+            return False
+        N = self.cfg.decode_steps
+        for _, slot, _ in rec["active"]:
+            try:
+                self.pool.ensure_pages(slot.seq_id, slot.sched_len + N)
+            except OutOfPages:
+                return False
+        return True
+
+    def _evict_largest_deferred(self, deferred, out: List[StepOutput]) -> None:
+        """No decode-ready lane can be dispatched and every deferred lane is
+        blocked on KV capacity: evict the largest consumer so the rest of
+        the system unblocks (capacity error)."""
+        i, slot = max(deferred,
+                      key=lambda t: len(self.pool.seqs[t[1].seq_id].pages))
+        out.append(StepOutput(
+            slot.seq_id, slot.last_token, slot.cum_logprob,
+            FinishReason.ERROR,
+            error="evicted under KV pool pressure (no capacity to "
+                  "continue decoding)"))
+        self._free_slot(i)
+
+    def _dispatch_decode(self, out: Optional[List[StepOutput]] = None) -> None:
+        """Enqueue one multi-step decode dispatch over every decode-ready
+        lane WITHOUT fetching its results: ``decode_steps`` forward+sample
+        iterations with the sampled token fed straight back on the device.
+        With a dispatch in flight, chain off its final tokens on the device
+        (no host data dependency). Lanes that finish mid-dispatch overshoot
+        harmlessly into their own pre-allocated pages; the fetch trims
+        them."""
         cfg, m = self.cfg, self.cfg.model
         N = cfg.decode_steps
+        chain = bool(self._inflight)
         active, deferred = self._decode_eligible()
         if not active:
-            if deferred:
-                # every ready lane is blocked on KV capacity: evict the
-                # largest consumer so the rest of the system unblocks
-                i, slot = max(deferred, key=lambda t: len(
-                    self.pool.seqs[t[1].seq_id].pages))
-                out.append(StepOutput(
-                    slot.seq_id, slot.last_token, slot.cum_logprob,
-                    FinishReason.ERROR,
-                    error="evicted under KV pool pressure (no capacity to "
-                          "continue decoding)"))
-                self._free_slot(i)
+            if deferred and not chain and out is not None:
+                self._evict_largest_deferred(deferred, out)
             return
         self._flush_evictions()   # ensure_pages() may have evicted pages
         t0 = time.perf_counter()
@@ -634,22 +750,30 @@ class EngineCore:
         page_tables = np.stack([self.pool.page_table_row(s.seq_id, P)
                                 for _, s, _ in active])
         lengths = np.asarray([phys for _, _, phys in active], np.int32)
-        tokens = np.asarray([s.last_token for _, s, _ in active], np.int64)
-        lane = torch.as_tensor(idx, device=d)
-        for i, slot, _ in active:
-            if self._decode_seen.get(i) != slot.seq_id:
-                # a sequence entering decode restarts its penalty counts at
-                # one-hot(first generated token)
-                self._decode_seen[i] = slot.seq_id
-                self.gen_counts[i].zero_()
-                self.gen_counts[i, slot.last_token] = 1
+        for _, slot, phys in active:
+            slot.sched_len = phys + N
+            # the N tokens fed in sit at positions phys-1 .. phys+N-2
+            slot.kv_written = phys + N - 1
+        if chain:
+            tok = self._inflight[-1]["final_tok"]
+        else:
+            tok = to_device(np.asarray([s.last_token for _, s, _ in active],
+                                       np.int64), d)
+            for i, slot, _ in active:
+                if self._decode_seen.get(i) != slot.seq_id:
+                    # a sequence entering decode restarts its penalty
+                    # counts at one-hot(first generated token); a chained
+                    # dispatch has the same sequences, so never here
+                    self._decode_seen[i] = slot.seq_id
+                    self.gen_counts[i].zero_()
+                    self.gen_counts[i, slot.last_token] = 1
+        lane = to_device(np.asarray(idx, np.int64), d)
         temp, top_p, top_k = self._lane_tensors(idx)
-        freq = torch.from_numpy(self.freq_pen[idx]).to(d)
-        pres = torch.from_numpy(self.pres_pen[idx]).to(d)
+        freq = to_device(self.freq_pen[idx], d)
+        pres = to_device(self.pres_pen[idx], d)
         uniforms = draw_uniforms([self.generators[i] for i in idx], N, d)
-        tok = torch.from_numpy(tokens).to(d)
-        pt = torch.from_numpy(page_tables).to(d)
-        ln = torch.from_numpy(lengths).to(d)
+        pt = to_device(page_tables, d)
+        ln = to_device(lengths, d)
         toks, logps = [], []
         for j in range(N):
             logits, _, _ = llama.forward_decode(
@@ -663,13 +787,41 @@ class EngineCore:
             logps.append(logp)
             ln = ln + 1
         packed = torch.stack([torch.stack(toks).float(), torch.stack(logps)],
-                             -1).cpu().numpy()          # [N, Ba, 2] 1 fetch
+                             -1)                        # [N, Ba, 2]
+        ready = None
+        if packed.is_cuda:
+            # into pinned memory behind the dispatch; the host waits on the
+            # event only when it processes this record
+            host = torch.empty(packed.shape, dtype=packed.dtype,
+                               pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            packed = host
+        self._inflight.append({"packed": packed, "ready": ready,
+                               "final_tok": tok, "active": active,
+                               "chained": chain, "dispatched_at": t0})
         self.decode_dispatches += 1
+        self.decode_chained += chain
         self.decode_steps_run += N
-        self.decode_seconds += time.perf_counter() - t0
-        for a, (i, slot, phys) in enumerate(active):
-            # the N tokens fed in sit at positions phys-1 .. phys+N-2
-            slot.kv_written = phys + N - 1
+
+    def _process_oldest_inflight(self) -> List[StepOutput]:
+        """Wait for the oldest in-flight dispatch's results on the host and
+        account them: lanes freed since the dispatch are discarded, and a
+        lane that finishes is freed at once, its overshoot tokens
+        dropped."""
+        rec = self._inflight.popleft()
+        if rec["ready"] is not None:
+            rec["ready"].synchronize()
+        packed = rec["packed"].numpy()                  # [N, Ba, 2]
+        # the JAX engine's decode_step reading: dispatch to results on the
+        # host, which overlaps between chained dispatches
+        self.decode_seconds += time.perf_counter() - rec["dispatched_at"]
+        N = packed.shape[0]
+        outs: List[StepOutput] = []
+        for a, (i, slot, _) in enumerate(rec["active"]):
+            if self.slots[i] is not slot:
+                continue   # freed since dispatch (finish/cancel): discard
             for j in range(N):
                 t = int(packed[j, a, 0])
                 self.pool.account_tokens(slot.seq_id, [t])
@@ -678,11 +830,15 @@ class EngineCore:
                 tok_lp = float(packed[j, a, 1])
                 slot.cum_logprob += tok_lp
                 fin = self._finish_reason(slot, t)
-                out.append(StepOutput(slot.seq_id, t, slot.cum_logprob, fin,
-                                      token_logprob=tok_lp))
+                outs.append(StepOutput(slot.seq_id, t, slot.cum_logprob, fin,
+                                       token_logprob=tok_lp))
                 if fin is not None:
+                    # overshoot tokens past the finish are discarded; their
+                    # writes land in this sequence's own pages, held until
+                    # the window drains
                     self._free_slot(i)
                     break
+        return outs
 
 
 # ---------------------------------------------------------------------------
@@ -730,6 +886,7 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
                 for sid in list(self.core.by_seq):
                     self.core.cancel(sid)
                 self.core._reap_cancelled()
+                self.core.drop_window()
             self._deliver_all(outs)
             if not outs and not self.core.by_seq:
                 # waiting requests that can't be admitted yet: don't spin

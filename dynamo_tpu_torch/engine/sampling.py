@@ -20,6 +20,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..device import to_device
+
 STATIC_K = 64
 
 
@@ -49,9 +51,9 @@ def lane_generator(seed: int) -> torch.Generator:
 def draw_uniforms(generators: Sequence[torch.Generator], n: int,
                   device: torch.device) -> torch.Tensor:
     """[n, B] uniforms in [0, 1): column b is the next n draws of lane b's
-    generator. One host->device copy per call."""
+    generator. One host->device copy per call, with no host sync."""
     cols = [torch.rand(n, generator=g) for g in generators]
-    return torch.stack(cols, dim=1).to(device)
+    return to_device(torch.stack(cols, dim=1), device)
 
 
 def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import to_device
 from ..ops.attention import flash_attention, paged_attention
 
 # ---------------------------------------------------------------------------
@@ -548,8 +549,7 @@ def rope_tables(cfg: LlamaConfig, positions: torch.Tensor,
                 local: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables (f32) for integer positions [...]: -> [..., Dh/2].
     ``local=True`` = the sliding layers' table (gemma3 dual-base rope)."""
-    inv = torch.from_numpy(_rope_inv_freq(cfg, local=local)).to(
-        positions.device)
+    inv = to_device(_rope_inv_freq(cfg, local=local), positions.device)
     ang = positions[..., None].float() * inv
     return torch.cos(ang), torch.sin(ang)
 

@@ -38,7 +38,8 @@ NEG_INF = -1e30
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FLASH_ARGS = [_P] * 7 + [_I] * 6 + [_I64] * 9 + [_F, _F, _I, _P]
 _PAGED_ARGS = [_P] * 7 + [_I] * 9 + [_F, _F, _I, _P]
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (16, 64, 128, 256)
+KERNEL_DTYPE = torch.bfloat16
 # the paged kernel's grid aims at this many blocks an SM; about half of them
 # exit at once when lanes are shorter than the table
 PAGED_BLOCKS_PER_SM = 4
@@ -56,6 +57,17 @@ def _masked_softmax_av(s: torch.Tensor, mask: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum(eq, p, v)
     return o, l
+
+
+def check_kernel_support(head_dim: int, dtype: torch.dtype) -> None:
+    """Raise ValueError unless both CUDA kernels have an instance for this
+    head dim and dtype (the engine checks a model's once, at construction)."""
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} has no CUDA attention kernel "
+                         f"(kernels: {KERNEL_HEAD_DIMS})")
+    if dtype != KERNEL_DTYPE:
+        raise ValueError(f"dtype {dtype} has no CUDA attention kernel "
+                         f"(kernels: {KERNEL_DTYPE})")
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -136,7 +148,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{KERNEL_HEAD_DIMS}")
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_cuda(name, t, torch.bfloat16, dev)
+        _check_cuda(name, t, KERNEL_DTYPE, dev)
         _check_rows(name, t)
     for name, t, shape, dtype in (("q_pos", q_pos, (B, T), torch.int32),
                                   ("k_pos", k_pos, (B, S), torch.int32),
@@ -248,7 +260,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("paged_attention: the page table holds no tokens")
     dev = q.device
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        _check_cuda(name, t, torch.bfloat16, dev)
+        _check_cuda(name, t, KERNEL_DTYPE, dev)
         if not t.is_contiguous():
             raise ValueError(f"paged_attention: {name} must be contiguous")
         _check_rows(name, t)

@@ -47,6 +47,10 @@
 //   row of the block can see it: valid, not in the causal future, not below
 //   every row's window) and loads and multiplies only the tiles between the
 //   first and the last live one.
+// - Head dims 16, 64, 128 and 256 are instances of the one template. At
+//   Dh = 16 (the tiny presets) a row is two 16-byte chunks and 48 bytes
+//   padded, still conflict-free for ldmatrix, with one k-step of Q.K^T and
+//   two output n-tiles.
 // Next step toward the bound: wgmma with TMA loads into an mbarrier ring
 // and warp specialisation (a producer warp, two consumer warpgroups).
 
@@ -481,6 +485,7 @@ extern "C" int dtt_flash_attention(
                          q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,      \
                          scale, softcap, window, st)
     switch (Dh) {
+        case 16: return (int)DTT_FLASH(16, 64, true);
         case 64: return (int)DTT_FLASH(64, 64, true);
         case 128: return (int)DTT_FLASH(128, 64, true);
         case 256: return (int)DTT_FLASH(256, 32, false);

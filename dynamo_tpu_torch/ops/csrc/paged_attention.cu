@@ -42,6 +42,9 @@
 //   2.2x slower (PERF.md). Q fragments stay in registers (Dh <= 128)
 //   or are re-read from shared memory (Dh = 256). The online softmax is in
 //   f32 in base 2 with the finite NEG_INF sentinel.
+// - Head dims 16, 64, 128 and 256 are instances of the one template. At
+//   Dh = 16 (the tiny presets) a lane copies one 16-byte piece of a 16-row
+//   tile per pass, a row is 48 bytes padded, and Q.K^T is one k-step.
 // - The merge. The warps of a block merge through shared memory in a fixed
 //   order. With one split the block writes the bf16 output; otherwise it
 //   writes its partial (m, l, acc[Dh]) in f32 to a workspace the wrapper
@@ -442,7 +445,7 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
 // Tokens in one round of a block's warp tiles (0 for a head dim without a
 // kernel): a split must be a multiple of it.
 extern "C" int dtt_paged_granule(int Dh) {
-    return Dh == 64 || Dh == 128 || Dh == 256 ? GRANULE : 0;
+    return Dh == 16 || Dh == 64 || Dh == 128 || Dh == 256 ? GRANULE : 0;
 }
 
 // Returns the cudaError_t of the launches (0 = success). q [B,Hq,Dh] and the
@@ -468,6 +471,7 @@ extern "C" int dtt_paged_attention(
     launch<DH>(q, k_pages, v_pages, pt, ln, out, w, B, Hq, Hkv, n_pages,     \
                page, P, split, nsplit, scale, softcap, window, st)
     switch (Dh) {
+        case 16: return (int)DTT_PAGED(16);
         case 64: return (int)DTT_PAGED(64);
         case 128: return (int)DTT_PAGED(128);
         default: return (int)DTT_PAGED(256);

@@ -55,6 +55,10 @@ PAGED_CASES = {
                                "B": 6, "P": 25},
     "gemma2-9b-paged-dh256": {"softcap": 50.0, "window": 256, "Hq": 16,
                               "Hkv": 8, "Dh": 256},
+    # the tiny presets' heads at Dh 16: tiny-byte (the CLI's default
+    # model) and tiny-gemma (one kv head), over the same 2048-token table
+    "tiny-byte": {"Hq": 4, "Hkv": 2, "Dh": 16},
+    "tiny-gemma": {"Hq": 4, "Hkv": 1, "Dh": 16},
 }
 
 # name -> (source text, replacement) patches of csrc/paged_attention.cu; a
@@ -218,6 +222,8 @@ def main() -> int:
             tatt._sm_count(torch.cuda.current_device()))
         this_err = _check("this", case, tatt.paged_attention, x, opts)
         for tag, base in bases.items():
+            if Dh not in base.KERNEL_HEAD_DIMS:     # an older tree
+                continue
             row = {"probe": "baseline", "baseline": tag, "case": case,
                    "split": split, "splits": nsplit,
                    "baseline_max_abs_err": _check(

@@ -9,7 +9,10 @@ it runs without the suite's conftest:
 Inputs are made with numpy from a seed and cast to bf16; tolerance 2e-2,
 for O(1) outputs in bf16. Each case also checks that the wrapper counted
 its launches. ``test_paged_split_plan`` checks the paged kernel's host-side
-split plan and runs on the CPU.
+split plan and runs on the CPU. The engine tests at the end serve the
+CLI's default tiny-byte (Dh=16), check the construction-time kernel check,
+and enqueue a chained decode dispatch under
+``torch.cuda.set_sync_debug_mode("error")``.
 """
 
 import numpy as np
@@ -33,6 +36,9 @@ def _card():
     (8, 2, 128, {"softcap": 50.0, "window": 48}),
     (4, 4, 64, {"scale": 0.2}),
     (8, 4, 256, {"softcap": 30.0}),
+    # the tiny presets' heads: tiny-byte, and tiny-gemma's one kv head
+    (4, 2, 16, {}),
+    (4, 1, 16, {"softcap": 50.0, "window": 48}),
 ])
 def test_flash_kernel_matches_plain(Hq, Hkv, Dh, kw):
     dev = _card()
@@ -75,6 +81,8 @@ def _gather_view(pool, read_idx, page):
     (4, 256, True, {"window": 20}),
     (1, 256, False, {"softcap": 50.0}),
     (8, 256, True, {}),
+    (2, 16, True, {}),
+    (4, 16, False, {"window": 20}),
 ])
 def test_flash_kernel_tiling(G, Dh, gather, kw):
     """Rows of a block are (position, group head) pairs, so the positions a
@@ -161,6 +169,11 @@ def _paged_lengths(spec, B, P, page, split):
     (32, 64, {"softcap": 30.0}, {"G": 20, "P": 8}),
     # lengths above P*page clamp to it
     (32, 128, {}, {"P": 4, "lengths": (5000, 3, 128, 129)}),
+    # the tiny presets' heads at Dh 16: tiny-byte (G=2) at the CLI's page
+    # of 64, across split boundaries, and tiny-gemma (one kv head, G=4)
+    (64, 16, {}, {"G": 2, "P": 8}),
+    (16, 16, {"window": 20}, {"G": 2, "P": 16, "lengths": "split"}),
+    (64, 16, {"softcap": 50.0}, {"G": 4, "Hkv": 1, "P": 8}),
 ])
 def test_paged_kernel_matches_plain(page, Dh, kw, shape):
     """Each case also runs the same call twice: the split merge has a fixed
@@ -168,7 +181,7 @@ def test_paged_kernel_matches_plain(page, Dh, kw, shape):
     dev = _card()
     rng = np.random.default_rng(6)
     B, G, P = shape.get("B", 4), shape.get("G", 4), shape.get("P", 4)
-    Hkv = 2
+    Hkv = shape.get("Hkv", 2)
     Hq = Hkv * G
     split, nsplit = tatt.paged_split_plan(
         B, Hq, Hkv, Dh, P, page, tatt._sm_count(dev.index))
@@ -309,3 +322,96 @@ def test_eviction_offloads_the_old_bytes_before_the_overwriting_dispatch():
         assert torch.equal(core.v_pool[:, :, p].view(torch.int16),
                            before[h][1].view(torch.int16))
     assert len(first) == 3
+
+
+# ---------------------------------------------------------------------------
+# the engine on the card: construction check, tiny-byte, the chained window
+# ---------------------------------------------------------------------------
+
+def _tiny_core(**kw):
+    from dynamo_tpu_torch.engine.engine import EngineCore, TorchEngineConfig
+    from dynamo_tpu_torch.models import llama
+
+    cfg = dict(model=llama.preset("tiny-byte"), device="cuda", page_size=64,
+               max_batch=4, max_context=256, prefill_chunk=64,
+               decode_steps=8)
+    cfg.update(kw)
+    return EngineCore(TorchEngineConfig(**cfg))
+
+
+def _submit(core, sid, prompt, n):
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+
+    core.submit(sid, BackendInput(token_ids=prompt, stop=StopConditions(
+        max_tokens=n, ignore_eos=True)))
+
+
+@pytest.mark.cuda
+def test_engine_serves_tiny_byte_at_head_dim_16():
+    """The CLI's default model (tiny-byte, Dh=16, bf16) serves on the card
+    through both kernels: every prefill dispatch and decode step launched
+    them, once a layer."""
+    _card()
+    core = _tiny_core()
+    assert core.cfg.model.head_dim == 16
+    tatt.flash_attention.launches = tatt.paged_attention.launches = 0
+    _submit(core, "a", list(range(1, 100)), 20)
+    _submit(core, "b", list(range(50, 60)), 13)
+    got = {"a": [], "b": []}
+    for _ in range(100):
+        for so in core.step():
+            assert so.finish is None or so.finish.value == "length", so
+            got[so.seq_id].append(so.token)
+        if not core.has_work:
+            break
+    assert [len(got["a"]), len(got["b"])] == [20, 13]
+    assert all(0 <= t < core.cfg.model.vocab_size for t in got["a"] + got["b"])
+    L = core.cfg.model.num_layers
+    assert tatt.flash_attention.launches == L * core.prefill_dispatches > 0
+    assert tatt.paged_attention.launches == L * core.decode_steps_run > 0
+    assert core.pool.free_pages == core.pool.num_pages - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("override", [{"dtype": torch.float32},
+                                      {"head_dim": 80}])
+def test_engine_construction_rejects_models_without_kernels(override):
+    """A head dim or dtype the kernels lack raises at construction, before
+    any request; there is no fallback to the plain path."""
+    from dynamo_tpu_torch.models import llama
+
+    _card()
+    with pytest.raises(ValueError, match="no CUDA attention kernel"):
+        _tiny_core(model=llama.preset("tiny-byte", **override))
+
+
+@pytest.mark.cuda
+def test_chained_decode_enqueue_does_not_sync():
+    """A chained decode dispatch is enqueued with no host sync: every host
+    input goes through pinned memory, the tokens come from the dispatch in
+    flight, and the result copy waits on an event only at the fetch."""
+    _card()
+    core = _tiny_core()
+    _submit(core, "a", list(range(1, 40)), 48)
+    _submit(core, "b", list(range(60, 70)), 48)
+    for _ in range(20):
+        core.step()
+        if len(core._inflight) == 1 and core._can_chain():
+            break
+    assert len(core._inflight) == 1
+    n = core.decode_dispatches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        core._dispatch_decode()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert core.decode_dispatches == n + 1 and core._inflight[-1]["chained"]
+    got = {"a": 0, "b": 0}
+    for _ in range(40):
+        for so in core.step():
+            got[so.seq_id] += 1
+        if not core.has_work:
+            break
+    assert got["a"] + got["b"] > 0 and not core.has_work
+    assert core.pool.free_pages == core.pool.num_pages - 1

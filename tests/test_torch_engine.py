@@ -4,6 +4,12 @@
   three concurrent prompts: shorter than a page, longer than a prefill
   chunk, in between) are identical to the JAX engine's with the same
   weights.
+- The chained decode window: a sequence freed while a dispatch is in
+  flight (finish or cancel) keeps its pages until the window drains, and
+  no page leaks; sampled streams repeat from run to run and do not depend
+  on their batchmates or on how the window chained.
+- The construction check's predicate: the CUDA kernels' head dims and
+  dtype.
 - The stdlib HTTP service answers /v1/models, completions (stream and not),
   chat, malformed requests with 400, and cancels on client disconnect.
 - No file of the port, and not ``chip_smoke.py``, imports JAX or the JAX
@@ -38,6 +44,7 @@ from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
                                                    FinishReason,
                                                    StopConditions)
 from dynamo_tpu_torch.models import llama as tl
+from dynamo_tpu_torch.ops.attention import check_kernel_support
 from dynamo_tpu_torch.runtime.engine import Context
 
 torch.set_num_threads(2)
@@ -117,6 +124,135 @@ def test_core_rejects_and_evicts_cleanly():
                                   stop=StopConditions(max_tokens=3)))
     core.cancel("a")          # still waiting: dropped before admission
     assert not core.has_work
+
+
+def _steps_until(core, done, limit=200):
+    """Step until ``done(outputs so far, this step's outputs)``; returns
+    every output by sequence."""
+    got = {}
+    for _ in range(limit):
+        outs = core.step()
+        for so in outs:
+            got.setdefault(so.seq_id, []).append(so)
+        if done(got, outs):
+            return got
+    raise AssertionError("condition not reached")
+
+
+def test_window_holds_releases_until_it_drains():
+    core = EngineCore(_torch_cfg(max_batch=2, num_pages=24))
+    for sid, n in (("a", 40), ("b", 9)):
+        core.submit(sid, BackendInput(token_ids=list(range(5, 17)),
+                                      stop=StopConditions(max_tokens=n,
+                                                          ignore_eos=True)))
+    # b finishes while the dispatch chained behind its last one is in
+    # flight: its pages stay leased until that dispatch is drained
+    _steps_until(core, lambda got, outs: any(
+        so.seq_id == "b" and so.finish for so in outs))
+    assert core._inflight and "b" in core.pool.seqs
+    assert [sid for sid, _ in core._deferred_release] == ["b"]
+    core.step()
+    assert not core._deferred_release and "b" not in core.pool.seqs
+    # a, cancelled with a chained dispatch in flight, is reaped, the window
+    # drains in the same step, and every page comes back
+    _steps_until(core, lambda got, outs: len(core._inflight) == 1
+                 and core._inflight[0]["chained"])
+    core.cancel("a")
+    outs = core.step()
+    assert [(so.seq_id, so.finish) for so in outs][0] == (
+        "a", FinishReason.CANCELLED)
+    assert not core.has_work and not core._deferred_release
+    assert core.pool.free_pages == core.pool.num_pages - 1
+
+
+async def test_engine_error_drops_the_window_and_leaks_no_page():
+    """An exception inside a step with dispatches in flight fails every live
+    request, drops the window and applies the releases held for it, so a
+    fault that persists leaves no page leased."""
+    engine = TorchEngine(_torch_cfg(max_batch=2))
+    core = engine.core
+    fetch, calls = core._process_oldest_inflight, []
+
+    def failing_fetch():            # the fault persists once it struck
+        calls.append(len(core._inflight))
+        if len(calls) >= 2:
+            raise RuntimeError("injected fault")
+        return fetch()
+
+    core._process_oldest_inflight = failing_fetch
+    try:
+        outs = await asyncio.wait_for(asyncio.gather(*(
+            _collect_outputs(engine, toks, 30)
+            for toks in (PROMPTS["mid"], PROMPTS["short"]))), 60)
+    finally:
+        engine.shutdown()
+    for got in outs:
+        assert got[-1].finish_reason == FinishReason.ERROR
+        assert "injected fault" in got[-1].error
+    assert calls[1] == 2               # a chained dispatch was in flight
+    assert not core._inflight and not core._deferred_release
+    assert not core.by_seq
+    assert core.pool.free_pages == core.pool.num_pages - 1
+
+
+async def _collect_outputs(engine, toks, n):
+    outs = []
+    async for o in engine.generate(
+            BackendInput(token_ids=toks, stop=StopConditions(max_tokens=n)),
+            Context()):
+        outs.append(o)
+    return outs
+
+
+def test_sampled_streams_repeat_and_are_batch_invariant():
+    """A seeded sampled request draws its lane's uniforms in the same order
+    whether its dispatches chain or not, so its stream is the same alone,
+    again, and beside a batchmate that joins mid-stream (which drains the
+    window and breaks the chain)."""
+    def run(batchmate):
+        core = EngineCore(_torch_cfg(max_batch=2))
+        core.submit("s", _sampled(7, 14))
+        got = _steps_until(core, lambda got, outs: len(got.get("s", [])) >= 5
+                           or not core.has_work)
+        if batchmate:
+            core.submit("m", _sampled(3, 9))
+        got2 = _steps_until(core, lambda g, outs: not core.has_work)
+        return [so.token for so in got["s"] + got2.get("s", [])], core
+
+    alone, core = run(False)
+    assert len(alone) == 14 and core.decode_dispatches >= 3
+    assert run(False)[0] == alone
+    batched, core = run(True)
+    assert batched == alone
+    assert core.decode_dispatches >= 4
+
+
+def _sampled(seed, n):
+    req = BackendInput(token_ids=[9, 8, 7, 6, 5],
+                       stop=StopConditions(max_tokens=n, ignore_eos=True))
+    req.sampling.temperature = 0.9
+    req.sampling.top_p = 0.95
+    req.sampling.seed = seed
+    return req
+
+
+@pytest.mark.parametrize("head_dim,dtype,ok", [
+    (16, torch.bfloat16, True),      # tiny-* presets
+    (64, torch.bfloat16, True),
+    (128, torch.bfloat16, True),     # Llama-3-8B
+    (256, torch.bfloat16, True),     # Gemma2-9B
+    (80, torch.bfloat16, False),
+    (16, torch.float32, False),
+    (128, torch.float16, False),
+])
+def test_kernel_support_check(head_dim, dtype, ok):
+    """The predicate EngineCore checks at construction on CUDA: only head
+    dims and a dtype that both kernels have an instance for."""
+    if ok:
+        check_kernel_support(head_dim, dtype)
+    else:
+        with pytest.raises(ValueError, match="no CUDA attention kernel"):
+            check_kernel_support(head_dim, dtype)
 
 
 def test_config_from_card_validates_args():

@@ -12,20 +12,20 @@
 - Engine parity (f32 tiny-byte, shared weights, page 8, a 12-page pool with
   host and disk tiers, prefix reuse on by default): the same requests give
   identical greedy tokens, ``kv_prefix_hit_tokens``, stored/removed event
-  streams through each side's ``KvEventPublisher``, and ``KvIndexer``
-  overlap scores. The requests run one after another and each decodes in
-  one dispatch: the JAX engine chains a second decode dispatch off the
-  first before reading its tokens (the in-flight window the port does not
-  have yet), so a request that needs two dispatches seals and evicts in
-  another order there. Prompt lengths (4 to 7 mod 8) are chosen so the
-  chained window's page reservation fits pages both engines already hold,
-  and so that no request ends on a token that completes a block, where the
-  port deliberately differs (the last test).
+  streams through each side's ``KvEventPublisher``, ``KvIndexer`` overlap
+  scores, and the same ``(chained, lanes)`` for every decode dispatch. The
+  requests run one after another on two schedules: one decode dispatch a
+  request, and three or more under pool pressure (13 tokens each, prompt
+  lengths of every residue mod 8), where each dispatch's successor is
+  chained off its tokens on the device and the chained dispatch's page
+  reservation evicts before the first one's tokens seal, in both engines.
 - The JAX package's own engine reuse tests (``tests/test_kvbm.py``),
   mirrored on the port: same-token reuse, a divergent suffix against a
   cold engine, a host-tier round trip, batch invariance.
 - A block whose last token's KV was never written (the request ended on
-  it) is not reused: the next turn gives the cold engine's tokens.
+  its prefill token) is not reused: the next turn gives the cold engine's
+  tokens. After a decode dispatch the chained dispatch behind it writes
+  that slot, and the next turn's prefix hit is the JAX engine's.
 """
 
 import asyncio
@@ -61,6 +61,7 @@ from dynamo_tpu_torch.llm.kvbm.transfer import (CopyStream, from_host_array,
                                                 host_dtype, to_host_array)
 from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
                                                    StopConditions)
+from dynamo_tpu_torch.llm.tokens import compute_seq_hashes
 from dynamo_tpu_torch.models import llama as tl
 
 torch.set_num_threads(2)
@@ -313,16 +314,59 @@ ENGINE = dict(page_size=8, max_batch=2, max_context=128, prefill_chunk=32,
 MAX_TOKENS = 5          # one prefill token + one decode dispatch of 4
 
 
-def _requests():
-    rng = np.random.default_rng(0)
-    base = [int(x) for x in rng.integers(1, 250, 44)]
+def _requests(schedule="one_dispatch"):
+    """(requests, max_tokens) of a schedule. ``one_dispatch``: prompt
+    lengths 4..7 mod 8 and one decode dispatch a request. ``chained``: 13
+    tokens, three decode dispatches and the chained one behind them, prompt
+    lengths of every residue mod 8."""
+    if schedule == "one_dispatch":
+        rng = np.random.default_rng(0)
+        base = [int(x) for x in rng.integers(1, 250, 44)]
+
+        def rand(n):
+            return [int(x) for x in rng.integers(1, 250, n)]
+        return [("a", base), ("b", base[:24] + rand(20)), ("c", rand(52)),
+                ("d", base), ("e", rand(46)), ("f", base[:36] + [7] * 8),
+                ("g", base[:37]), ("h", rand(31)), ("i", base)], MAX_TOKENS
+    rng = np.random.default_rng(1)
+    base = [int(x) for x in rng.integers(1, 250, 41)]
 
     def rand(n):
         return [int(x) for x in rng.integers(1, 250, n)]
-    # prompt lengths are 4..7 mod 8 (see the module docstring)
-    return [("a", base), ("b", base[:24] + rand(20)), ("c", rand(52)),
-            ("d", base), ("e", rand(46)), ("f", base[:36] + [7] * 8),
-            ("g", base[:37]), ("h", rand(31)), ("i", base)]
+    return [("a", base), ("b", base[:24] + rand(19)), ("c", rand(50)),
+            ("d", base), ("e", rand(37)), ("f", base[:33] + [7] * 9),
+            ("g", base[:40]), ("h", rand(26)), ("i", base)], 13
+
+
+# kv_prefix_hit_tokens each schedule must show (from the device pool, the
+# host tier and disk)
+SCHEDULE_HITS = {"one_dispatch": {"b": 24, "d": 40, "i": 40},
+                 "chained": {"b": 24, "d": 40, "f": 32, "g": 32, "i": 40}}
+
+
+def _record_dispatches(core):
+    """(chained, lanes) of every decode dispatch the core enqueues: the JAX
+    core's through its dispatch hook, the port's from its in-flight
+    record."""
+    log = []
+    if isinstance(core, JaxCore):
+        def hook(kind, meta, arrs):
+            if kind == "decode":
+                log.append((meta["chain"],
+                            tuple(np.flatnonzero(arrs["active_mask"]))))
+        core.dispatch_hook = hook
+        return log
+    dispatch = core._dispatch_decode
+
+    def recorded(*args, **kw):
+        n = core.decode_dispatches
+        dispatch(*args, **kw)
+        if core.decode_dispatches > n:
+            rec = core._inflight[-1]
+            log.append((rec["chained"],
+                        tuple(i for i, _, _ in rec["active"])))
+    core._dispatch_decode = recorded
+    return log
 
 
 def _drive(core, bi, sc, sid, tokens, max_tokens=MAX_TOKENS):
@@ -341,21 +385,23 @@ def _drive(core, bi, sc, sid, tokens, max_tokens=MAX_TOKENS):
     raise AssertionError(f"{sid} did not finish")
 
 
-def _serve_all(core, bi, sc, publisher, indexer):
+def _serve_all(core, bi, sc, publisher, indexer, schedule):
     async def publish(_subject, d):
         indexer.apply_sync(type_of_event(indexer).from_dict(d))
 
     publisher._publish = publish
     core.pool.on_block_sealed = publisher.block_stored
     core.pool.on_blocks_removed = publisher.blocks_removed
+    dispatches = _record_dispatches(core)
+    requests, max_tokens = _requests(schedule)
     out, scores, events = {}, [], []
-    for sid, toks in _requests():
-        out[sid] = _drive(core, bi, sc, sid, toks)
+    for sid, toks in requests:
+        out[sid] = _drive(core, bi, sc, sid, toks, max_tokens)
         events.extend(e.to_dict() for e in publisher._buf)
         asyncio.run(publisher.flush())
         scores.append([indexer.find_matches_for_tokens(t).scores
-                       for _, t in _requests()])
-    return out, events, scores, core.tiered.stats()
+                       for _, t in requests])
+    return out, events, scores, core.tiered.stats(), dispatches
 
 
 def type_of_event(indexer):
@@ -363,15 +409,25 @@ def type_of_event(indexer):
         else tproto.RouterEvent
 
 
+def _jax_core(**kw):
+    return JaxCore(JaxEngineConfig(
+        model=jl.preset("tiny-byte", dtype=jnp.float32), **{**ENGINE, **kw}))
+
+
 @pytest.fixture(scope="module")
 def jax_reference():
-    core = JaxCore(JaxEngineConfig(
-        model=jl.preset("tiny-byte", dtype=jnp.float32), **ENGINE))
-    try:
-        run = _serve_all(core, JBI, JSC, JPub(1, None), JIndexer(8))
-        return run, jax.tree.map(lambda a: np.array(a), core.params)
-    finally:
-        core.close()
+    """Each schedule's run on the JAX engine, and its weights (the same
+    seed gives every JAX core the same weights)."""
+    runs = {}
+    for schedule in SCHEDULE_HITS:
+        core = _jax_core()
+        try:
+            runs[schedule] = _serve_all(core, JBI, JSC, JPub(1, None),
+                                        JIndexer(8), schedule)
+            params = jax.tree.map(lambda a: np.array(a), core.params)
+        finally:
+            core.close()
+    return runs, params
 
 
 def _torch_core(np_params=None, **kw):
@@ -382,32 +438,81 @@ def _torch_core(np_params=None, **kw):
     return EngineCore(cfg, params)
 
 
-def test_engine_reuse_matches_jax_engine(jax_reference):
-    (want, want_events, want_scores, want_stats), np_params = jax_reference
+@pytest.mark.parametrize("schedule", list(SCHEDULE_HITS))
+def test_engine_reuse_matches_jax_engine(jax_reference, schedule):
+    runs, np_params = jax_reference
+    want, want_events, want_scores, want_stats, want_dispatches = \
+        runs[schedule]
     core = _torch_core(np_params)
     try:
-        got, events, scores, stats = _serve_all(
+        got, events, scores, stats, dispatches = _serve_all(
             core, BackendInput, StopConditions, KvEventPublisher(1, None),
-            KvIndexer(8))
+            KvIndexer(8), schedule)
     finally:
         core.close()
     assert got == want
     assert events == want_events
     assert scores == want_scores
     assert stats == want_stats
+    assert dispatches == want_dispatches
     hits = {sid: hit for sid, (_, hit) in want.items()}
     # reuse from the device, from the host tier and from disk all happened
-    assert hits["b"] == 24 and hits["d"] == 40 and hits["i"] == 40
+    assert {sid: hits[sid] for sid in SCHEDULE_HITS[schedule]} == \
+        SCHEDULE_HITS[schedule]
     assert want_stats["hits"] > 0 and want_stats["disk_blocks"] > 0
     assert any("removed" in e for e in want_events)
     assert core.prefix_hit_tokens == sum(hits.values())
+    n_requests = len(_requests(schedule)[0])
+    if schedule == "chained":
+        assert len(dispatches) >= 3 * n_requests
+        assert sum(chained for chained, _ in dispatches) >= 2 * n_requests
+    else:
+        assert len(dispatches) <= 2 * n_requests
+    # every page is back: none leased by a finished request
+    assert not core.has_work and not core._deferred_release
+    assert core.pool.free_pages == core.pool.num_pages - 1
+
+
+def test_steady_batch_dispatches_match_jax_engine(jax_reference):
+    """Two requests decoding side by side: the same tokens, and the same
+    (chained, lanes) for every decode dispatch as the JAX core's dispatch
+    hook records (the window chains while both run, syncs when one
+    finishes, and chains again on the survivor)."""
+    _, np_params = jax_reference
+    plain = dict(num_pages=None, host_cache_blocks=0, disk_cache_blocks=0)
+    requests = {"x": (list(range(3, 23)), 13), "y": (list(range(40, 45)), 22)}
+
+    def run(core, bi, sc):
+        dispatches = _record_dispatches(core)
+        for sid, (toks, n) in requests.items():
+            core.submit(sid, bi(token_ids=toks,
+                                stop=sc(max_tokens=n, ignore_eos=True)))
+        got = {sid: [] for sid in requests}
+        for _ in range(100):
+            for so in core.step():
+                got[so.seq_id].append(so.token)
+            if not core.has_work:
+                return got, dispatches
+        raise AssertionError("the batch did not finish")
+
+    ref = _jax_core(**plain)
+    try:
+        want = run(ref, JBI, JSC)
+    finally:
+        ref.close()
+    got = run(_torch_core(np_params, **plain), BackendInput, StopConditions)
+    assert got == want
+    tokens, dispatches = got
+    assert [len(tokens[sid]) for sid in requests] == [13, 22]
+    assert (True, (0, 1)) in dispatches and (True, (1,)) in dispatches
 
 
 def test_engine_prefix_reuse_same_tokens(jax_reference):
-    (want, _, _, _), np_params = jax_reference
+    runs, np_params = jax_reference
+    want = runs["one_dispatch"][0]
     core = _torch_core(np_params, num_pages=None, host_cache_blocks=0,
                        disk_cache_blocks=0)
-    prompt = _requests()[0][1]
+    prompt = _requests()[0][0][1]
     first, hit0 = _drive(core, BackendInput, StopConditions, "a", prompt)
     assert (first, hit0) == want["a"]
     baseline_free = core.pool.free_pages
@@ -460,35 +565,57 @@ def test_engine_reuse_respects_batching_invariance():
     assert got["x"] == solo
 
 
-@pytest.mark.parametrize("prompt_len,max_tokens", [
-    (7, 1),     # ends on its prefill token, which completes page 0
-    (11, 5),    # ends on the last step of a decode dispatch, page 1
+@pytest.mark.parametrize("prompt_len,max_tokens,slot_written", [
+    # ends on its prefill token, which completes page 0
+    pytest.param(7, 1, False, id="7-1"),
+    # ends on the last step of a decode dispatch, page 1; the dispatch
+    # chained behind it writes the slot
+    pytest.param(11, 5, True, id="11-5"),
 ])
-def test_engine_never_reuses_a_block_with_an_unwritten_slot(prompt_len,
-                                                            max_tokens):
-    """A request's last sampled token has no KV in the pool (no later step
-    fed it back). When it completes a block, that block must not be
-    matched later: the next turn (prompt + that token + more) must give
-    the cold engine's tokens. The JAX engine parks the stale block in the
-    first case (its chained decode dispatch writes the slot in the
-    second); the port unseals it and publishes its removed event."""
-    warm = _torch_core(num_pages=None, host_cache_blocks=0,
-                       disk_cache_blocks=0)
-    cold = _torch_core(num_pages=None, host_cache_blocks=0,
-                       disk_cache_blocks=0, enable_prefix_reuse=False)
+def test_engine_never_reuses_a_block_with_an_unwritten_slot(
+        jax_reference, prompt_len, max_tokens, slot_written):
+    """A request's last sampled token has no KV in the pool until a later
+    step feeds it back. When it completes a block and no later step ran
+    (the request ended on its prefill token), that block must not be
+    matched later: the next turn (prompt + that token + more) must give the
+    cold engine's tokens. The port unseals it and publishes its removed
+    event, where the JAX engine parks the stale block. After a decode
+    dispatch, the dispatch chained behind it writes the slot in both
+    engines: the block stays, and the next turn's prefix hit is the JAX
+    engine's."""
+    _, np_params = jax_reference
+    plain = dict(num_pages=None, host_cache_blocks=0, disk_cache_blocks=0)
+    warm = _torch_core(np_params, **plain)
+    cold = _torch_core(np_params, enable_prefix_reuse=False, **plain)
+    ref = _jax_core(**plain)
     events = []
     warm.pool.on_block_sealed = lambda sid, b, p, l: events.append(
         ("stored", b.sequence_hash))
     warm.pool.on_blocks_removed = lambda hs: events.extend(
         ("removed", h) for h in hs)
     prompt = list(range(10, 10 + prompt_len))
-    got, _ = _drive(warm, BackendInput, StopConditions, "a", prompt,
-                    max_tokens)
-    assert (prompt_len + max_tokens) % 8 == 0
-    stale = events[-1][1]
-    assert events[-2:] == [("stored", stale), ("removed", stale)]
-    turn2 = prompt + got + [50, 51, 52, 53, 54]
-    want, _ = _drive(cold, BackendInput, StopConditions, "b", turn2, 4)
-    again, hit = _drive(warm, BackendInput, StopConditions, "b", turn2, 4)
+    try:
+        got, _ = _drive(warm, BackendInput, StopConditions, "a", prompt,
+                        max_tokens)
+        assert _drive(ref, JBI, JSC, "a", prompt, max_tokens)[0] == got
+        assert (prompt_len + max_tokens) % 8 == 0
+        last = compute_seq_hashes(prompt + got, 8)[-1]
+        if slot_written:
+            assert events[-1] == ("stored", last)
+            assert all(kind == "stored" for kind, _ in events)
+        else:
+            assert events[-2:] == [("stored", last), ("removed", last)]
+        turn2 = prompt + got + [50, 51, 52, 53, 54]
+        want, _ = _drive(cold, BackendInput, StopConditions, "b", turn2, 4)
+        again, hit = _drive(warm, BackendInput, StopConditions, "b", turn2,
+                            4)
+        ref_again, ref_hit = _drive(ref, JBI, JSC, "b", turn2, 4)
+    finally:
+        ref.close()
     assert again == want
-    assert hit == (prompt_len + max_tokens) - 8
+    assert hit == prompt_len + max_tokens - (0 if slot_written else 8)
+    if slot_written:
+        assert (again, hit) == (ref_again, ref_hit)
+    else:
+        # the JAX engine reuses the stale block (ROADMAP, Queue 3)
+        assert ref_hit == hit + 8
