@@ -27,7 +27,22 @@ with a traceback and prints no result:
                prefill dispatch and decode step. Decode runs through the
                chained in-flight window: decode dispatches and how many of
                them chained, the decode-step reading, tokens/s, TTFT; the
-               profile phase gives the device's busy share.
+               profile phase gives the device's busy share. The engine runs
+               with ``DYN_PROFILE_DIR`` set for its first 8 working steps:
+               the Chrome trace it writes must name both CUDA kernels.
+   metrics   — ``/metrics`` scraped around the burst: requests, TTFT and
+               decode-step counts equal what was sent and dispatched, the
+               goodput gauges (MFU, MBU, GB/s) lie in (0, 1.05], every
+               request's ``x-request-id`` is in ``/v1/traces`` with the JAX
+               service's span tree (``?format=chrome`` too); after the
+               reuse phase the KV tier gauges equal ``TieredKvCache.stats()``.
+   http      — three requests on one kept-alive connection (one streamed),
+               a chunked request body, two pipelined requests: all 200
+               with tokens.
+   overload  — a second HTTP service on the same engine with an admission
+               gate of 2: a burst of 6 gets 2 answers and 4 typed 429s with
+               ``Retry-After``, ``dyn_admission_rejects_total`` counts them,
+               and every request is admitted again once the burst drained.
 5. reference — the served weights' logits through the kernels agree with
                the dense attention path on a small input.
 6. reuse     — KV block reuse on the same engine (prefix reuse on by
@@ -41,7 +56,8 @@ with a traceback and prints no result:
                TTFT, dispatches, copy bytes and rates, hashing time.
 7. chain     — on an engine sharing the served weights, one chained
                steady-state decode enqueue under
-               ``torch.cuda.set_sync_debug_mode("error")``: no host sync.
+               ``torch.cuda.set_sync_debug_mode("error")``: no host sync,
+               with the stage metrics, heartbeats and goodput accounting on.
 8. default   — the CLI's default model, tiny-byte (Dh=16, no preset
                given), served over HTTP through the same entry point:
                completions and chat, streamed and not, all 200 with tokens
@@ -61,6 +77,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -73,6 +90,8 @@ ENGINE_ARGS = dict(preset=PRESET, max_batch=8, max_context=2048,
                    page_size=64, prefill_chunk=512, decode_steps=8,
                    host_cache_blocks=128)
 REUSE_PROMPT, REUSE_SEED, REUSE_TOKENS = 1496, 1496, 16
+PROFILE_STEPS = 8
+PROFILE_DIR = os.path.join(ROOT, "build", "dynamo_tpu_torch", "profile")
 
 
 def emit(obj) -> None:
@@ -292,6 +311,7 @@ def http_post(port: int, path: str, body: dict, results: dict, key: str):
         headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=600) as resp:
         status = resp.status
+        rid = resp.headers.get("x-request-id")
         if body.get("stream"):
             chunks, stamps, done = [], [], False
             for raw in resp:
@@ -306,22 +326,24 @@ def http_post(port: int, path: str, body: dict, results: dict, key: str):
                 chunks.append(json.loads(data))
             last = chunks[-1]
             results[key] = dict(status=status, done=done, chunks=len(chunks),
-                                usage=last.get("usage"),
+                                rid=rid, usage=last.get("usage"),
                                 finish=last["choices"][0].get("finish_reason"),
                                 ttft_s=stamps[0], last_s=stamps[-1])
         else:
             out = json.loads(resp.read())
-            results[key] = dict(status=status, usage=out.get("usage"),
+            results[key] = dict(status=status, rid=rid,
+                                usage=out.get("usage"),
                                 finish=out["choices"][0].get("finish_reason"),
                                 seconds=time.perf_counter() - t0)
 
 
 @contextlib.contextmanager
-def served(argv):
-    """The CLI's torch engine (``cli.run`` arguments ``argv``) behind the
-    OpenAI HTTP service on a free port, its loop on a thread of its own:
-    yields (TorchEngine, loop, port, model id, the engine's construction
-    seconds); stops both after."""
+def served(argv, env=None):
+    """The CLI's torch engine (``cli.run`` arguments ``argv``; ``env`` set
+    while it is built) behind the OpenAI HTTP service on a free port, its
+    loop on a thread of its own: yields (TorchEngine, loop, port, model id,
+    the engine's construction seconds, the ModelManager); stops both
+    after."""
     import asyncio
 
     import torch
@@ -333,7 +355,16 @@ def served(argv):
     t0 = time.perf_counter()
     args = parse_args(["in=http", "out=torch", "--device", DEVICE, *argv])
     card = make_card(args)
-    chat, comp, core = make_engines(args, card)
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        chat, comp, core = make_engines(args, card)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     loop = asyncio.new_event_loop()
@@ -348,7 +379,7 @@ def served(argv):
         http_post(port, "/v1/completions",
                   {"model": card.name, "prompt": "warm up", "max_tokens": 2},
                   {}, "warm")
-        yield core, loop, port, card.name, init_s
+        yield core, loop, port, card.name, init_s, manager
     finally:
         asyncio.run_coroutine_threadsafe(svc.stop(), loop).result(60)
         loop.call_soon_threadsafe(loop.stop)
@@ -414,9 +445,17 @@ def burst(att, core, port: int, reqs: dict, tag: str) -> dict:
 
 
 def serve_phase(torch, att, smi: str):
+    import shutil
+
     argv = ["--model-name", PRESET,
             "--extra-engine-args", json.dumps(ENGINE_ARGS)]
-    with served(argv) as (core, loop, port, _, init_s):
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    env = {"DYN_PROFILE_DIR": PROFILE_DIR,
+           "DYN_PROFILE_STEPS": str(PROFILE_STEPS)}
+    launch = {"before_engine": launch_us(torch)}
+    with served(argv, env) as (core, loop, port, _, init_s, manager):
+        wait_for_profile_trace(core, port)
+        launch["after_capture"] = launch_us(torch)
         long_prompt = ("The port serves Llama on the card through two "
                        "hand-written kernels. " * 22)
         reqs = {
@@ -441,8 +480,10 @@ def serve_phase(torch, att, smi: str):
         }
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        scrape0 = scrape(port)
         b = burst(att, core, port, reqs, "serve")
         peak = torch.cuda.max_memory_allocated()
+        scrape1 = scrape(port)
         c = core.core
         if b["results"]["long_prompt"]["usage"]["prompt_tokens"] <= \
                 ENGINE_ARGS["prefill_chunk"]:
@@ -463,11 +504,385 @@ def serve_phase(torch, att, smi: str):
         emit(row)
         if row["chained_dispatches"] <= 0:
             raise AssertionError(f"no decode dispatch chained: {row}")
+        row["metrics"] = metrics_phase(core, port, reqs, b, scrape0, scrape1,
+                                       smi)
+        row["http"] = http_phase(port)
+        row["overload"] = overload_phase(core, loop, manager, smi)
         row["profile"] = profile_phase(torch, port)
+        emit({"phase": "goodput", "card": smi,
+              "mfu": row["metrics"]["mfu"], "mbu": row["metrics"]["mbu"],
+              "hbm_gbps": row["metrics"]["hbm_gbps"],
+              "device_busy_share": row["profile"]["device_busy_share"]})
         ref = reference_phase(torch, c)
         row["reuse"] = reuse_phase(torch, att, core, loop)
+        row["tiers"] = tier_gauge_check(core, port)
         row["chain"] = chain_sync_phase(torch, c)
+        launch["after_phases"] = launch_us(torch)
+        # read the trace only now: loading it builds millions of Python
+        # objects, which must not overlap a timed phase
+        row["profile_trace"] = profile_trace_check(core, launch)
     return row, ref
+
+
+# ---------------------------------------------------------------------------
+# the observability and overload plane on the served engine
+# ---------------------------------------------------------------------------
+
+def http_get(port: int, path: str):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as resp:
+        return resp.status, resp.read()
+
+
+def scrape(port: int) -> dict:
+    """``/metrics`` as {sample name with labels: value}."""
+    status, text = http_get(port, "/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}")
+    out = {}
+    for line in text.decode().splitlines():
+        if line and not line.startswith("#"):
+            key, _, val = line.rpartition(" ")
+            out[key] = float(val)
+    return out
+
+
+def _total(sc: dict, name: str, **labels) -> float:
+    """Sum of the samples of ``name`` whose labels include ``labels``."""
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    return sum(v for k, v in sc.items()
+               if k.split("{", 1)[0] == name and all(w in k for w in want))
+
+
+def launch_us(torch, n: int = 2000) -> float:
+    """Host microseconds to enqueue one small elementwise op on the card
+    (the unit the decode enqueue is made of), mean over ``n``."""
+    x = torch.zeros(64, device=DEVICE)
+    x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / n
+
+
+def plane_cost_us(core, reps: int = 200) -> dict:
+    """Host microseconds of what the observability plane adds to one
+    decode dispatch (heartbeat, two events, the decode-step histogram, the
+    cost model and the goodput meter, for six lanes of 8 steps) and to one
+    prefill dispatch (a 512-token chunk), on scratch instances of the same
+    classes so the served metrics stay untouched."""
+    from dynamo_tpu_torch.obs.flightrec import FlightRecorder
+    from dynamo_tpu_torch.utils import roofline
+    from dynamo_tpu_torch.utils.prometheus import StageMetrics
+
+    c = core.core
+    rec, stage = FlightRecorder("smoke", enabled=True), StageMetrics()
+    meter = roofline.GoodputMeter(c.costs, c.goodput.peaks)
+    lengths, steps = [64, 300, 600, 900, 1200, 1500], c.cfg.decode_steps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        rec.hb_begin("engine.decode", stall="decode")
+        rec.note("engine.dispatch", depth=1, batch=6, steps=steps)
+        stage.decode_step.observe(value=0.04)
+        rec.hb_done("engine.decode", 0.04)
+        rec.note("engine.step", s=0.3, n=steps, compiled=False)
+        meter.account(*roofline.decode_cost(c.costs, lengths, steps)[:2],
+                      0.3, 48)
+        stage.batch_occupancy.set("1", value=6)
+    decode = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fl, by, tk = roofline.prefill_cost(c.costs, [(1024, 512)])
+        meter.account(fl, by, 0.06, tk)
+    prefill = (time.perf_counter() - t0) / reps
+    return dict(decode_dispatch=1e6 * decode, prefill_dispatch=1e6 * prefill)
+
+
+def wait_for_profile_trace(core, port: int) -> None:
+    """``DYN_PROFILE_DIR``: warm requests until the engine has written its
+    trace of the first working steps."""
+    for i in range(20):
+        if core.profile_trace is not None:
+            return
+        http_post(port, "/v1/completions",
+                  {"model": PRESET, "prompt": f"warm {i}", "max_tokens": 16},
+                  {}, "warm")
+
+
+def profile_trace_check(core, launch: dict) -> dict:
+    """The ``DYN_PROFILE_DIR`` trace must exist, parse, and name both CUDA
+    kernels. ``launch``: the host cost of one small op before the engine,
+    after its capture and after the other phases."""
+    path = core.profile_trace
+    if path is None or not os.path.isfile(path):
+        raise AssertionError(f"DYN_PROFILE_DIR wrote no trace under "
+                             f"{PROFILE_DIR}")
+    with open(path) as f:
+        trace = json.load(f)
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    flash = sorted(n for n in names if "flash_kernel<" in n)
+    paged = sorted(n for n in names if "paged_split_kernel<" in n)
+    row = dict(phase="profile_trace", steps=PROFILE_STEPS, launch_us=launch,
+               file=os.path.relpath(path, ROOT),
+               bytes=os.path.getsize(path), events=len(trace["traceEvents"]),
+               flash_kernels=flash, paged_kernels=paged)
+    emit(row)
+    if not (flash and paged):
+        raise AssertionError(f"the profile trace misses a kernel: {row}")
+    return row
+
+
+def _spans(port: int, rid: str) -> list:
+    status, body = http_get(port, f"/v1/traces/{rid}")
+    if status != 200:
+        raise AssertionError(f"/v1/traces/{rid} answered {status}")
+    spans = json.loads(body)["spans"]
+    by_id = {s["span_id"]: s["name"] for s in spans}
+    return [(s["name"], by_id.get(s["parent_id"])) for s in spans]
+
+
+def metrics_phase(core, port: int, reqs: dict, b: dict, sc0: dict,
+                  sc1: dict, smi: str) -> dict:
+    """The serve burst read back from the server: counts against what was
+    sent and dispatched, the goodput gauges, and every request's trace."""
+    def delta(name, **labels):
+        return _total(sc1, name, **labels) - _total(sc0, name, **labels)
+
+    streamed = sum(bool(body.get("stream")) for _, body in reqs.values())
+    pid = str(os.getpid())
+    row = dict(phase="metrics", card=smi, requests=len(reqs),
+               streamed=streamed,
+               http_200=delta("dyn_http_requests_total", status="200"),
+               ttft_count=delta("llm_ttft_seconds_count"),
+               stream_ttft_count=delta(
+                   "dyn_http_time_to_first_token_seconds_count"),
+               decode_step_count=delta("llm_decode_step_seconds_count"),
+               decode_dispatches=b["decode_dispatches"],
+               mfu=_total(sc1, "dyn_mfu", worker=pid),
+               mbu=_total(sc1, "dyn_mbu", worker=pid),
+               hbm_gbps=_total(sc1, "dyn_hbm_gbps", worker=pid),
+               gauges_present=all(
+                   any(k.startswith(f'{g}{{component="http",worker="{pid}"')
+                       for k in sc1) for g in ("dyn_mfu", "dyn_mbu",
+                                               "dyn_hbm_gbps")))
+    status, body = http_get(port, "/v1/traces?limit=200")
+    listed = set(json.loads(body)["traces"])
+    trees, missing = {}, []
+    for key, (path, body) in reqs.items():
+        rid = b["results"][key]["rid"]
+        if not rid or rid not in listed:
+            missing.append(key)
+            continue
+        root = "http:chat" if "chat" in path else "http:completions"
+        want = [(root, None), ("preprocess", root)]
+        if body.get("stream"):
+            want.append(("sse.egress", root))
+        trees[key] = _spans(port, rid)
+        if trees[key] != want:
+            missing.append(key)
+    status, chrome = http_get(
+        port, f"/v1/traces/{b['results']['completion_stream']['rid']}"
+              f"?format=chrome")
+    row.update(traces_missing=missing, trace_trees=trees,
+               chrome_events=len(json.loads(chrome)["traceEvents"]),
+               plane_cost_us=plane_cost_us(core))
+    emit(row)
+    ok = (row["http_200"] == len(reqs) and row["ttft_count"] == len(reqs)
+          and row["stream_ttft_count"] == streamed
+          and row["decode_step_count"] == b["decode_dispatches"] > 0
+          and row["gauges_present"] and 0 < row["mfu"] <= 1.05
+          and 0 < row["mbu"] <= 1.05 and row["hbm_gbps"] > 0
+          and not missing and row["chrome_events"] > 0)
+    if not ok:
+        raise AssertionError(f"metrics phase failed: {row}")
+    return row
+
+
+def tier_gauge_check(core, port: int) -> dict:
+    """After the reuse phase filled the host tier: the tier gauges and
+    counters on /metrics equal ``TieredKvCache.stats()``."""
+    st = core.core.tiered.stats()
+    sc = scrape(port)
+    pid = str(os.getpid())
+    row = dict(phase="tiers", stats=st,
+               host_blocks=_total(sc, "dyn_kv_tier_blocks", tier="host",
+                                  worker=pid),
+               hits=_total(sc, "dyn_kv_tier_hits_total"),
+               misses=_total(sc, "dyn_kv_tier_misses_total"))
+    emit(row)
+    if not (st["host_blocks"] > 0 and row["host_blocks"] == st["host_blocks"]
+            and row["hits"] == st["hits"] and row["misses"] == st["misses"]):
+        raise AssertionError(f"tier gauges disagree with stats(): {row}")
+    return row
+
+
+def _read_responses(raw: bytes) -> list:
+    """HTTP/1.1 responses back to back in ``raw`` (Content-Length or
+    chunked bodies): [(status, headers, body)]."""
+    out = []
+    while raw:
+        head, _, raw = raw.partition(b"\r\n\r\n")
+        lines = head.decode("latin-1").split("\r\n")
+        status = int(lines[0].split()[1])
+        headers = {k.strip().lower(): v.strip() for k, _, v in
+                   (ln.partition(":") for ln in lines[1:])}
+        if headers.get("transfer-encoding") == "chunked":
+            body = b""
+            while True:
+                size_line, _, raw = raw.partition(b"\r\n")
+                size = int(size_line, 16)
+                body += raw[:size]
+                raw = raw[size + 2:]
+                if size == 0:
+                    break
+        else:
+            n = int(headers.get("content-length", "0"))
+            body, raw = raw[:n], raw[n:]
+        out.append((status, headers, body))
+    return out
+
+
+def _exchange(port: int, payload: bytes) -> list:
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=600) as s:
+        s.sendall(payload)
+        buf = b""
+        while True:
+            d = s.recv(1 << 16)
+            if not d:
+                return _read_responses(buf)
+            buf += d
+
+
+def _request_bytes(path: str, body: dict, close=False, chunked=False):
+    b = json.dumps(body).encode()
+    head = (f"POST {path} HTTP/1.1\r\nHost: x\r\n"
+            f"Content-Type: application/json\r\n"
+            + ("Connection: close\r\n" if close else ""))
+    if chunked:
+        parts = [b[:10], b[10:]]
+        return (head + "Transfer-Encoding: chunked\r\n\r\n").encode() + \
+            b"".join(b"%x\r\n%s\r\n" % (len(p), p) for p in parts) + \
+            b"0\r\n\r\n"
+    return (head + f"Content-Length: {len(b)}\r\n\r\n").encode() + b
+
+
+def _tokens_of(resp) -> int:
+    status, headers, body = resp
+    if status != 200:
+        return 0
+    if headers.get("content-type", "").startswith("text/event-stream"):
+        datas = [ln[5:].strip() for ln in body.decode().splitlines()
+                 if ln.startswith("data:")]
+        if datas[-1] != "[DONE]":
+            return 0
+        return json.loads(datas[-2])["usage"]["completion_tokens"]
+    return json.loads(body)["usage"]["completion_tokens"]
+
+
+def http_phase(port: int) -> dict:
+    """HTTP/1.1 on the served engine: a kept-alive connection carrying
+    three requests (one streamed), a chunked request body, and two
+    pipelined requests; each must answer 200 with tokens."""
+    comp = {"model": PRESET, "prompt": "Keep the connection", "max_tokens": 8}
+    chat = {"model": PRESET, "max_tokens": 8,
+            "messages": [{"role": "user", "content": "One socket."}]}
+    keep = _exchange(port, _request_bytes("/v1/completions", comp)
+                     + _request_bytes("/v1/completions", dict(
+                         comp, stream=True, logprobs=1))
+                     + _request_bytes("/v1/chat/completions", chat,
+                                      close=True))
+    chunked = _exchange(port, _request_bytes("/v1/completions", comp,
+                                             close=True, chunked=True))
+    piped = _exchange(port, _request_bytes("/v1/completions", comp)
+                      + _request_bytes("/v1/completions", dict(
+                          comp, prompt="pipelined"), close=True))
+    row = dict(phase="http",
+               keep_alive=[(r[0], _tokens_of(r)) for r in keep],
+               keep_alive_streamed=keep[1][1].get("transfer-encoding"),
+               chunked=[(r[0], _tokens_of(r)) for r in chunked],
+               pipelined=[(r[0], _tokens_of(r)) for r in piped])
+    emit(row)
+    got = row["keep_alive"] + row["chunked"] + row["pipelined"]
+    if not (len(row["keep_alive"]) == 3 and len(row["chunked"]) == 1
+            and len(row["pipelined"]) == 2 and row["keep_alive_streamed"]
+            == "chunked" and all(st == 200 and n > 0 for st, n in got)):
+        raise AssertionError(f"http phase failed: {row}")
+    return row
+
+
+def overload_phase(core, loop, manager, smi: str) -> dict:
+    """A second HTTP service on the same engine behind an admission gate of
+    two in-flight requests (no queue): six requests at once get two 200s
+    with tokens and four typed 429s; the rejects are counted; once the
+    burst drained, requests are admitted again."""
+    import asyncio
+
+    from dynamo_tpu_torch.llm.http_service import HttpService
+    from dynamo_tpu_torch.utils.overload import (AdmissionConfig,
+                                                 AdmissionController)
+
+    ctrl = AdmissionController(AdmissionConfig(concurrency=2, queue=0))
+    svc = HttpService(manager, host="127.0.0.1", port=0, admission=ctrl)
+    port = asyncio.run_coroutine_threadsafe(svc.start(), loop).result(60)
+    try:
+        sc0 = scrape(port)
+        body = {"model": PRESET, "prompt": "Admission", "max_tokens": 24}
+        out: dict = {}
+        gate = threading.Barrier(6)
+
+        def one(i):
+            gate.wait()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/v1/completions",
+                data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=600) as resp:
+                    out[i] = (resp.status, None,
+                              json.loads(resp.read())["usage"])
+            except urllib.error.HTTPError as e:
+                out[i] = (e.code, e.headers.get("Retry-After"),
+                          json.loads(e.read())["error"])
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(6)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        sc1 = scrape(port)
+        after = {}
+        for i in range(2):
+            http_post(port, "/v1/completions", body, after, str(i))
+        ok200 = [o for o in out.values() if o[0] == 200]
+        shed = [o for o in out.values() if o[0] == 429]
+        row = dict(
+            phase="overload", card=smi, sent=6, admitted=len(ok200),
+            rejected=len(shed),
+            tokens=[o[2]["completion_tokens"] for o in ok200],
+            retry_after=sorted({o[1] for o in shed}),
+            errors=sorted({(o[2]["type"], o[2]["stage"], o[2]["reason"],
+                            o[2]["retry_after"]) for o in shed}),
+            rejects_counted=_total(sc1, "dyn_admission_rejects_total")
+            - _total(sc0, "dyn_admission_rejects_total"),
+            after=[r["status"] for r in after.values()],
+            inflight_after=ctrl.inflight)
+        emit(row)
+    finally:
+        asyncio.run_coroutine_threadsafe(svc.stop(), loop).result(60)
+    if not (row["admitted"] == 2 and row["rejected"] == 4
+            and all(n > 0 for n in row["tokens"])
+            and row["retry_after"] == ["1"]
+            and row["errors"] == [("overloaded_error", "admission",
+                                   "concurrency", 1.0)]
+            and row["rejects_counted"] == 4 and row["after"] == [200, 200]
+            and row["inflight_after"] == 0):
+        raise AssertionError(f"overload phase failed: {row}")
+    return row
 
 
 def profile_phase(torch, port: int) -> dict:
@@ -832,7 +1247,7 @@ def serve_default_phase(torch, att, smi: str) -> dict:
     to tiny-byte, whose head dim 16 runs the kernels' Dh=16 instances.
     ``min_tokens`` keeps a random model's early EOS from ending a request
     with no tokens."""
-    with served([]) as (core, _, port, model, _):
+    with served([]) as (core, _, port, model, _, _):
         c = core.core
         m = c.cfg.model
         if (m.head_dim, m.num_heads, m.num_kv_heads, m.vocab_size) != \

@@ -103,6 +103,9 @@ def make_engines(args, card: ModelDeploymentCard):
 # ---------------------------------------------------------------------------
 
 async def run_http(args, card, chat_engine, completion_engine) -> None:
+    from ..utils.tracing import configure as configure_tracing
+
+    configure_tracing(component="http")
     manager = ModelManager()
     manager.add(ServedModel(card, chat_engine, completion_engine))
     svc = HttpService(manager, host=args.http_host, port=args.http_port)

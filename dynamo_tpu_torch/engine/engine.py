@@ -26,6 +26,15 @@ Architecture:
   hooks are where a KV event publisher attaches.
 - :class:`TorchEngine` is the asyncio facade implementing the AsyncEngine
   contract (BackendInput -> stream of EngineOutput).
+- Observability, as in the JAX engine and on the engine thread: the process
+  ``StageMetrics`` (``llm_decode_step_seconds`` per fetched decode
+  dispatch, ``llm_batch_occupancy``, the goodput gauges ``dyn_mfu`` /
+  ``dyn_mbu`` / ``dyn_hbm_gbps`` from ``utils/roofline.GoodputMeter``),
+  flight-recorder heartbeats and events around each decode dispatch, and
+  ``DYN_PROFILE_DIR`` / ``DYN_PROFILE_STEPS``: a ``torch.profiler`` Chrome
+  trace of the first working iterations. All of it reads the host clock
+  times the engine already takes (the prefill's first-token fetch, the
+  decode dispatch's event-waited fetch): no host sync is added.
 
 Not ported yet (the JAX engine has them): cluster write-through and placement prefetch of the KV tiers,
 speculative decoding, disaggregated prefill, the long-context paging lane,
@@ -61,9 +70,12 @@ from ..llm.kvbm.transfer import CopyStream, host_dtype
 from ..llm.model_card import ModelDeploymentCard
 from ..llm.protocols.common import BackendInput, EngineOutput, FinishReason
 from ..models import llama
+from ..obs import flightrec as _flightrec
 from ..ops.attention import (check_kernel_support, flash_attention,
                              paged_attention)
 from ..runtime.engine import AsyncEngine, Context
+from ..utils import roofline
+from ..utils.prometheus import stage_metrics
 from .cache import OutOfPages, PagePool
 from .sampling import (STATIC_K, apply_penalties, draw_uniforms,
                        lane_generator, resume_seed, sample)
@@ -264,6 +276,20 @@ class EngineCore:
         self.decode_steps_run = 0
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
+
+        # --- observability: stage histograms and goodput accounting ----
+        # analytic FLOPs/bytes per dispatch over its measured host-clock
+        # time, against the card's datasheet peaks (calibrated host figures
+        # on the CPU); weight bytes are the loaded tree's
+        self.stage = stage_metrics()
+        if self.device.type == "cuda":
+            peaks = roofline.detect_peaks(
+                torch.cuda.get_device_name(self.device), "cuda")
+        else:
+            peaks = roofline.detect_peaks("cpu", "cpu")
+        self.costs = roofline.model_costs(m, weight_bytes=float(
+            _tree_nbytes(self.params)))
+        self.goodput = roofline.GoodputMeter(self.costs, peaks)
         if self.device.type == "cuda":
             self._probe_kernels()
 
@@ -320,6 +346,10 @@ class EngineCore:
     def has_work(self) -> bool:
         return bool(self.waiting or self.by_seq or self._inflight)
 
+    @property
+    def active(self) -> int:
+        return len(self.by_seq)
+
     def step(self, flush: Optional[Callable[[List[StepOutput]], None]] = None
              ) -> List[StepOutput]:
         """Run one engine iteration.
@@ -371,6 +401,8 @@ class EngineCore:
     def drop_window(self) -> None:
         """Forget the in-flight decode dispatches and apply the releases
         held for them (after an engine error, so no page stays leased)."""
+        for _ in self._inflight:
+            _flightrec.hb_done("engine.decode")
         self._inflight.clear()
         self._apply_deferred_release()
 
@@ -629,8 +661,12 @@ class EngineCore:
         tok, logp = sample(logits[:, 0], temp, top_p, top_k,
                            to_device(uniforms, d))
         packed = torch.stack([tok.float(), logp], -1).cpu().numpy()  # 1 fetch
+        elapsed = time.perf_counter() - t0
         self.prefill_dispatches += 1
-        self.prefill_seconds += time.perf_counter() - t0
+        self.prefill_seconds += elapsed
+        fl, by, tk = roofline.prefill_cost(
+            self.costs, [(w[2], w[3]) for w in work])
+        self.goodput.account(fl, by, elapsed, tk)
         for lane, (i, slot, start, count, is_last) in enumerate(work):
             slot.prefill_done = slot.kv_written = start + count
             if not is_last:
@@ -800,10 +836,16 @@ class EngineCore:
             packed = host
         self._inflight.append({"packed": packed, "ready": ready,
                                "final_tok": tok, "active": active,
+                               "lengths": [phys for _, _, phys in active],
                                "chained": chain, "dispatched_at": t0})
         self.decode_dispatches += 1
         self.decode_chained += chain
         self.decode_steps_run += N
+        # flight recorder: the hang watchdog judges "a dispatch in flight
+        # with no fetch completing for N x the EWMA step time" off this
+        _flightrec.hb_begin("engine.decode", stall="decode")
+        _flightrec.note_event("engine.dispatch", depth=len(self._inflight),
+                              batch=len(active), steps=N)
 
     def _process_oldest_inflight(self) -> List[StepOutput]:
         """Wait for the oldest in-flight dispatch's results on the host and
@@ -815,9 +857,19 @@ class EngineCore:
             rec["ready"].synchronize()
         packed = rec["packed"].numpy()                  # [N, Ba, 2]
         # the JAX engine's decode_step reading: dispatch to results on the
-        # host, which overlaps between chained dispatches
-        self.decode_seconds += time.perf_counter() - rec["dispatched_at"]
+        # host, which overlaps between chained dispatches; here the dispatch
+        # starts before its host enqueue
+        elapsed = time.perf_counter() - rec["dispatched_at"]
+        self.decode_seconds += elapsed
         N = packed.shape[0]
+        self.stage.decode_step.observe(value=elapsed / N)
+        # after the fetch (a wedged device shows up there): feed the
+        # watchdog's step-time EWMA and balance hb_begin
+        _flightrec.hb_done("engine.decode", elapsed / N)
+        _flightrec.note_event("engine.step", s=round(elapsed, 6), n=N,
+                              compiled=False)
+        fl, by, tk = roofline.decode_cost(self.costs, rec["lengths"], N)
+        self.goodput.account(fl, by, elapsed, tk)
         outs: List[StepOutput] = []
         for a, (i, slot, _) in enumerate(rec["active"]):
             if self.slots[i] is not slot:
@@ -841,6 +893,14 @@ class EngineCore:
         return outs
 
 
+def _tree_nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
 # ---------------------------------------------------------------------------
 # Async facade
 # ---------------------------------------------------------------------------
@@ -851,6 +911,19 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
     def __init__(self, cfg: TorchEngineConfig,
                  params: Optional[Dict[str, Any]] = None):
         self.core = EngineCore(cfg, params)
+        # DYN_PROFILE_DIR: a torch.profiler Chrome trace of the first
+        # DYN_PROFILE_STEPS (default 32) working iterations, written to
+        # that directory (the JAX engine's XLA trace); read here, before
+        # the engine thread starts
+        self._profile_dir = os.environ.get("DYN_PROFILE_DIR") or None
+        try:
+            self._profile_steps = int(os.environ.get("DYN_PROFILE_STEPS",
+                                                     "32"))
+        except ValueError:
+            log.warning("invalid DYN_PROFILE_STEPS=%r; using 32",
+                        os.environ.get("DYN_PROFILE_STEPS"))
+            self._profile_steps = 32
+        self.profile_trace: Optional[str] = None   # the file, once written
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._queues: Dict[str, asyncio.Queue] = {}
         self._inbox: thread_queue.Queue = thread_queue.Queue()
@@ -862,6 +935,11 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
 
     # ------------------------------------------------------------------
     def _run(self) -> None:
+        stage = self.core.stage
+        profile_dir, profile_steps = self._profile_dir, self._profile_steps
+        prof = None
+        last_gauges = 0.0
+        last_disp = 0
         while self._running:
             while True:
                 try:
@@ -873,9 +951,23 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
                 elif kind == "cancel":
                     self.core.cancel(seq_id)
             if not self.core.has_work:
+                # idle: keep the windowed goodput gauges honest (they decay
+                # to 0 as the last burst ages out of the window)
+                now = time.monotonic()
+                if now - last_gauges >= 5.0:
+                    last_gauges = now
+                    self._set_goodput_gauges(stage)
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
                 continue
+            if profile_dir and prof is None and profile_steps > 0:
+                try:
+                    prof = self._start_profile()
+                    log.info("torch profile capture started -> %s",
+                             profile_dir)
+                except Exception:
+                    log.exception("DYN_PROFILE_DIR capture failed to start")
+                    profile_dir = None
             try:
                 outs = self.core.step(flush=self._deliver_all)
             except Exception as e:  # engine must never die silently
@@ -887,11 +979,66 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
                     self.core.cancel(sid)
                 self.core._reap_cancelled()
                 self.core.drop_window()
+            stage.batch_occupancy.set(str(os.getpid()),
+                                      value=self.core.active)
+            # goodput gauges: refreshed once dispatches were accounted —
+            # throttled mid-burst, and always at the end of a burst so a
+            # short request's MFU shows on /metrics
+            disp = self.core.goodput.dispatches
+            now = time.monotonic()
+            if disp != last_disp and (now - last_gauges >= 0.5
+                                      or not self.core.has_work):
+                last_gauges, last_disp = now, disp
+                self._set_goodput_gauges(stage)
+            if prof is not None:
+                profile_steps -= 1
+                if profile_steps <= 0:
+                    self._stop_profile(prof, profile_dir)
+                    prof, profile_dir = None, None
             self._deliver_all(outs)
             if not outs and not self.core.by_seq:
                 # waiting requests that can't be admitted yet: don't spin
                 self._wake.wait(timeout=0.02)
                 self._wake.clear()
+        if prof is not None:
+            # shutdown before DYN_PROFILE_STEPS working iterations: write
+            # the short capture
+            self._stop_profile(prof, profile_dir)
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.core.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+            # have Kineto tear CUPTI down when the capture ends: without
+            # it, serving after a capture ran slower on the card (the
+            # capture would slow the serving it was taken to explain).
+            # Teardown is unsafe only with CUDA graphs, which the engine
+            # does not capture.
+            os.environ.setdefault("TEARDOWN_CUPTI", "1")
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, profile_dir: str) -> None:
+        try:
+            prof.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            path = os.path.join(profile_dir, f"torch_engine.{os.getpid()}."
+                                f"{time.time_ns()}.pt.trace.json")
+            prof.export_chrome_trace(path)
+            self.profile_trace = path
+            log.info("torch profile capture written to %s", path)
+        except Exception:
+            log.exception("stopping the torch profile failed")
+
+    def _set_goodput_gauges(self, stage) -> None:
+        pid = str(os.getpid())
+        snap = self.core.goodput.snapshot()
+        stage.mfu.set(pid, value=snap["mfu"])
+        stage.mbu.set(pid, value=snap["mbu"])
+        stage.hbm_gbps.set(pid, value=snap["hbm_gbps"])
 
     def _deliver_all(self, outs: List[StepOutput]) -> None:
         for so in outs:
@@ -957,3 +1104,6 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
         self._wake.set()
         self._thread.join(timeout=30)
         self.core.close()
+        # the engine's per-worker gauge series die with it: a process that
+        # outlives its engine would otherwise export ghost occupancy/MFU
+        self.core.stage.clear_worker(str(os.getpid()))

@@ -20,8 +20,9 @@ guards every access with one internal lock; ``peek`` reads a block without
 perturbing LRU order (safe for probes and peer serving), and ``hashes``
 snapshots the resident hash sets for a registry publisher.
 
-The tier counts live in :meth:`TieredKvCache.stats` (the JAX package also
-mirrors them into Prometheus gauges; the port has no metrics plane yet).
+The tier counts live in :meth:`TieredKvCache.stats` and, as in the JAX
+package, in the stage gauges ``dyn_kv_tier_blocks{tier,worker}`` and the
+counters ``dyn_kv_tier_hits_total{tier}`` / ``dyn_kv_tier_misses_total``.
 
 Reference capability: the multi-tier KV manager design HBM->CPU->SSD
 (docs/kv_cache_manager.md:5-15,39-71, lib/llm/src/kv/storage.rs pinned/system
@@ -37,6 +38,8 @@ import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from ...utils.prometheus import stage_metrics
 
 log = logging.getLogger("dynamo_tpu_torch.kvbm")
 
@@ -217,11 +220,18 @@ class TieredKvCache:
         # one lock shared by the engine thread and the asyncio data plane
         self._lock = threading.RLock()
         self.on_change: Optional[Callable[[], None]] = None
+        self._worker = str(os.getpid())
 
     def __contains__(self, seq_hash: int) -> bool:
         with self._lock:
             return seq_hash in self.host or (
                 self.disk is not None and seq_hash in self.disk)
+
+    def _set_block_gauges(self) -> None:
+        g = stage_metrics().kv_tier_blocks
+        g.set("host", self._worker, value=float(len(self.host)))
+        if self.disk is not None:
+            g.set("disk", self._worker, value=float(len(self.disk)))
 
     def offload(self, seq_hash: int, k: np.ndarray, v: np.ndarray) -> None:
         with self._lock:
@@ -236,15 +246,19 @@ class TieredKvCache:
         spilled = self.host.put(seq_hash, k, v)
         if spilled is not None and self.disk is not None:
             self.disk.put(*spilled)
+        self._set_block_gauges()
 
     def lookup(self, seq_hash: int
                ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        stage = stage_metrics()
         promoted = False
         with self._lock:
             got = self.host.get(seq_hash)
+            tier = "host" if got is not None else None
             if got is None and self.disk is not None:
                 got = self.disk.get(seq_hash)
                 if got is not None:   # promote to host (may spill another)
+                    tier = "disk"
                     k, v = got[0].copy(), got[1].copy()
                     got = (k, v)
                     if seq_hash in self.disk.pinned:
@@ -261,6 +275,7 @@ class TieredKvCache:
                                 self.disk.put(*spilled)
                             self.disk.pop(seq_hash)
                             self.host.pinned.add(seq_hash)
+                            self._set_block_gauges()
                             promoted = True
                     else:
                         self.disk.pop(seq_hash)
@@ -268,8 +283,10 @@ class TieredKvCache:
                         promoted = True
             if got is None:
                 self.misses += 1
+                stage.kv_tier_misses.inc()
             else:
                 self.hits += 1
+                stage.kv_tier_hits.inc(tier)
         if promoted:
             self._fire_change()
         return got
@@ -343,6 +360,7 @@ class TieredKvCache:
                 raise
             if spilled is not None and self.disk is not None:
                 self.disk.put(*spilled)
+            self._set_block_gauges()
         self._fire_change()
 
     def hashes(self) -> Tuple[List[int], List[int]]:
@@ -377,6 +395,7 @@ class TieredKvCache:
                     continue
                 for h in list(tier._slot_of):
                     tier.pop(h)
+            self._set_block_gauges()
         self._fire_change()
 
     def close(self) -> None:

@@ -12,8 +12,9 @@ import contextlib
 from typing import Any, AsyncIterator, Dict, List, Optional
 
 from ..runtime.engine import AsyncEngine, Context
+from ..utils.tracing import get_tracer
 from .backend import Backend
-from .engines import EchoFullEngine
+from .engines import EchoCoreEngine, EchoFullEngine
 from .model_card import ModelDeploymentCard
 from .preprocessor import Preprocessor
 from .protocols.common import BackendInput, EngineOutput, FinishReason
@@ -40,7 +41,10 @@ class OpenAIChatEngine(AsyncEngine[ChatCompletionRequest, Dict[str, Any]]):
                        context: Context) -> AsyncIterator[Dict[str, Any]]:
         from .tools import ToolCallingMatcher, normalize_tool_choice
 
-        pre = self.preprocessor.preprocess_chat(request)
+        with get_tracer().span("preprocess", trace_id=context.id) as psp:
+            pre = self.preprocessor.preprocess_chat(request)
+            if psp is not None:
+                psp.attrs["prompt_tokens"] = len(pre.backend_input.token_ids)
         gen = ChatDeltaGenerator(request.model, request_id=f"chatcmpl-{context.id[:24]}")
         prompt_tokens = len(pre.backend_input.token_ids)
         completion_tokens = 0
@@ -131,7 +135,10 @@ class OpenAICompletionEngine(AsyncEngine[CompletionRequest, Dict[str, Any]]):
 
     async def generate(self, request: CompletionRequest,
                        context: Context) -> AsyncIterator[Dict[str, Any]]:
-        pre = self.preprocessor.preprocess_completion(request)
+        with get_tracer().span("preprocess", trace_id=context.id) as psp:
+            pre = self.preprocessor.preprocess_completion(request)
+            if psp is not None:
+                psp.attrs["prompt_tokens"] = len(pre.backend_input.token_ids)
         gen = CompletionDeltaGenerator(request.model, request_id=f"cmpl-{context.id[:24]}")
         prompt_tokens = len(pre.backend_input.token_ids)
         completion_tokens = 0
@@ -187,9 +194,12 @@ class FullEngineAdapter(AsyncEngine):
 
 def build_chat_engine(card: ModelDeploymentCard, kind: str,
                       core_engine: Optional[AsyncEngine] = None) -> AsyncEngine:
-    """``kind``: 'echo_full' | 'core' (bring your own core engine)."""
+    """``kind``: 'echo_core' | 'echo_full' | 'core' (bring your own core
+    engine)."""
     if kind == "echo_full":
         return FullEngineAdapter(card.name, EchoFullEngine(), "chat")
+    if kind == "echo_core":
+        return OpenAIChatEngine(card, EchoCoreEngine())
     if kind == "core":
         assert core_engine is not None
         return OpenAIChatEngine(card, core_engine)
@@ -200,6 +210,8 @@ def build_completion_engine(card: ModelDeploymentCard, kind: str,
                             core_engine: Optional[AsyncEngine] = None) -> AsyncEngine:
     if kind == "echo_full":
         return FullEngineAdapter(card.name, EchoFullEngine(), "completion")
+    if kind == "echo_core":
+        return OpenAICompletionEngine(card, EchoCoreEngine())
     if kind == "core":
         assert core_engine is not None
         return OpenAICompletionEngine(card, core_engine)

@@ -1,0 +1,239 @@
+"""Central registry of the ``DYN_*`` environment knobs the port reads.
+
+The port's copy of the JAX package's ``utils/knobs.py``: the same
+:func:`env_float` parse policy and :class:`Knob` records, with an entry for
+each knob a module of ``dynamo_tpu_torch`` reads (type, default, owning
+subsystem and description as in the JAX registry, which the tests hold it
+to). The JAX package also generates ``docs/configuration.md`` from its
+registry and lints it against the code; those gates cover the JAX package
+only.
+
+This module is stdlib-only and import-light on purpose.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from dataclasses import dataclass
+from typing import Dict, List, Mapping, Optional
+
+log = logging.getLogger("dynamo_tpu_torch.knobs")
+
+
+def env_float(name: str, default: float,
+              env: Optional[Mapping[str, str]] = None,
+              minimum: Optional[float] = None) -> float:
+    """Parse a float knob, warning and falling back to ``default`` on a
+    malformed (or, with ``minimum``, out-of-range) value — a bad env var
+    must never crash a component at startup. This is the one shared copy
+    of the parse policy, next to the registry the values are declared in.
+    ``env`` overrides ``os.environ`` (tests pass a plain dict)."""
+    raw = (os.environ if env is None else env).get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        val = float(raw)
+    except ValueError:
+        log.warning("ignoring malformed %s=%r", name, raw)
+        return default
+    if minimum is not None and val < minimum:
+        log.warning("ignoring out-of-range %s=%r (minimum %s)",
+                    name, raw, minimum)
+        return default
+    return val
+
+
+#: the JAX package's doc for each subsystem (keeps the table rows terse)
+_DOCS = {
+    "runtime": "docs/robustness.md",
+    "overload": "docs/robustness.md",
+    "multi_model": "docs/multi_model.md",
+    "engine": "docs/observability.md",
+    "tracing": "docs/observability.md",
+    "metrics": "docs/observability.md",
+    "logging": "docs/observability.md",
+    "slo": "docs/observability.md",
+    "roofline": "docs/observability.md",
+    "llm": "docs/benchmarking.md",
+}
+
+
+@dataclass(frozen=True)
+class Knob:
+    name: str            # the full env var name, e.g. "DYN_LEASE_TTL"
+    type: str            # str | int | float | bool | csv | json
+    default: str         # human-readable default ("" = unset/off)
+    subsystem: str       # key into _DOCS (owning plane)
+    description: str     # one line, imperative, no trailing period
+    derived: bool = False  # materialized by dynconfig flag layering
+
+    @property
+    def doc(self) -> str:
+        return _DOCS[self.subsystem]
+
+
+def _k(name: str, type: str, default: str, subsystem: str,
+       description: str, derived: bool = False) -> Knob:
+    return Knob(name, type, default, subsystem, description, derived)
+
+
+_ALL: List[Knob] = [
+    # ----------------------------------------------------------- runtime
+    _k("DYN_REQUEST_TIMEOUT", "float", "", "runtime",
+       "default end-to-end request deadline when the client sends none, "
+       "seconds"),
+    # ---------------------------------------------------------- overload
+    _k("DYN_ADMIT_RPS", "float", "0", "overload",
+       "token-bucket admission rate at HTTP ingress (0 = no rate cap)"),
+    _k("DYN_ADMIT_BURST", "float", "2*rps", "overload",
+       "token-bucket burst size"),
+    _k("DYN_ADMIT_CONCURRENCY", "int", "0", "overload",
+       "max in-flight requests admitted (0 = no concurrency cap)"),
+    _k("DYN_ADMIT_QUEUE", "int", "-1", "overload",
+       "admission wait-queue depth (-1 = unbounded, 0 = reject at cap)"),
+    _k("DYN_ADMIT_BATCH_RESERVE", "float", "0.25", "overload",
+       "fraction of admission capacity batch-priority traffic may use "
+       "when interactive traffic is waiting"),
+    _k("DYN_ADMIT_KV_BYTES", "float", "0", "overload",
+       "in-flight KV byte budget at HTTP ingress: requests are priced at "
+       "estimated tokens x DYN_ADMIT_KV_TOKEN_BYTES so one long-context "
+       "request consumes its true share of the admission envelope (0 = "
+       "dimension off)"),
+    _k("DYN_ADMIT_KV_TOKEN_BYTES", "float", "0", "overload",
+       "per-token KV price in bytes for the byte-honest admission "
+       "dimension (2 * layers * kv_heads * head_dim * dtype_bytes of the "
+       "served model; 0 = dimension off)"),
+    _k("DYN_WORKER_SLOTS", "int", "0", "overload",
+       "worker decode slot gate (0/unset = ungated)"),
+    _k("DYN_WORKER_QUEUE_DEPTH", "int", "2*slots", "overload",
+       "bounded wait queue behind the worker slot gate"),
+    _k("DYN_WORKER_BATCH_QUEUE_DEPTH", "int", "-1", "overload",
+       "batch-priority share of the worker wait queue (-1 = half)"),
+    _k("DYN_BROWNOUT_MAX_TOKENS", "int", "256", "overload",
+       "max_tokens ceiling applied at brownout level 2+"),
+    _k("DYN_BROWNOUT_UP_BURN", "float", "2.0", "overload",
+       "worst-SLO burn rate that steps the brownout ladder up"),
+    _k("DYN_BROWNOUT_DOWN_BURN", "float", "0.75", "overload",
+       "burn rate below which the ladder steps back down"),
+    _k("DYN_BROWNOUT_DWELL_UP", "float", "5.0", "overload",
+       "min seconds between upward brownout steps"),
+    _k("DYN_BROWNOUT_DWELL_DOWN", "float", "30.0", "overload",
+       "min seconds between downward brownout steps"),
+    _k("DYN_BROWNOUT_MAX_LEVEL", "int", "3", "overload",
+       "highest brownout level the controller may reach (ladder max 4)"),
+    _k("DYN_TENANT_QUOTAS", "json", "", "overload",
+       "static per-tenant admission quotas at HTTP ingress, e.g. "
+       '\'{"acme": {"rps": 5, "burst": 10, "concurrency": 8}}\'; merged '
+       "with (and overridden by) the fleet registry's per-model tenant "
+       "tables"),
+    _k("DYN_TENANT_AVAILABILITY", "float", "", "overload",
+       "per-tenant good-request fraction objective (e.g. 0.99); when "
+       "set, the worst tenant's burn also steps the brownout ladder"),
+    # ------------------------------------------------------- multi_model
+    _k("DYN_BOOT_WAIT", "float", "0", "multi_model",
+       "queue-until-boot: max seconds a request for a fleet-registered "
+       "scaled-to-zero model parks at HTTP ingress waiting for a replica "
+       "to boot, bounded by the request deadline (0 = off, immediate 404 "
+       "as before)"),
+    _k("DYN_BOOT_WAIT_QUEUE", "int", "64", "multi_model",
+       "max requests parked by queue-until-boot at once; beyond it "
+       "requests get an immediate typed 503 (boot_queue_full)"),
+    # ------------------------------------------------------------ engine
+    _k("DYN_PROFILE_DIR", "str", "", "engine",
+       "capture a torch.profiler Chrome trace of the first working "
+       "iterations into this directory"),
+    _k("DYN_PROFILE_STEPS", "int", "32", "engine",
+       "engine iterations the DYN_PROFILE_DIR capture spans"),
+    # ----------------------------------------------------------- tracing
+    _k("DYN_TRACING", "bool", "1", "tracing",
+       "request span tracing (0 disables recording entirely)"),
+    _k("DYN_TRACE_BUFFER", "int", "4096", "tracing",
+       "per-process span ring-buffer capacity"),
+    _k("DYN_TRACE_SAMPLE", "float", "1.0", "tracing",
+       "trace-id-consistent head-sampling fraction exported to the store "
+       "span sink; error/deadline/breaker traces are always kept"),
+    _k("DYN_FLIGHTREC", "bool", "1", "tracing",
+       "always-on flight recorder: per-process black-box rings dumped "
+       "into incident bundles (0 = record nothing)"),
+    _k("DYN_FLIGHTREC_SPANS", "int", "2048", "tracing",
+       "flight-recorder span ring capacity (every finished span, "
+       "including head-sampled-out ones)"),
+    _k("DYN_FLIGHTREC_EVENTS", "int", "4096", "tracing",
+       "flight-recorder event ring capacity (engine step timings, gate "
+       "waits, transfer EWMA snapshots, store health transitions)"),
+    _k("DYN_FLIGHTREC_LOGTAIL", "int", "256", "tracing",
+       "flight-recorder structured-log tail capacity"),
+    _k("DYN_WATCHDOG", "bool", "1", "tracing",
+       "hang watchdog: stall:* span emission + incident triggers (0 = "
+       "heartbeats are recorded but never judged)"),
+    _k("DYN_WATCHDOG_INTERVAL", "float", "0.25", "tracing",
+       "watchdog poll period, seconds (its own tick lag is the "
+       "event-loop-stall probe)"),
+    _k("DYN_WATCHDOG_MULT", "float", "8.0", "tracing",
+       "stall threshold as a multiple of an activity's EWMA unit time (a "
+       "decode dispatch exceeding mult x EWMA step time is wedged)"),
+    _k("DYN_WATCHDOG_FLOOR", "float", "1.0", "tracing",
+       "absolute floor, seconds, under the EWMA-multiple threshold — a "
+       "noisy sub-millisecond EWMA must not yield false stalls"),
+    _k("DYN_WATCHDOG_LOOP_STALL", "float", "1.0", "tracing",
+       "event-loop stall threshold: watchdog tick lateness, seconds"),
+    _k("DYN_INCIDENT_TTL", "float", "3600", "tracing",
+       "incident beacon + bundle lease TTL, seconds"),
+    _k("DYN_INCIDENT_COOLDOWN", "float", "30", "tracing",
+       "triggers raised within this many seconds of a live beacon attach "
+       "to that incident instead of opening a new one"),
+    _k("DYN_INCIDENT_WINDOW", "float", "30", "tracing",
+       "ring-slice window dumped into a bundle, seconds before the "
+       "trigger"),
+    # ----------------------------------------------------------- metrics
+    _k("DYN_FLOWS", "bool", "1", "metrics",
+       "byte-flow ledger master switch; 0 disables all link accounting "
+       "(the flows_overhead A/B arm)"),
+    _k("DYN_LINK_WINDOW", "float", "10.0", "metrics",
+       "trailing window for per-link rate/saturation, seconds"),
+    _k("DYN_LINK_SAT_THRESHOLD", "float", "0.9", "metrics",
+       "saturation level whose rising edge emits a link.congested "
+       "flight-recorder event and bumps dyn_link_congested_total"),
+    _k("DYN_LINK_CAPACITY_NET", "float", "0", "metrics",
+       "calibrated capacity for network (worker-pair) links, bytes/s (0 "
+       "= use each link's measured peak rate)"),
+    _k("DYN_LINK_CAPACITY_H2D", "float", "0", "metrics",
+       "calibrated capacity for host-to-device links, bytes/s (0 = "
+       "measured peak)"),
+    _k("DYN_LINK_CAPACITY_D2H", "float", "0", "metrics",
+       "calibrated capacity for device-to-host links, bytes/s (0 = "
+       "measured peak)"),
+    _k("DYN_LINK_CAPACITY_DISK", "float", "0", "metrics",
+       "calibrated capacity for disk/checkpoint-read links, bytes/s (0 = "
+       "measured peak)"),
+    # ----------------------------------------------------------- logging
+    _k("DYN_LOG", "str", "info", "logging",
+       "root log level, with per-target overrides "
+       "('info,dynamo_tpu.runtime=debug')"),
+    _k("DYN_LOGGING_JSONL", "str", "", "logging",
+       "JSONL log output: '1'/'stderr' = JSON lines on stderr, other "
+       "values = file path"),
+    # --------------------------------------------------------------- slo
+    _k("DYN_SLO_TTFT_P90", "float", "", "slo",
+       "TTFT p90 objective, seconds (unset = SLO not monitored)"),
+    _k("DYN_SLO_ITL_P90", "float", "", "slo",
+       "inter-token latency p90 objective, seconds"),
+    _k("DYN_SLO_AVAILABILITY", "float", "", "slo",
+       "good-request fraction objective, e.g. 0.999"),
+    _k("DYN_SLO_WINDOWS", "csv", "60,300,1800", "slo",
+       "burn-rate windows, seconds"),
+    # ---------------------------------------------------------- roofline
+    _k("DYN_PEAK_FLOPS", "float", "", "roofline",
+       "override peak accelerator FLOP/s for MFU accounting"),
+    _k("DYN_PEAK_GBPS", "float", "", "roofline",
+       "override peak HBM GB/s for MBU accounting"),
+    # --------------------------------------------------------------- llm
+    _k("DYN_TOKEN_ECHO_DELAY_MS", "float", "10", "llm",
+       "echo-engine per-token pacing, milliseconds (0 = as fast as "
+       "possible; test/bench fixture)"),
+]
+
+KNOBS: Dict[str, Knob] = {k.name: k for k in _ALL}
+if len(KNOBS) != len(_ALL):
+    raise RuntimeError("duplicate knob registration")

@@ -12,8 +12,13 @@
   dtype.
 - The stdlib HTTP service answers /v1/models, completions (stream and not),
   chat, malformed requests with 400, and cancels on client disconnect.
-- No file of the port, and not ``chip_smoke.py``, imports JAX or the JAX
-  package.
+- The engine's observability plane: one decode-step observation and one
+  balanced heartbeat per fetched decode dispatch, goodput FLOPs and bytes
+  equal to the JAX package's roofline functions for the same spans,
+  lengths and steps, KV tier gauges equal to ``TieredKvCache.stats()``,
+  and the ``DYN_PROFILE_DIR`` trace.
+- No file of the port, and not ``chip_smoke.py``, imports JAX, the JAX
+  package, ``xxhash`` or ``aiohttp``.
 """
 
 import ast
@@ -21,6 +26,7 @@ import asyncio
 import json
 import pathlib
 import socket
+import threading
 import urllib.error
 import urllib.request
 
@@ -425,13 +431,160 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """...nor ``xxhash``, which the card's machine lacks: the port carries
-    its own XXH3-64 (``llm/xxh3.py``)."""
+    """...nor ``xxhash`` or ``aiohttp``, which the card's machine lacks: the
+    port carries its own XXH3-64 (``llm/xxh3.py``) and serves HTTP on the
+    standard library's asyncio (``llm/http_service.py``)."""
     files = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): sorted(
                r for r in set(_imported_roots(f))
-               if r in ("jax", "jaxlib", "dynamo_tpu", "xxhash"))
+               if r in ("jax", "jaxlib", "dynamo_tpu", "xxhash", "aiohttp"))
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
+
+
+# ---------------------------------------------------------------------------
+# observability plane on the engine thread
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def fresh_obs(monkeypatch):
+    """A fresh stage registry and flight recorder for the port's process
+    planes (restored after)."""
+    from dynamo_tpu_torch.obs import flightrec
+    from dynamo_tpu_torch.utils import prometheus
+
+    stage = prometheus.StageMetrics()
+    monkeypatch.setattr(prometheus, "_stage", stage)
+    rec = flightrec.FlightRecorder("engine", enabled=True)
+    monkeypatch.setattr(flightrec, "_recorder", rec)
+    return stage, rec
+
+
+def test_engine_decode_steps_heartbeats_and_goodput_match_jax_roofline(
+        monkeypatch, fresh_obs):
+    """Every fetched decode dispatch observes llm_decode_step_seconds once
+    and balances its heartbeat; every prefill and decode dispatch accounts
+    the FLOPs and bytes the JAX package's roofline gives for its spans, or
+    its lengths and steps."""
+    from dynamo_tpu.utils import roofline as jr
+    from dynamo_tpu_torch.utils import roofline as tr
+
+    stage, rec = fresh_obs
+    calls = []
+    for name in ("prefill_cost", "decode_cost"):
+        orig = getattr(tr, name)
+
+        def wrap(c, *a, _orig=orig, _name=name):
+            out = _orig(c, *a)
+            calls.append((_name, a, out))
+            return out
+
+        monkeypatch.setattr(tr, name, wrap)
+    core = EngineCore(_torch_cfg())
+    accounted = []
+    account = core.goodput.account
+    core.goodput.account = lambda fl, by, el, tk: (
+        accounted.append((fl, by, tk)), account(fl, by, el, tk))
+    for sid, toks in PROMPTS.items():
+        core.submit(sid, BackendInput(token_ids=toks,
+                                      stop=StopConditions(max_tokens=10)))
+    _steps_until(core, lambda got, outs: not core.has_work)
+    n_dec = core.decode_dispatches
+    assert n_dec >= 3 and core.decode_chained >= 1
+    dump = stage.decode_step.state()
+    assert sum(s["total"] for s in dump["series"].values()) == n_dec
+    hb = rec.heartbeats["engine.decode"]
+    assert hb.depth == 0 and hb.ewma > 0
+    kinds = [e["kind"] for e in rec.events.snapshot()]
+    assert kinds.count("engine.dispatch") == kinds.count("engine.step") \
+        == n_dec
+    # the port's accounting against the JAX package's functions
+    jcosts = jr.model_costs(jl.preset("tiny-byte", dtype=jnp.float32),
+                            weight_bytes=core.costs.weight_bytes)
+    assert tuple(jcosts.__dict__.values()) == tuple(
+        core.costs.__dict__.values())
+    assert [n for n, _, _ in calls].count("decode_cost") == n_dec
+    assert [n for n, _, _ in calls].count("prefill_cost") == \
+        core.prefill_dispatches
+    assert [out for _, _, out in calls] == accounted
+    for name, args, out in calls:
+        want = getattr(jr, name)(jcosts, *args)
+        assert out == pytest.approx(want, rel=1e-12, abs=0.0)
+    # every prompt token was prefilled once, every lane decoded in steps
+    assert sum(c for n, a, _ in calls if n == "prefill_cost"
+               for _, c in a[0]) == sum(map(len, PROMPTS.values()))
+    assert all(a[1] == ENGINE["decode_steps"] for n, a, _ in calls
+               if n == "decode_cost")
+    assert core.goodput.dispatches == n_dec + core.prefill_dispatches
+
+
+def test_engine_drop_window_balances_heartbeats(fresh_obs):
+    _, rec = fresh_obs
+    core = EngineCore(_torch_cfg(max_batch=2))
+    core.submit("a", BackendInput(token_ids=[5, 6, 7],
+                                  stop=StopConditions(max_tokens=20,
+                                                      ignore_eos=True)))
+    _steps_until(core, lambda got, outs: bool(core._inflight))
+    assert rec.heartbeats["engine.decode"].depth == len(core._inflight) > 0
+    core.drop_window()
+    assert rec.heartbeats["engine.decode"].depth == 0
+
+
+def test_engine_tier_gauges_equal_stats(fresh_obs):
+    import os
+
+    stage, _ = fresh_obs
+    core = EngineCore(_torch_cfg(num_pages=24, host_cache_blocks=16))
+    prompt = list(range(3, 40))
+    stop = StopConditions(max_tokens=3, ignore_eos=True)
+    pid = str(os.getpid())
+
+    def check():
+        st = core.tiered.stats()
+        assert stage.kv_tier_blocks.get("host", pid) == st["host_blocks"]
+        assert stage.kv_tier_misses.get() == st["misses"]
+        assert stage.kv_tier_hits.get("host") == st["hits"]
+        return st
+
+    for rnd in range(3):
+        core.submit(f"r{rnd}", BackendInput(token_ids=prompt, stop=stop))
+        _steps_until(core, lambda got, outs: not core.has_work)
+        check()
+        assert core.flush_reusable() > 0
+        st = check()
+    assert st["host_blocks"] > 0 and st["hits"] > 0
+
+
+def test_torch_engine_gauges_and_profile_trace(monkeypatch, fresh_obs,
+                                               tmp_path):
+    import os
+
+    stage, _ = fresh_obs
+    monkeypatch.setenv("DYN_PROFILE_DIR", str(tmp_path))
+    monkeypatch.setenv("DYN_PROFILE_STEPS", "3")
+    engine = TorchEngine(_torch_cfg())
+    try:
+        async def go():
+            return await _collect(engine, PROMPTS["mid"])
+
+        assert len(asyncio.run(asyncio.wait_for(go(), 60))) == 10
+        pid = str(os.getpid())
+        for _ in range(200):
+            live = (stage.mfu.get(pid), stage.mbu.get(pid),
+                    stage.hbm_gbps.get(pid))
+            if engine.profile_trace is not None and min(live) > 0:
+                break
+            threading.Event().wait(0.02)
+    finally:
+        engine.shutdown()
+    assert min(live) > 0
+    trace = engine.profile_trace
+    assert trace is not None and os.path.dirname(trace) == str(tmp_path)
+    with open(trace) as f:
+        assert json.load(f)["traceEvents"]
+    # gauges were live, and the engine's per-worker series die with it
+    assert stage.decode_step.state()["series"]
+    assert stage.mfu.state()["series"] == {}
+    assert stage.batch_occupancy.state()["series"] == {}
