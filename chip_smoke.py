@@ -63,6 +63,18 @@ with a traceback and prints no result:
                completions and chat, streamed and not, all 200 with tokens
                and a finish reason; the launch counters account for every
                prefill dispatch and decode step.
+9. checkpoint — real checkpoint files served through ``--model-path``:
+               a HF directory at Llama-3-8B width, depth cut to 4 layers
+               (random bf16 weights from the seed in two safetensors
+               shards written by the port, a synthetic 128256-entry
+               Llama-3-style tokenizer.json, generation and tokenizer
+               configs), and an F32 GGUF at Mistral-7B width, depth cut to
+               1 layer, with an embedded 32000-piece SPM vocab. Loaded
+               leaves equal the written weights bit for bit, prompt counts
+               equal the port's own encodings, the launch counters account
+               for every dispatch, and a greedy stream equals an engine
+               built from the same host tensors. Write, load (s, GB/s,
+               host RSS growth), tokenizer load, encode and TTFT.
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2.
@@ -1283,6 +1295,490 @@ def serve_default_phase(torch, att, smi: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 9: real checkpoints — a HF directory and a GGUF file
+# ---------------------------------------------------------------------------
+
+CKPT_DIR = os.path.join(ROOT, "build", "dynamo_tpu_torch", "ckpt")
+CKPT_SEED = 8
+# Llama-3-8B at full width, depth cut to 4 layers (~3.9 GB of bf16)
+CKPT_HF = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+               num_hidden_layers=4, num_attention_heads=32,
+               num_key_value_heads=8, head_dim=128, rope_theta=500000.0,
+               max_position_embeddings=8192, rms_norm_eps=1e-5,
+               tie_word_embeddings=False)
+CKPT_SPECIALS = 256                 # ids 128000..128255, as Llama-3's
+CKPT_EOS = [128001, 128009]
+# Mistral-7B at full width (V=32000), depth cut to 1 layer (~1.9 GB f32)
+CKPT_GGUF = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                 num_layers=1, num_heads=32, num_kv_heads=8, head_dim=128,
+                 rope_theta=1000000.0, max_position=32768)
+CKPT_ENGINE = dict(max_batch=8, max_context=2048, page_size=64,
+                   prefill_chunk=512, decode_steps=8)
+CKPT_LONG_TOKENS = 1500
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|"
+                r"\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|"
+                r"\s+(?!\S)|\s+")
+LLAMA3_TEMPLATE = (
+    "{% for message in messages %}{{ '<|start_header_id|>' + message['role']"
+    " + '<|end_header_id|>\n\n' + message['content'] | trim + '<|eot_id|>' }}"
+    "{% endfor %}{% if add_generation_prompt %}"
+    "{{ '<|start_header_id|>assistant<|end_header_id|>\n\n' }}{% endif %}")
+COMMON_WORDS = (
+    "the of and to in is was for on that with as by at from his her it an "
+    "were are which this be or has had not but first one their its new "
+    "after who they have two been other when there all during into school "
+    "time may years more most only over city some world would where later "
+    "up such used many can state about national out known university "
+    "united then made year people model serve token card weight port load "
+    "request stream prefix cache kernel page decode prefill layer head "
+    "attention batch memory host device first last quick brown fox jumps "
+    "lazy dog once upon story hello say tell").split()
+
+
+def _words(rng, n: int) -> list:
+    """Seeded English-like words: the common words, then syllable words."""
+    cons, vows = "bcdfghjklmnprstvwz", "aeiou"
+    out = list(COMMON_WORDS)
+    while len(out) < n:
+        out.append("".join(rng.choice(cons) + rng.choice(vows)
+                           for _ in range(rng.randint(1, 4))))
+    return out
+
+
+def llama3_tokenizer_json(seed: int, model_vocab: int, n_special: int):
+    """A synthetic Llama-3-style ``tokenizer.json``: the 256 ByteLevel byte
+    tokens, merges built from seeded words (each word's prefixes, with and
+    without a leading space) until the model vocab holds ``model_vocab``
+    entries, ``n_special`` added special tokens after it (Llama-3's
+    names), Llama-3's ``Split`` pattern, ``ByteLevel`` and
+    ``ignore_merges``. Returns (spec, words)."""
+    import random
+
+    from dynamo_tpu_torch.llm.tokenizer_json import BYTES_CHAR
+
+    rng = random.Random(seed)
+    vocab = {BYTES_CHAR[b]: b for b in range(256)}
+    merges = []
+    words = _words(rng, 4 * model_vocab)
+
+    def grow() -> None:
+        for w in words:
+            for form in ("Ġ" + w, w, "Ġ" + w.capitalize()):
+                for k in range(1, len(form)):
+                    if form[:k + 1] not in vocab:
+                        vocab[form[:k + 1]] = len(vocab)
+                        merges.append([form[:k], form[k]])
+                        if len(vocab) == model_vocab:
+                            return
+        raise AssertionError("too few words for the vocab")
+
+    grow()
+    names = ["<|begin_of_text|>", "<|end_of_text|>"] + [
+        f"<|reserved_special_token_{i}|>" for i in range(4)] + [
+        "<|start_header_id|>", "<|end_header_id|>",
+        "<|reserved_special_token_4|>", "<|eot_id|>"]
+    names += [f"<|reserved_special_token_{i}|>"
+              for i in range(5, 5 + n_special - len(names))]
+    added = [dict(id=model_vocab + i, content=c, single_word=False,
+                  lstrip=False, rstrip=False, normalized=False, special=True)
+             for i, c in enumerate(names)]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False,
+                  "trim_offsets": True, "use_regex": False}
+    spec = {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": added, "normalizer": None,
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT},
+                 "behavior": "Isolated", "invert": False}, byte_level]},
+            "post_processor": dict(byte_level, use_regex=True),
+            "decoder": dict(byte_level, use_regex=True),
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": None,
+                      "end_of_word_suffix": None, "fuse_unk": False,
+                      "byte_fallback": False, "ignore_merges": True,
+                      "vocab": vocab, "merges": merges}}
+    return spec, words
+
+
+def spm_vocab(seed: int, n: int) -> dict:
+    """GGUF metadata of a synthetic SPM vocab of ``n`` pieces: <unk>, <s>,
+    </s>, the 256 ``<0xNN>`` byte pieces, then seeded word pieces with and
+    without ``▁``, scored by rank."""
+    import random
+
+    rng = random.Random(seed)
+    pieces = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    types = [2, 3, 3] + [6] * 256
+    seen = set(pieces)
+    for w in _words(rng, 2 * n):
+        for p in ("▁" + w, w, w[:2], w[2:]):
+            if len(pieces) < n and p and p not in seen:
+                seen.add(p)
+                pieces.append(p)
+                types.append(1)
+        if len(pieces) >= n:
+            break
+    scores = [0.0] * 259 + [-1.0 - i / 1000.0 for i in range(n - 259)]
+    return {"tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": pieces,
+            "tokenizer.ggml.scores": scores,
+            "tokenizer.ggml.token_type": types,
+            "tokenizer.ggml.bos_token_id": 1,
+            "tokenizer.ggml.eos_token_id": 2,
+            "tokenizer.ggml.add_bos_token": True}
+
+
+class RssPeak:
+    """Peak growth of this process's resident set while the block runs,
+    sampled from /proc/self/status every 2 ms: anonymous memory (a host
+    copy of the model would show here), file-backed pages (the mapped
+    checkpoint) and shared memory, in bytes."""
+
+    FIELDS = ("VmRSS", "RssAnon", "RssFile", "RssShmem")
+
+    def _read(self) -> dict:
+        # a kernel may lack the split fields: only VmRSS is sure
+        out = {}
+        with open("/proc/self/status") as f:
+            for line in f:
+                k, _, v = line.partition(":")
+                if k in self.FIELDS:
+                    out[k] = int(v.split()[0]) * 1024
+        if "VmRSS" not in out:
+            raise AssertionError("/proc/self/status has no VmRSS")
+        return out
+
+    def __enter__(self):
+        self.start = self._read()
+        self.peak = dict(self.start)
+        self._stop = threading.Event()
+
+        def poll():
+            while not self._stop.wait(0.002):
+                for k, v in self._read().items():
+                    self.peak[k] = max(self.peak[k], v)
+        self._t = threading.Thread(target=poll, daemon=True)
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        for k, v in self._read().items():
+            self.peak[k] = max(self.peak[k], v)
+        self.growth = {k: self.peak[k] - self.start[k] for k in self.start}
+        return False
+
+
+@contextlib.contextmanager
+def measured_load(torch, module, name: str, out: dict):
+    """Wrap ``module.name`` (the engine's loader entry) to record its
+    seconds, to the device's completion, and its peak host RSS growth."""
+    orig = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            res = orig(*a, **kw)
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+            out["load_s"] = time.perf_counter() - t0
+        out["host_rss_growth_bytes"] = rss.growth
+        return res
+
+    setattr(module, name, wrapped)
+    try:
+        yield out
+    finally:
+        setattr(module, name, orig)
+
+
+def _leaf_bits(torch, t):
+    t = t.detach().to("cpu").contiguous()
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _same_bits(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(_leaf_bits(torch, a),
+                                              _leaf_bits(torch, b))
+
+
+def checkpoint_hf_case(torch, att, smi: str) -> dict:
+    """Llama-3-8B widths at 4 layers as a HF directory: random bf16 weights
+    from the seed in two shards (the port's writer), config, generation and
+    tokenizer configs, and a synthetic 128256-entry tokenizer.json; served
+    through ``cli.run --model-path``; leaves, prompt counts, launches and a
+    greedy stream checked against the written weights."""
+    import shutil
+
+    from dynamo_tpu_torch.engine import loader
+    from dynamo_tpu_torch.llm.preprocessor import Preprocessor
+    from dynamo_tpu_torch.llm.tokenizer import load_tokenizer
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.obs.flows import flow_ledger
+
+    d = os.path.join(CKPT_DIR, "llama3-8b-4l")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    hf = dict(architectures=["LlamaForCausalLM"], model_type="llama",
+              torch_dtype="bfloat16", bos_token_id=CKPT_HF["vocab_size"]
+              - CKPT_SPECIALS, eos_token_id=CKPT_EOS, **CKPT_HF)
+    cfg = llama.LlamaConfig.from_hf_config(hf)
+    dev = torch.device(DEVICE)
+    # the weights: the seeded init on the card, kept on the host as the
+    # tree to compare against
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(CKPT_SEED)
+    dev_tree = llama.init_params(cfg, gen, dev)
+    host = {k: (v.to("cpu") if k != "layers" else
+                {n: x.to("cpu") for n, x in v.items()})
+            for k, v in dev_tree.items()}
+    del dev_tree
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loader.save_llama_params(d, host, cfg, shards=2, dtype=None)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(hf, f)
+    with open(os.path.join(d, "generation_config.json"), "w") as f:
+        json.dump({"bos_token_id": hf["bos_token_id"],
+                   "eos_token_id": CKPT_EOS}, f)
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"chat_template": LLAMA3_TEMPLATE,
+                   "bos_token": "<|begin_of_text|>",
+                   "eos_token": "<|eot_id|>"}, f)
+    spec, words = llama3_tokenizer_json(
+        CKPT_SEED, CKPT_HF["vocab_size"] - CKPT_SPECIALS, CKPT_SPECIALS)
+    with open(os.path.join(d, "tokenizer.json"), "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    tok = load_tokenizer(d)
+    tok_load_ms = 1e3 * (time.perf_counter() - t0)
+    if tok.vocab_size != CKPT_HF["vocab_size"]:
+        raise AssertionError(f"tokenizer vocab {tok.vocab_size}")
+    # a ~1.5k-token prompt of seeded words
+    import random
+
+    rng = random.Random(CKPT_SEED)
+    parts, n = [], 0
+    while n < CKPT_LONG_TOKENS:
+        chunk = " ".join(rng.choice(words[:5000]) for _ in range(40))
+        parts.append(chunk.capitalize() + ".")
+        n = len(tok.encode(" ".join(parts)))
+    long_prompt = " ".join(parts)
+    t0 = time.perf_counter()
+    long_ids = tok.encode(long_prompt)
+    encode_ms = 1e3 * (time.perf_counter() - t0)
+
+    load: dict = {}
+    wp0 = flow_ledger().total_bytes("weight_prefetch")
+    argv = ["--model-path", d, "--extra-engine-args", json.dumps(CKPT_ENGINE)]
+    with measured_load(torch, loader, "load_llama_params", load), \
+            served(argv) as (core, loop, port, model, init_s, manager):
+        c = core.core
+        if c.cfg.model.num_layers != CKPT_HF["num_hidden_layers"] or \
+                c.cfg.model.vocab_size != CKPT_HF["vocab_size"]:
+            raise AssertionError(f"served model is not the checkpoint: "
+                                 f"{c.cfg.model}")
+        leaves = {
+            "embed": (c.params["embed"], host["embed"]),
+            "layers.wq[0]": (c.params["layers"]["wq"][0],
+                             host["layers"]["wq"][0]),
+            "layers.wd[3]": (c.params["layers"]["wd"][3],
+                             host["layers"]["wd"][3]),
+            "lm_head": (c.params["lm_head"], host["lm_head"]),
+        }
+        bitwise = {k: _same_bits(torch, a, b) for k, a, b in
+                   ((k, *v) for k, v in leaves.items())}
+        if not all(bitwise.values()):
+            raise AssertionError(f"loaded leaves differ: {bitwise}")
+        pre = Preprocessor(manager.get(model).card, tok)
+        msgs = {"chat": [{"role": "user", "content": "Say hello."}],
+                "chat_stream": [{"role": "user",
+                                 "content": "Tell a story."}]}
+        reqs = {
+            "completion": ("/v1/completions", {
+                "model": model, "prompt": "The quick brown fox",
+                "max_tokens": 32}),
+            "completion_stream": ("/v1/completions", {
+                "model": model, "prompt": "Once upon a time",
+                "max_tokens": 32, "stream": True, "logprobs": 1}),
+            "chat": ("/v1/chat/completions", {
+                "model": model, "max_tokens": 32,
+                "messages": msgs["chat"]}),
+            "chat_stream": ("/v1/chat/completions", {
+                "model": model, "max_tokens": 32, "stream": True,
+                "messages": msgs["chat_stream"]}),
+            "long_prompt": ("/v1/completions", {
+                "model": model, "prompt": long_prompt, "max_tokens": 16}),
+        }
+        b = burst(att, core, port, reqs, "checkpoint")
+        want = {"completion": len(tok.encode("The quick brown fox")),
+                "completion_stream": len(tok.encode("Once upon a time")),
+                "long_prompt": len(long_ids)}
+        for k, m in msgs.items():
+            want[k] = len(tok.encode(pre.render_chat(m)))
+        got = {k: r["usage"]["prompt_tokens"]
+               for k, r in b["results"].items()}
+        if got != want:
+            raise AssertionError(f"prompt_tokens {got} != the port's own "
+                                 f"encodings {want}")
+        rid = b["results"]["long_prompt"]["rid"]
+        status, body = http_get(port, f"/v1/traces/{rid}")
+        spans = {s["name"]: s for s in json.loads(body)["spans"]}
+        pre_ms = 1e3 * (spans["preprocess"]["end"]
+                        - spans["preprocess"]["start"])
+        # loading changed nothing: one greedy stream against an engine
+        # built from the same host tensors through params_from_jax
+        from dynamo_tpu_torch.engine.engine import TorchEngine
+
+        prompt = long_ids[:64]
+        loaded_toks, _, ttft, _ = _generate(core, loop, prompt)
+        direct = TorchEngine(c.cfg, params=llama.params_from_jax(
+            host, c.cfg.model, dev))
+        try:
+            direct_toks, _, _, _ = _generate(direct, loop, prompt)
+        finally:
+            direct.shutdown()
+        if loaded_toks != direct_toks:
+            raise AssertionError(f"loaded {loaded_toks} != direct "
+                                 f"{direct_toks}")
+        st = b["results"]["completion_stream"]
+    # the cold load's one weight_prefetch flow (obs/flows)
+    flow_bytes = flow_ledger().total_bytes("weight_prefetch") - wp0
+    if flow_bytes != _nbytes(host):
+        raise AssertionError(f"weight_prefetch flow {flow_bytes} bytes != "
+                             f"the tree's {_nbytes(host)}")
+    row = dict(phase="checkpoint", case="hf-dir", model="llama-3-8b",
+               layers=CKPT_HF["num_hidden_layers"], reduced="depth 32 -> 4",
+               shards=2, dtype="bf16", checkpoint_bytes=nbytes,
+               gen_s=gen_s, write_s=write_s, load_s=load["load_s"],
+               load_gb_s=nbytes / load["load_s"] / 1e9,
+               host_rss_growth_bytes=load["host_rss_growth_bytes"],
+               weight_prefetch_bytes=flow_bytes, engine_init_s=init_s,
+               tokenizer_load_ms=tok_load_ms,
+               long_prompt_tokens=len(long_ids), encode_ms=encode_ms,
+               preprocess_span_ms=pre_ms, bitwise_leaves=bitwise,
+               prompt_tokens=got, greedy_tokens=loaded_toks,
+               greedy_equal_direct=True, ttft_s=ttft,
+               stream_ttft_s=st["ttft_s"],
+               **{k: v for k, v in b.items() if k != "results"}, card=smi)
+    emit(row)
+    return row
+
+
+def checkpoint_gguf_case(torch, att, smi: str) -> dict:
+    """Mistral-7B widths at 1 layer as an F32 GGUF with an embedded SPM
+    vocab, served through ``cli.run --model-path m.gguf``."""
+    import shutil
+
+    from dynamo_tpu_torch.llm import gguf
+    from dynamo_tpu_torch.llm.tokenizer import load_tokenizer
+
+    d = os.path.join(CKPT_DIR, "mistral-7b-1l")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    path = os.path.join(d, "m.gguf")
+    g = CKPT_GGUF
+    D, V, F, L = (g["hidden_size"], g["vocab_size"], g["intermediate_size"],
+                  g["num_layers"])
+    q, kv = g["num_heads"] * g["head_dim"], g["num_kv_heads"] * g["head_dim"]
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(CKPT_SEED + 1)
+
+    def w(out_f, in_f):
+        return (torch.randn((out_f, in_f), generator=gen, device=dev)
+                / in_f ** 0.5).to("cpu")
+
+    t0 = time.perf_counter()
+    tensors = {"token_embd.weight": w(V, D), "output_norm.weight":
+               torch.ones(D), "output.weight": w(V, D)}
+    for i in range(L):
+        tensors.update({
+            f"blk.{i}.attn_norm.weight": torch.ones(D),
+            f"blk.{i}.ffn_norm.weight": torch.ones(D),
+            f"blk.{i}.attn_q.weight": w(q, D),
+            f"blk.{i}.attn_k.weight": w(kv, D),
+            f"blk.{i}.attn_v.weight": w(kv, D),
+            f"blk.{i}.attn_output.weight": w(D, q),
+            f"blk.{i}.ffn_gate.weight": w(F, D),
+            f"blk.{i}.ffn_up.weight": w(F, D),
+            f"blk.{i}.ffn_down.weight": w(D, F)})
+    gen_s = time.perf_counter() - t0
+    meta = {"general.architecture": "llama",
+            "llama.embedding_length": D, "llama.block_count": L,
+            "llama.attention.head_count": g["num_heads"],
+            "llama.attention.head_count_kv": g["num_kv_heads"],
+            "llama.attention.key_length": g["head_dim"],
+            "llama.feed_forward_length": F,
+            "llama.rope.freq_base": g["rope_theta"],
+            "llama.context_length": g["max_position"],
+            "llama.attention.layer_norm_rms_epsilon": 1e-5,
+            **spm_vocab(CKPT_SEED, V)}
+    t0 = time.perf_counter()
+    gguf.write_gguf(path, meta, tensors)
+    write_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    load: dict = {}
+    argv = ["--model-path", path, "--extra-engine-args",
+            json.dumps(CKPT_ENGINE)]
+    with measured_load(torch, gguf, "load_llama_params_gguf", load), \
+            served(argv) as (core, _, port, model, init_s, manager):
+        c = core.core
+        card = manager.get(model).card
+        if not card.tokenizer.startswith("gguf-sp:"):
+            raise AssertionError(f"GGUF card tokenizer {card.tokenizer}")
+        bf = torch.bfloat16
+        p = c.params
+        leaves = {
+            "embed": (p["embed"], tensors["token_embd.weight"].to(bf)),
+            "layers.wq[0]": (p["layers"]["wq"][0], tensors[
+                "blk.0.attn_q.weight"].to(bf).T.reshape(
+                D, g["num_heads"], g["head_dim"])),
+            "layers.wd[0]": (p["layers"]["wd"][0],
+                             tensors["blk.0.ffn_down.weight"].to(bf).T),
+            "lm_head": (p["lm_head"], tensors["output.weight"].to(bf).T),
+        }
+        bitwise = {k: _same_bits(torch, a, b) for k, (a, b) in
+                   leaves.items()}
+        if not all(bitwise.values()):
+            raise AssertionError(f"GGUF leaves differ: {bitwise}")
+        reqs = {
+            "completion": ("/v1/completions", {
+                "model": model, "prompt": "The quick brown fox jumps",
+                "max_tokens": 24}),
+            "chat_stream": ("/v1/chat/completions", {
+                "model": model, "max_tokens": 24, "stream": True,
+                "logprobs": 1,
+                "messages": [{"role": "user", "content": "Say hello."}]}),
+        }
+        b = burst(att, core, port, reqs, "checkpoint-gguf")
+        tok_ids = len(load_tokenizer(card.tokenizer).encode(
+            "The quick brown fox jumps"))
+        if b["results"]["completion"]["usage"]["prompt_tokens"] != tok_ids:
+            raise AssertionError("GGUF prompt tokens differ from the "
+                                 "port's own SPM encoding")
+    row = dict(phase="checkpoint", case="gguf", model="mistral-7b",
+               layers=L, reduced="depth 32 -> 1", dtype="f32 -> bf16",
+               checkpoint_bytes=nbytes, gen_s=gen_s, write_s=write_s,
+               load_s=load["load_s"],
+               load_gb_s=nbytes / load["load_s"] / 1e9,
+               host_rss_growth_bytes=load["host_rss_growth_bytes"],
+               engine_init_s=init_s, tokenizer=card.tokenizer.split(":")[0],
+               bitwise_leaves=bitwise,
+               **{k: v for k, v in b.items() if k != "results"}, card=smi)
+    emit(row)
+    return row
+
+
+def checkpoint_phase(torch, att, smi: str) -> dict:
+    hf = checkpoint_hf_case(torch, att, smi)
+    gg = checkpoint_gguf_case(torch, att, smi)
+    return dict(hf=hf, gguf=gg,
+                flash_launches=hf["flash_launches"] + gg["flash_launches"],
+                paged_launches=hf["paged_launches"] + gg["paged_launches"])
+
+
 def main() -> int:
     import torch
 
@@ -1333,6 +1829,7 @@ def main() -> int:
 
     serve, _ = serve_phase(torch, att, smi)
     default = serve_default_phase(torch, att, smi)
+    ckpt = checkpoint_phase(torch, att, smi)
 
     src = "dynamo_tpu_torch/ops/csrc/"
     kernels = [
@@ -1342,6 +1839,7 @@ def main() -> int:
              launches=serve["flash_launches"],
              reuse_launches=sum(r["flash_launches"]
                                 for r in serve["reuse"]["runs"]),
+             checkpoint_launches=ckpt["flash_launches"],
              max_abs_err=flash["max_abs_err"], ms=flash["ms"],
              plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
              bound_by=flash["bound_by"], bound_frac=flash["bound_frac"],
@@ -1353,6 +1851,7 @@ def main() -> int:
              launches=serve["paged_launches"], splits=paged["splits"],
              reuse_launches=sum(r["paged_launches"]
                                 for r in serve["reuse"]["runs"]),
+             checkpoint_launches=ckpt["paged_launches"],
              max_abs_err=paged["max_abs_err"], ms=paged["ms"],
              plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
              bound_by=paged["bound_by"], bound_frac=paged["bound_frac"],

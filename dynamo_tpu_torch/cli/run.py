@@ -6,7 +6,10 @@ Output modes: torch | echo_full
 ``out=torch`` serves a Llama-family model on the torch engine, on the card
 unless ``--device cpu`` is given; ``--extra-engine-args`` takes the engine
 config as JSON (inline, or a file path), e.g. ``{"preset": "llama-3-8b"}``.
-Weights are random, made from the engine seed.
+``--model-path`` names a HF-style directory (``config.json``,
+``*.safetensors``, ``tokenizer.json``), a ``.gguf`` file, or an ``org/name``
+repo id already in the local HF cache; without a checkpoint the weights
+are random, made from the engine seed.
 
 Reference capability: launch/dynamo-run (lib.rs:53-456, opt.rs, flags.rs,
 input/{http,text,batch}.rs) — the in=X out=Y matrix, model flags, and the
@@ -34,8 +37,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("positional", nargs="*",
                    help="in=<mode> out=<engine> (order-free)")
     p.add_argument("--model-path", default=None,
-                   help="local model directory; its config.json sizes the "
-                        "model")
+                   help="model directory, .gguf file, or org/name repo id "
+                        "in the local HF cache")
     p.add_argument("--model-name", default=None)
     p.add_argument("--http-port", type=int, default=8080)
     p.add_argument("--http-host", default="0.0.0.0")
@@ -64,8 +67,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def make_card(args) -> ModelDeploymentCard:
     if args.model_path:
-        card = ModelDeploymentCard.from_local_path(args.model_path,
-                                                   args.model_name)
+        card = ModelDeploymentCard.resolve(args.model_path, args.model_name)
     else:
         card = ModelDeploymentCard.synthetic(args.model_name or args.output)
     if args.context_length:

@@ -85,7 +85,7 @@ log = logging.getLogger("dynamo_tpu_torch.engine")
 # JAX engine options this engine does not implement yet: asking for one
 # raises instead of silently serving a different engine
 _NOT_PORTED = frozenset({
-    "tp", "sp", "ep", "pp", "prefill_lanes", "params_path", "attn_impl",
+    "tp", "sp", "ep", "pp", "prefill_lanes", "attn_impl",
     "warmup", "cluster_writethrough", "spec", "spec_k", "spec_draft",
     "kvpage_budget", "kvpage_seg_pages", "kvpage_prefetch",
     "kvpage_max_context", "kvpage_batch"})
@@ -103,6 +103,9 @@ class TorchEngineConfig:
     seed: int = 0
     preset: Optional[str] = None
     device: str = "cuda"
+    # safetensors dir or GGUF file to load (None or no weights there:
+    # random weights from the seed)
+    params_path: Optional[str] = None
     # KV block manager: prefix reuse + tiered offload
     enable_prefix_reuse: bool = True
     host_cache_blocks: int = 0          # host-DRAM KV tier capacity (0 = off)
@@ -112,19 +115,37 @@ class TorchEngineConfig:
     @classmethod
     def from_card(cls, card: ModelDeploymentCard,
                   **extra) -> "TorchEngineConfig":
-        if card.path and (glob.glob(os.path.join(card.path, "*.safetensors"))
-                          or str(card.path).endswith(".gguf")):
-            raise NotImplementedError(
-                f"{card.path}: checkpoint loading is not ported to torch yet "
-                f"(weights are random, from the seed)")
+        gguf = _gguf_file(card.path) if card.path else None
         if card.model_config:
+            moe = [k for k in ("num_local_experts", "num_experts")
+                   if card.model_config.get(k)]
+            if moe:
+                raise NotImplementedError(
+                    f"{card.path}: MoE model ({moe[0]}="
+                    f"{card.model_config[moe[0]]}); MoE is not ported to "
+                    f"torch yet")
             mcfg = llama.LlamaConfig.from_hf_config(card.model_config)
         elif extra.get("preset"):
             mcfg = llama.preset(extra["preset"])
+        elif gguf:
+            # GGUF cards carry no HF config dict — the model shape lives in
+            # the container metadata; sizing from a preset here would build
+            # sampler state (penalty counts) at the wrong vocab width
+            from ..llm.gguf import read_gguf
+
+            g = read_gguf(gguf)
+            try:
+                if g.metadata.get(f"{g.architecture()}.expert_count"):
+                    raise NotImplementedError(
+                        f"{gguf}: MoE model; MoE is not ported to torch yet")
+                mcfg = g.llama_config()
+            finally:
+                g.close()
         else:
             mcfg = llama.preset("tiny-byte")
-        kw: Dict[str, Any] = dict(model=mcfg, page_size=card.kv_block_size)
-        names = {f.name for f in fields(cls)} - {"model"}
+        kw: Dict[str, Any] = dict(model=mcfg, page_size=card.kv_block_size,
+                                  params_path=card.path)
+        names = {f.name for f in fields(cls)} - {"model", "params_path"}
         for k, v in extra.items():
             if k in names:
                 kw[k] = v
@@ -137,6 +158,20 @@ class TorchEngineConfig:
         cfg = cls(**kw)
         cfg.max_context = min(cfg.max_context, card.context_length)
         return cfg
+
+
+def _has_safetensors(path: str) -> bool:
+    return os.path.isdir(path) and bool(
+        glob.glob(os.path.join(path, "*.safetensors")))
+
+
+def _gguf_file(path: str) -> Optional[str]:
+    """The GGUF weights file for ``path``: the file itself or the first
+    *.gguf inside the directory."""
+    if os.path.isfile(path) and path.endswith(".gguf"):
+        return path
+    hits = sorted(glob.glob(os.path.join(path, "*.gguf")))
+    return hits[0] if hits else None
 
 
 @dataclass
@@ -180,7 +215,10 @@ class EngineCore:
 
     ``params`` (the tree of :func:`~dynamo_tpu_torch.models.llama.
     init_params`, on the engine's device) replaces the seeded random init,
-    e.g. with weights converted by ``params_from_jax``.
+    e.g. with weights converted by ``params_from_jax``. Without it the
+    weights come from ``cfg.params_path`` when that holds a checkpoint (a
+    directory of ``*.safetensors``, or a GGUF file), placed leaf by leaf
+    through pinned staging (``engine/loader.py``), else from the seed.
     """
 
     def __init__(self, cfg: TorchEngineConfig,
@@ -202,7 +240,18 @@ class EngineCore:
                                       + 1)
         self.pool = PagePool(num_pages, cfg.page_size)
         with torch.no_grad():
-            if params is None:
+            if params is None and cfg.params_path and _has_safetensors(
+                    cfg.params_path):
+                from .loader import load_llama_params
+
+                params = load_llama_params(cfg.params_path, m, self.device)
+            elif params is None and cfg.params_path and (
+                    gguf := _gguf_file(cfg.params_path)):
+                from ..llm.gguf import load_llama_params_gguf
+
+                _, params = load_llama_params_gguf(
+                    gguf, cfg=m, device=self.device, dtype=m.dtype)
+            elif params is None:
                 gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
                 params = llama.init_params(m, gen, self.device)
             self.params = params

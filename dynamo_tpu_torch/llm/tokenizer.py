@@ -1,8 +1,15 @@
 """Tokenizer abstraction: encode/decode + streaming incremental detokenization.
 
-Backend: :class:`ByteTokenizer` — self-contained byte-level tokenizer (vocab =
-256 bytes + specials). Lets the whole stack run hermetically with no
-downloaded artifacts; also the fixture tokenizer for tests.
+Backends:
+- :class:`HfTokenizer` — a HuggingFace ``tokenizer.json`` from a *local*
+  directory, read by :mod:`.tokenizer_json` (the port's own reader: the
+  ``tokenizers`` and ``transformers`` libraries are not needed).
+- :class:`ByteTokenizer` — self-contained byte-level tokenizer (vocab = 256
+  bytes + specials). Lets the whole stack run hermetically with no
+  downloaded artifacts; also the fixture tokenizer for tests.
+- ``gguf-sp:`` / ``gguf-bpe:`` kinds of :func:`load_tokenizer` — the
+  SentencePiece and byte-level BPE vocabularies a GGUF file embeds
+  (:mod:`.sp_tokenizer`, :mod:`.bpe_tokenizer`).
 
 Streaming pieces:
 - :class:`DecodeStream` — incremental detokenization that never emits a torn
@@ -16,6 +23,8 @@ DecodeStream, StopSequenceDecoder) and backend.rs stop handling.
 
 from __future__ import annotations
 
+import json
+import os
 from typing import List, Optional, Protocol, Sequence, Tuple
 
 
@@ -62,15 +71,99 @@ class ByteTokenizer:
         return 259
 
 
+class HfTokenizer:
+    """HuggingFace tokenizer loaded from a *local* directory's
+    ``tokenizer.json`` (offline-only). Encodes without adding special
+    tokens and decodes without skipping them, as the JAX package's
+    ``HfTokenizer`` calls ``tokenizers``."""
+
+    def __init__(self, path: str):
+        from .tokenizer_json import TokenizerJson
+
+        tok_json = os.path.join(path, "tokenizer.json")
+        if not os.path.exists(tok_json):
+            # a slow-only tokenizer (tokenizer.model, vocab.json +
+            # merges.txt) needs transformers, which the port does without
+            raise NotImplementedError(
+                f"{path} has no tokenizer.json; the torch port reads fast "
+                f"tokenizers only (export one with transformers' "
+                f"save_pretrained)")
+        self._tok = TokenizerJson.from_file(tok_json)
+        self._eos_ids, self._bos_id = _special_ids_from_config(path, self)
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok.encode(text)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode(ids)
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        return self._tok.token_to_id(token)
+
+    @property
+    def eos_token_ids(self) -> List[int]:
+        return self._eos_ids
+
+    @property
+    def bos_token_id(self) -> Optional[int]:
+        return self._bos_id
+
+    @property
+    def vocab_size(self) -> int:
+        return self._tok.get_vocab_size()
+
+
+def _special_ids_from_config(path: str, tok: "HfTokenizer"
+                             ) -> Tuple[List[int], Optional[int]]:
+    eos_ids: List[int] = []
+    bos_id: Optional[int] = None
+    # generation_config.json may carry a list of eos ids; tokenizer_config the names
+    gc = os.path.join(path, "generation_config.json")
+    if os.path.exists(gc):
+        with open(gc) as f:
+            g = json.load(f)
+        e = g.get("eos_token_id")
+        if isinstance(e, list):
+            eos_ids = [int(x) for x in e]
+        elif e is not None:
+            eos_ids = [int(e)]
+        if g.get("bos_token_id") is not None:
+            bos_id = int(g["bos_token_id"])
+    tc = os.path.join(path, "tokenizer_config.json")
+    if os.path.exists(tc):
+        with open(tc) as f:
+            c = json.load(f)
+
+        def _name(v):
+            return v.get("content") if isinstance(v, dict) else v
+
+        if not eos_ids and c.get("eos_token"):
+            i = tok.token_to_id(_name(c["eos_token"]))
+            if i is not None:
+                eos_ids = [i]
+        if bos_id is None and c.get("bos_token"):
+            i = tok.token_to_id(_name(c["bos_token"]))
+            if i is not None:
+                bos_id = i
+    return eos_ids, bos_id
+
+
 def load_tokenizer(path_or_kind: str) -> Tokenizer:
-    """``"byte"`` -> :class:`ByteTokenizer`. HuggingFace, GGUF-embedded
-    SentencePiece and byte-level BPE tokenizers are not ported yet: asking
-    for one raises instead of serving through the wrong vocabulary."""
+    """``"byte"`` → ByteTokenizer; ``"gguf-sp:<file.gguf>"`` → the native
+    SentencePiece tokenizer built from the GGUF's embedded SPM vocab;
+    ``"gguf-bpe:<file.gguf>"`` → the native byte-level BPE tokenizer from
+    the GGUF's tokens+merges; otherwise a local HF tokenizer directory."""
     if path_or_kind == "byte":
         return ByteTokenizer()
-    raise NotImplementedError(
-        f"tokenizer {path_or_kind!r}: only the byte tokenizer is available "
-        f"in the torch port so far")
+    if path_or_kind.startswith("gguf-sp:"):
+        from .sp_tokenizer import SpTokenizer
+
+        return SpTokenizer.from_gguf(path_or_kind[len("gguf-sp:"):])
+    if path_or_kind.startswith("gguf-bpe:"):
+        from .bpe_tokenizer import BpeTokenizer
+
+        return BpeTokenizer.from_gguf(path_or_kind[len("gguf-bpe:"):])
+    return HfTokenizer(path_or_kind)
 
 
 class DecodeStream:

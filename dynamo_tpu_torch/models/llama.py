@@ -438,7 +438,9 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     return params
 
 
-def _to_torch(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def _to_torch(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:
         a = a.copy()   # torch.from_numpy shares memory, and needs it writable
@@ -449,33 +451,49 @@ def _to_torch(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(np_tree: Dict[str, Any], cfg: LlamaConfig,
-                    device: torch.device) -> Dict[str, Any]:
-    """The JAX package's parameter tree (its leaves as numpy arrays) -> the
-    port's, on ``device``. Names and shapes are identical; every leaf is
-    checked against :func:`param_shapes`."""
-    _require_servable(cfg)
+def check_params(tree: Dict[str, Any], cfg: LlamaConfig) -> None:
+    """The tree has exactly :func:`param_shapes`' leaves, at those shapes."""
     shapes = param_shapes(cfg)
-    out: Dict[str, Any] = {}
+    missing = ({n for n in shapes if n != "layers"} - set(tree)) | {
+        f"layers.{n}" for n in set(shapes["layers"])
+        - set(tree.get("layers", {}))}
+    if missing:
+        raise ValueError(f"missing leaves {sorted(missing)}")
+    extra = (set(tree) - set(shapes)) | (
+        set(tree["layers"]) - set(shapes["layers"]))
+    if extra:
+        raise ValueError(f"unexpected leaves {sorted(extra)}")
     for name, shape in shapes.items():
         if name == "layers":
-            continue
-        out[name] = _to_torch(np.asarray(np_tree[name]), device)
-    out["layers"] = {n: _to_torch(np.asarray(np_tree["layers"][n]), device)
-                     for n in shapes["layers"]}
+            for n, s in shape.items():
+                if tuple(tree["layers"][n].shape) != s:
+                    raise ValueError(f"layers.{n}: shape "
+                                     f"{tuple(tree['layers'][n].shape)} != {s}")
+        elif tuple(tree[name].shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(tree[name].shape)} != "
+                             f"{shape}")
+
+
+def params_from_jax(np_tree: Dict[str, Any], cfg: LlamaConfig,
+                    device: torch.device) -> Dict[str, Any]:
+    """The JAX package's parameter tree (its leaves as numpy arrays, or CPU
+    torch tensors where numpy has no dtype for them) -> the port's, on
+    ``device``. Names and shapes are identical; every leaf is checked
+    against :func:`param_shapes`."""
+    _require_servable(cfg)
+    shapes = param_shapes(cfg)
     extra = (set(np_tree) - set(shapes)) | (
         set(np_tree["layers"]) - set(shapes["layers"]))
     if extra:
         raise ValueError(f"params_from_jax: unexpected leaves {sorted(extra)}")
-    for name, shape in shapes.items():
+    out: Dict[str, Any] = {}
+    for name in shapes:
         if name == "layers":
-            for n, s in shape.items():
-                if tuple(out["layers"][n].shape) != s:
-                    raise ValueError(f"layers.{n}: shape "
-                                     f"{tuple(out['layers'][n].shape)} != {s}")
-        elif tuple(out[name].shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(out[name].shape)} != "
-                             f"{shape}")
+            continue
+        out[name] = _to_torch(np_tree[name], device)
+    out["layers"] = {n: _to_torch(np_tree["layers"][n], device)
+                     for n in shapes["layers"]}
+    check_params(out, cfg)
     return out
 
 

@@ -22,6 +22,7 @@ import torch
 from dynamo_tpu_torch.ops import attention as tatt
 
 TOL = 2e-2
+CPU = torch.device("cpu")
 
 
 def _card():
@@ -415,3 +416,104 @@ def test_chained_decode_enqueue_does_not_sync():
             break
     assert got["a"] + got["b"] > 0 and not core.has_work
     assert core.pool.free_pages == core.pool.num_pages - 1
+
+
+# ---------------------------------------------------------------------------
+# checkpoints loaded onto the card
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    t = t.detach().cpu().contiguous()
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+@pytest.mark.cuda
+def test_safetensors_checkpoint_loads_bitwise_and_serves(tmp_path):
+    """A tiny bf16 safetensors directory (two shards, written by the port)
+    placed on the card leaf by leaf: every leaf equals the written tree bit
+    for bit, and the engine built from the directory serves through both
+    kernels."""
+    from dynamo_tpu_torch.engine import loader
+    from dynamo_tpu_torch.models import llama
+
+    _card()
+    cfg = llama.preset("tiny-byte", tie_embeddings=False)
+    host = llama.init_params(cfg, torch.Generator().manual_seed(3), CPU)
+    loader.save_llama_params(str(tmp_path), host, cfg, shards=2, dtype=None)
+    core = _tiny_core(model=cfg, params_path=str(tmp_path))
+    got = core.params
+    for name in ("embed", "final_norm", "lm_head"):
+        assert got[name].is_cuda
+        assert torch.equal(_bits(got[name]), _bits(host[name])), name
+    for name, leaf in host["layers"].items():
+        assert torch.equal(_bits(got["layers"][name]), _bits(leaf)), name
+    tatt.flash_attention.launches = tatt.paged_attention.launches = 0
+    _submit(core, "a", list(range(1, 70)), 12)
+    toks = []
+    for _ in range(50):
+        toks += [so.token for so in core.step()]
+        if not core.has_work:
+            break
+    assert len(toks) == 12
+    assert tatt.flash_attention.launches == (
+        cfg.num_layers * core.prefill_dispatches) > 0
+    assert tatt.paged_attention.launches == (
+        cfg.num_layers * core.decode_steps_run) > 0
+
+
+@pytest.mark.cuda
+def test_from_card_sizes_a_gguf_and_loads_it(tmp_path):
+    """``from_card`` on a GGUF file builds the model its metadata names;
+    the engine loads its F32 tensors as bf16 leaves, equal to torch's cast
+    of the written values."""
+    from dynamo_tpu_torch.engine.engine import EngineCore, TorchEngineConfig
+    from dynamo_tpu_torch.llm.gguf import write_gguf
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+    _card()
+    D, Hq, Hkv, Dh, F, V = 64, 4, 2, 16, 128, 300
+    g = torch.Generator().manual_seed(4)
+
+    def w(*shape):
+        return torch.randn(shape, generator=g)
+
+    tensors = {"token_embd.weight": w(V, D), "output_norm.weight": w(D),
+               "output.weight": w(V, D)}
+    for i in range(2):
+        tensors.update({
+            f"blk.{i}.attn_norm.weight": w(D), f"blk.{i}.ffn_norm.weight":
+            w(D), f"blk.{i}.attn_q.weight": w(Hq * Dh, D),
+            f"blk.{i}.attn_k.weight": w(Hkv * Dh, D),
+            f"blk.{i}.attn_v.weight": w(Hkv * Dh, D),
+            f"blk.{i}.attn_output.weight": w(D, Hq * Dh),
+            f"blk.{i}.ffn_gate.weight": w(F, D),
+            f"blk.{i}.ffn_up.weight": w(F, D),
+            f"blk.{i}.ffn_down.weight": w(D, F)})
+    path = str(tmp_path / "m.gguf")
+    write_gguf(path, {
+        "general.architecture": "llama", "llama.embedding_length": D,
+        "llama.block_count": 2, "llama.attention.head_count": Hq,
+        "llama.attention.head_count_kv": Hkv,
+        "llama.attention.key_length": Dh, "llama.feed_forward_length": F,
+        "llama.context_length": 512, "llama.vocab_size": V,
+        "llama.rope.freq_base": 10000.0,
+        "tokenizer.ggml.model": "dynamo-byte"}, tensors)
+    cfg = TorchEngineConfig.from_card(ModelDeploymentCard.resolve(path),
+                                      max_batch=2, max_context=256)
+    m = cfg.model
+    assert (m.hidden_size, m.num_heads, m.num_kv_heads, m.head_dim,
+            m.intermediate_size, m.vocab_size, m.num_layers,
+            m.tie_embeddings, m.dtype) == (D, Hq, Hkv, Dh, F, V, 2, False,
+                                           torch.bfloat16)
+    assert cfg.device == "cuda" and cfg.params_path == path
+    core = EngineCore(cfg)
+    bf = torch.bfloat16
+    p = core.params
+    assert torch.equal(_bits(p["embed"]),
+                       _bits(tensors["token_embd.weight"].to(bf)))
+    assert torch.equal(_bits(p["lm_head"]),
+                       _bits(tensors["output.weight"].to(bf).T))
+    assert torch.equal(_bits(p["layers"]["wq"][1]), _bits(
+        tensors["blk.1.attn_q.weight"].to(bf).T.reshape(D, Hq, Dh)))
+    assert torch.equal(_bits(p["layers"]["ln2"][0]),
+                       _bits(tensors["blk.0.ffn_norm.weight"]))
