@@ -75,6 +75,24 @@ with a traceback and prints no result:
                for every dispatch, and a greedy stream equals an engine
                built from the same host tensors. Write, load (s, GB/s,
                host RSS growth), tokenizer load, encode and TTFT.
+10. fleet    — the distributed runtime, each piece a process of the
+               port's own (``python -m dynamo_tpu_torch...``): the store,
+               two workers serving Llama-3-8B on this card (full width and
+               depth, the serve phase's engine arguments, random weights
+               from the same seed), the KV-aware router and the discovery
+               frontend. A seeded 1024-token prefix A, then four requests
+               sharing it: each goes to A's worker with 16+ overlap blocks
+               and 1024+ prefix-hit tokens; prefix-B requests sent while
+               A's worker is busy go to the other one by load; request A's
+               trace holds spans of the frontend, router and worker
+               processes; ``/metrics`` shows both workers' stage dumps,
+               whose dispatch and kernel-launch counters account for each
+               other (both kernels launched in both workers); SIGTERM on
+               one worker exits 0, removes its keys, and the next four
+               requests answer from the other. Fleet and in-process TTFT
+               and gap between tokens of one lone stream, the route span,
+               the codec's µs a frame, the data plane's µs an item, each
+               worker's ForwardPassMetrics and peak device memory.
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2.
@@ -326,6 +344,7 @@ def http_post(port: int, path: str, body: dict, results: dict, key: str):
         rid = resp.headers.get("x-request-id")
         if body.get("stream"):
             chunks, stamps, done = [], [], False
+            text, tokens = [], []
             for raw in resp:
                 line = raw.decode().strip()
                 if not line.startswith("data:"):
@@ -336,11 +355,17 @@ def http_post(port: int, path: str, body: dict, results: dict, key: str):
                     continue
                 stamps.append(time.perf_counter() - t0)
                 chunks.append(json.loads(data))
+                for c in chunks[-1]["choices"]:
+                    text.append(c.get("text")
+                                or (c.get("delta") or {}).get("content")
+                                or "")
+                    tokens += (c.get("logprobs") or {}).get("tokens") or []
             last = chunks[-1]
             results[key] = dict(status=status, done=done, chunks=len(chunks),
                                 rid=rid, usage=last.get("usage"),
                                 finish=last["choices"][0].get("finish_reason"),
-                                ttft_s=stamps[0], last_s=stamps[-1])
+                                ttft_s=stamps[0], last_s=stamps[-1],
+                                text="".join(text), tokens=tokens)
         else:
             out = json.loads(resp.read())
             results[key] = dict(status=status, rid=rid,
@@ -456,7 +481,55 @@ def burst(att, core, port: int, reqs: dict, tag: str) -> dict:
                 results=results)
 
 
+LONE_STREAM = {"prompt": "Once upon a time", "max_tokens": 64,
+               "stream": True, "logprobs": 1, "temperature": 0.0}
+
+
+def lone_stream(port: int) -> dict:
+    """One greedy streamed request alone on the server (one chunk a
+    token): its TTFT, mean gap between tokens, and what it streamed (text
+    and token strings). The fleet phase sends the same request through the
+    frontend, router and a worker process and holds the stream to this
+    one."""
+    res: dict = {}
+    http_post(port, "/v1/completions", dict(LONE_STREAM, model=PRESET),
+              res, "s")
+    st = res["s"]
+    if st["status"] != 200 or st["chunks"] < 2 \
+            or len(st["tokens"]) != st["usage"]["completion_tokens"]:
+        raise AssertionError(f"lone stream failed: {st}")
+    return dict(ttft_s=st["ttft_s"], chunks=st["chunks"],
+                itl_ms=1e3 * (st["last_s"] - st["ttft_s"])
+                / (st["chunks"] - 1), text=st["text"], tokens=st["tokens"])
+
+
+GREEDY_SEED, GREEDY_PROMPT, GREEDY_TOKENS = 4242, 40, 32
+
+
+async def greedy_ids(engine) -> list:
+    """The token ids a core engine (in process, or remote through the
+    router and the data plane) streams for one seeded greedy request."""
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    rng = np.random.default_rng(GREEDY_SEED)
+    bi = BackendInput(token_ids=[int(t) for t in
+                                 rng.integers(1, 256, GREEDY_PROMPT)],
+                      stop=StopConditions(max_tokens=GREEDY_TOKENS,
+                                          ignore_eos=True))
+    ids: list = []
+    async for out in engine.generate(bi, Context()):
+        ids += out.token_ids
+    if len(ids) != GREEDY_TOKENS:
+        raise AssertionError(f"greedy request streamed {len(ids)} tokens")
+    return ids
+
+
 def serve_phase(torch, att, smi: str):
+    import asyncio
     import shutil
 
     argv = ["--model-name", PRESET,
@@ -529,6 +602,9 @@ def serve_phase(torch, att, smi: str):
         row["reuse"] = reuse_phase(torch, att, core, loop)
         row["tiers"] = tier_gauge_check(core, port)
         row["chain"] = chain_sync_phase(torch, c)
+        row["lone_stream"] = lone_stream(port)
+        row["lone_stream"]["greedy_ids"] = asyncio.run_coroutine_threadsafe(
+            greedy_ids(core), loop).result(600)
         launch["after_phases"] = launch_us(torch)
         # read the trace only now: loading it builds millions of Python
         # objects, which must not overlap a timed phase
@@ -1779,6 +1855,503 @@ def checkpoint_phase(torch, att, smi: str) -> dict:
                 paged_launches=hf["paged_launches"] + gg["paged_launches"])
 
 
+# ---------------------------------------------------------------------------
+# the fleet: the port's store, two torch workers, router and frontend
+# ---------------------------------------------------------------------------
+
+FLEET_DIR = os.path.join(ROOT, "build", "dynamo_tpu_torch", "fleet")
+FLEET_PREFIX_TOKENS, FLEET_SUFFIX_TOKENS, FLEET_SEED = 1024, 64, 1024
+FLEET_START_S = 600          # the slowest start: two 8B workers at once
+FLEET_METRICS_S = 0.25       # the workers' metrics interval
+FLEET_LONG_TOKENS = 384      # keeps A's worker busy while B is routed
+
+
+class Fleet:
+    """Child processes of the port's own entry points
+    (``python -m dynamo_tpu_torch...``), each logging to a file under
+    ``FLEET_DIR``. Never forks: every child is a fresh interpreter. ``stop``
+    kills whatever is still running."""
+
+    def __init__(self):
+        os.makedirs(FLEET_DIR, exist_ok=True)
+        self.procs: dict = {}
+        self.env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1")
+
+    def start(self, name: str, module: str, *args: str):
+        log = open(os.path.join(FLEET_DIR, f"{name}.log"), "w")
+        proc = subprocess.Popen([sys.executable, "-m", module, *args],
+                                stdout=log, stderr=subprocess.STDOUT,
+                                cwd=ROOT, env=self.env,
+                                start_new_session=True)
+        self.procs[name] = (proc, log)
+        return proc
+
+    def log(self, name: str) -> str:
+        with open(os.path.join(FLEET_DIR, f"{name}.log")) as f:
+            return f.read()
+
+    def wait_line(self, name: str, pattern: str, timeout: float) -> str:
+        """The first log line of ``name`` matching ``pattern`` (a regex);
+        fails if the process exits or the line is not there in time."""
+        import re
+
+        proc = self.procs[name][0]
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            m = re.search(pattern, self.log(name))
+            if m:
+                return m.group(0)
+            if proc.poll() is not None:
+                raise AssertionError(f"fleet {name} exited {proc.returncode}"
+                                     f":\n{self.log(name)[-3000:]}")
+            time.sleep(0.1)
+        raise AssertionError(f"fleet {name}: no {pattern!r} in {timeout} s:"
+                             f"\n{self.log(name)[-3000:]}")
+
+    def stop(self) -> None:
+        for name, (proc, log) in self.procs.items():
+            if proc.poll() is None:
+                proc.terminate()
+        for name, (proc, log) in self.procs.items():
+            try:
+                proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=20)
+            log.close()
+
+
+def _fleet_stage(port: int) -> dict:
+    """The frontend's ``/metrics`` samples of the workers' stage dumps
+    (``component="backend"``)."""
+    return {k: v for k, v in scrape(port).items()
+            if 'component="backend"' in k}
+
+
+def _per_worker(sc: dict, name: str, label: str = "") -> dict:
+    """{worker hex: {label value: sample}} of a worker-labelled series
+    (label value "" for a series with no label but ``worker``)."""
+    import re
+
+    out: dict = {}
+    for key, val in sc.items():
+        if key.startswith(name + "{"):
+            w = re.search(r'worker="([0-9a-f]+)"', key).group(1)
+            lv = re.search(label + r'="([^"]+)"', key) if label else None
+            out.setdefault(w, {})[lv.group(1) if lv else ""] = val
+    return out
+
+
+async def _fleet_async(fleet: Fleet, store_port: int, http_port: int,
+                       smi: str) -> dict:
+    import asyncio
+
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.kv_router.indexer import KvIndexer
+    from dynamo_tpu_torch.llm.kv_router.protocols import (KV_EVENT_SUBJECT,
+                                                          RouterEvent)
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       EngineOutput,
+                                                       StopConditions)
+    from dynamo_tpu_torch.llm.remote import RemoteCoreEngine
+    from dynamo_tpu_torch.runtime import _msgpack, wire
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    page = ENGINE_ARGS["page_size"]
+    drt = await DistributedRuntime(store_port=store_port).connect()
+    try:
+        backend = drt.namespace("dynamo").component("backend")
+        workers = await backend.endpoint("generate").client().start()
+        await workers.wait_for_instances(2, timeout=60)
+        router = await drt.namespace("dynamo").component("router") \
+            .endpoint("route").client().start()
+        await router.wait_for_instances(1, timeout=60)
+        # the router's view of the KV events, rebuilt here from the same
+        # subject it subscribes to
+        index = KvIndexer(page)
+
+        async def on_event(payload):
+            index.apply_sync(RouterEvent.from_dict(payload))
+
+        await backend.subscribe(KV_EVENT_SUBJECT, on_event)
+
+        async def post(body, path="/v1/completions"):
+            res: dict = {}
+            await asyncio.to_thread(http_post, http_port, path, body, res,
+                                    "r")
+            return res["r"]
+
+        async def decisions():
+            st, raw = await asyncio.to_thread(http_get, http_port,
+                                              "/v1/router/decisions")
+            if st != 200:
+                raise AssertionError(f"/v1/router/decisions answered {st}")
+            d = json.loads(raw)
+            return d.get("decisions", d)
+
+        async def metrics_of(wid):
+            raw = await drt.store.get(f"metrics/dynamo/backend/{wid:x}")
+            return json.loads(raw.decode())
+
+        sc0 = await asyncio.to_thread(_fleet_stage, http_port)
+        # warm-up: one request per worker, then a lone stream timed
+        # through the fleet (frontend -> router -> worker)
+        for i in range(2):
+            await post({"model": PRESET, "prompt": f"warm up {i}",
+                        "max_tokens": 4})
+        lone = await asyncio.to_thread(lone_stream, http_port)
+        engine = RemoteCoreEngine(workers, router, model_name=PRESET)
+        lone["greedy_ids"] = await greedy_ids(engine)
+
+        # 1. prefix A, then four requests sharing it
+        rng = np.random.default_rng(FLEET_SEED)
+        letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ", np.uint8)
+        a_text = bytes(rng.choice(letters, FLEET_PREFIX_TOKENS)).decode()
+        a_tokens = list(a_text.encode())
+        n_blocks = FLEET_PREFIX_TOKENS // page
+        ra = await post({"model": PRESET, "prompt": a_text,
+                         "max_tokens": 8})
+        dec = await decisions()
+        wa = dec[-1]["worker_id"]
+        (wb,) = set(workers.instances) - {wa}
+        t0 = time.monotonic()
+        while index.find_matches_for_tokens(a_tokens).scores.get(wa, 0) \
+                < n_blocks:
+            if time.monotonic() - t0 > 30:
+                raise AssertionError("prefix A's KV events did not arrive")
+            await asyncio.sleep(0.02)
+        events_s = time.monotonic() - t0
+        await asyncio.sleep(0.2)
+        hits, shared = [], []
+        n0 = len(await decisions())
+        for i in range(4):
+            suffix = bytes(rng.choice(letters, FLEET_SUFFIX_TOKENS)).decode()
+            bi = BackendInput(token_ids=a_tokens + list(suffix.encode()),
+                              stop=StopConditions(max_tokens=8,
+                                                  ignore_eos=True))
+            hit, n_tok = None, 0
+            async for out in engine.generate(bi, Context()):
+                if hit is None and out.kv_prefix_hit_tokens is not None:
+                    hit = out.kv_prefix_hit_tokens
+                n_tok += len(out.token_ids)
+            hits.append(hit)
+            shared.append(n_tok)
+        dec = await decisions()
+        shared_dec = dec[n0:]
+        bad = [d for d in shared_dec if d["worker_id"] != wa
+               or d["overlap_blocks"] < n_blocks]
+        if len(shared_dec) != 4 or bad or shared != [8] * 4 \
+                or any(h is None or h < FLEET_PREFIX_TOKENS for h in hits):
+            raise AssertionError(
+                f"prefix-A requests not routed by overlap: hits {hits}, "
+                f"tokens {shared}, decisions {shared_dec}")
+
+        # 2. prefix B while A's worker is busy: placed by load
+        long_bi = BackendInput(token_ids=a_tokens + [32] * 8,
+                               stop=StopConditions(
+                                   max_tokens=FLEET_LONG_TOKENS,
+                                   ignore_eos=True))
+
+        async def drain_long():
+            n = 0
+            async for out in engine.generate(long_bi, Context()):
+                n += len(out.token_ids)
+            return n
+
+        long_task = asyncio.ensure_future(drain_long())
+        t0 = time.monotonic()
+        while (await metrics_of(wa))["request_active_slots"] < 1:
+            if long_task.done() or time.monotonic() - t0 > 30:
+                raise AssertionError("A's worker never reported busy")
+            await asyncio.sleep(0.05)
+        await asyncio.sleep(1.2)       # two router scrapes
+        n0 = len(await decisions())
+        # each B request on a prefix of its own: no worker holds any of it,
+        # so overlap cannot place it
+        rb = []
+        for i in range(2):
+            if i:
+                # the first B request's slot must show free at the router
+                # (published, then scraped) before the second is placed
+                t0 = time.monotonic()
+                while (await metrics_of(wb))["request_active_slots"] > 0:
+                    if time.monotonic() - t0 > 30:
+                        raise AssertionError("B's worker never went idle")
+                    await asyncio.sleep(0.05)
+                await asyncio.sleep(1.2)       # two router scrapes
+            rb.append(await post({
+                "model": PRESET, "max_tokens": 8,
+                "prompt": bytes(rng.choice(letters, 256)).decode()}))
+        b_dec = (await decisions())[n0:]
+        busy_at_b = not long_task.done()
+        long_tokens = await asyncio.wait_for(long_task, 300)
+        b_terms = []
+        for d in b_dec:
+            cands = {c["worker_id"]: c for c in d["candidates"]}
+            a, b = cands.get(wa), cands.get(wb)
+            if a is None or b is None:
+                raise AssertionError(f"prefix-B decision lacks a worker: {d}")
+            for c in (a, b):
+                # the audit's logit is the default cost of its own terms
+                want = 2.0 * c["overlap_norm"] - c["cache_usage"] \
+                    - c["load"] - c["kv_bytes_frac"]
+                if abs(c["logit"] - want) > 1e-3:
+                    raise AssertionError(f"audited logit {c} is not the "
+                                         f"cost of its terms ({want})")
+            b_terms.append(dict(
+                overlap_blocks=[a["overlap_blocks"], b["overlap_blocks"]],
+                load=[a["load"], b["load"]],
+                cache_usage=[a["cache_usage"], b["cache_usage"]],
+                kv_bytes_frac=[a["kv_bytes_frac"], b["kv_bytes_frac"]],
+                lead=b["logit"] - a["logit"],
+                lead_without_load=(b["logit"] + b["load"])
+                - (a["logit"] + a["load"])))
+        # placed by load: no overlap on either worker, A's worker audited
+        # busier, and the other worker's lead holds at least that load gap
+        if long_tokens != FLEET_LONG_TOKENS or not busy_at_b \
+                or [d["worker_id"] for d in b_dec] != [wb, wb] \
+                or any(t["overlap_blocks"] != [0, 0]
+                       or not t["load"][0] > t["load"][1]
+                       or t["lead"] < t["load"][0] - t["load"][1] - 1e-3
+                       for t in b_terms):
+            raise AssertionError(f"prefix-B requests not placed by load: "
+                                 f"busy {busy_at_b}, {b_terms}, {b_dec}")
+
+        # 3. one trace across processes: request A's
+        await asyncio.sleep(1.0)           # span sinks flush every 0.25 s
+        stc, raw = await asyncio.to_thread(http_get, http_port,
+                                           f"/v1/traces/{ra['rid']}")
+        spans = json.loads(raw)["spans"] if stc == 200 else []
+        pids = {s["pid"] for s in spans}
+        comps = {s["component"] for s in spans}
+        route_ms = [1e3 * (s["end"] - s["start"]) for s in spans
+                    if s["name"] == "rpc:route"]
+        if len(pids) < 3 or not {"http", "router",
+                                 "decode_worker"} <= comps:
+            raise AssertionError(f"trace {ra['rid']} spans {len(spans)} "
+                                 f"from pids {pids}, components {comps}")
+        # the router's own audit: every decision's time in the route span
+        route_decisions_ms = sorted(route_ms)
+
+        # 4. the stage dumps: both workers' dispatches and kernel launches
+        await asyncio.sleep(4 * FLEET_METRICS_S)
+        sc1 = await asyncio.to_thread(_fleet_stage, http_port)
+        disp0 = _per_worker(sc0, "dyn_engine_dispatches_total", "kind")
+        disp1 = _per_worker(sc1, "dyn_engine_dispatches_total", "kind")
+        kern0 = _per_worker(sc0, "dyn_kernel_launches_total", "kernel")
+        kern1 = _per_worker(sc1, "dyn_kernel_launches_total", "kernel")
+        peak = _per_worker(sc1, "dyn_device_memory_peak_bytes")
+        from dynamo_tpu_torch.models.llama import preset
+
+        L = preset(PRESET).num_layers
+        on_card = DEVICE == "cuda"     # the wrappers count card launches
+        per_worker = {}
+        for w in (f"{wa:x}", f"{wb:x}"):
+            d = {k: disp1[w][k] - disp0.get(w, {}).get(k, 0.0)
+                 for k in disp1[w]}
+            k = {n: kern1[w][n] - kern0.get(w, {}).get(n, 0.0)
+                 for n in kern1[w]}
+            per_worker[w] = dict(dispatches=d, launches=k,
+                                 peak_mem_bytes=peak.get(w, {}).get(""),
+                                 forward_pass_metrics=await metrics_of(
+                                     int(w, 16)))
+            if not (d["prefill"] > 0 and d["decode"] > 0
+                    and k["flash_attention"] == L * d["prefill"] * on_card
+                    and k["paged_attention"]
+                    == L * d["decode_step"] * on_card):
+                raise AssertionError(f"worker {w}: kernel launches do not "
+                                     f"account for its dispatches: {d} {k}")
+
+        # 5. the codec: one EngineOutput frame, packed and read back; and
+        # the data plane's own cost a streamed item, both ends in this
+        # process (an endpoint that yields EngineOutput dicts, no engine)
+        out_dict = EngineOutput(token_ids=[12345], cum_log_prob=-1.5,
+                                kv_prefix_hit_tokens=1024).to_dict()
+        frame = [{wire.KIND_KEY: "data"}, json.dumps(out_dict).encode()]
+        body = wire.pack(frame)[4:]
+        n = 20000
+        t0 = time.perf_counter()
+        for _ in range(n):
+            _msgpack.packb(frame)
+        pack_us = 1e6 * (time.perf_counter() - t0) / n
+        t0 = time.perf_counter()
+        for _ in range(n):
+            _msgpack.unpackb(body)
+        unpack_us = 1e6 * (time.perf_counter() - t0) / n
+
+        async def items(request, ctx):
+            for _ in range(request["n"]):
+                yield out_dict
+
+        probe = drt.namespace("probe").component("plane").endpoint("items")
+        await probe.serve(items)
+        plane = await probe.client().start()
+        await plane.wait_for_instances(1, timeout=30)
+        plane_n = []
+        for n in (100, 5000):               # warm-up, then timed
+            t0 = time.perf_counter()
+            got = 0
+            async for _ in plane.generate({"n": n}):
+                got += 1
+            plane_n.append((got, time.perf_counter() - t0))
+        if plane_n[1][0] != 5000:
+            raise AssertionError(f"data plane probe lost items: {plane_n}")
+        plane_us = 1e6 * plane_n[1][1] / plane_n[1][0]
+        return dict(
+            holder=f"{wa:x}", other=f"{wb:x}", prefix_tokens=len(a_tokens),
+            kv_events_s=events_s, prefix_hits=hits,
+            shared_overlap_blocks=[d["overlap_blocks"] for d in shared_dec],
+            b_workers=[f"{d['worker_id']:x}" for d in b_dec],
+            b_terms=b_terms, b_status=[r["status"] for r in rb],
+            trace_spans=len(spans), trace_pids=len(pids),
+            trace_components=sorted(comps),
+            route_span_ms=route_decisions_ms,
+            fleet_lone_stream=lone,
+            engine_output_pack_us=pack_us,
+            engine_output_unpack_us=unpack_us, frame_bytes=len(body),
+            dataplane_us_per_item=plane_us,
+            workers=per_worker, card=smi)
+    finally:
+        await drt.close()
+
+
+async def _fleet_drain(fleet: Fleet, store_port: int, http_port: int,
+                       victim: str, keep: int) -> dict:
+    """SIGTERM worker ``victim``: it exits 0, its endpoint key and model
+    registrations vanish, and the next four requests answer 200 from
+    worker ``keep``."""
+    import asyncio
+    import signal
+
+    from dynamo_tpu_torch.runtime.store_client import StoreClient
+
+    proc = fleet.procs[victim][0]
+    lease = int(fleet.wait_line(victim, r"worker [0-9a-f]+ serving",
+                                1).split()[1], 16)
+    store = await StoreClient(port=store_port).connect()
+    try:
+        keys = [k for k, _ in await store.get_prefix("dynamo/components/")]
+        keys += [k for k, _ in await store.get_prefix("models/")]
+        mine = [k for k in keys if k.endswith(f":{lease:x}")
+                or k.endswith(f":i-{lease:x}")]
+        if len(mine) != 3:                  # generate + chat + completion
+            raise AssertionError(f"worker {lease:x} keys before drain: "
+                                 f"{keys}")
+        t0 = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        rc = await asyncio.to_thread(proc.wait, 120)
+        exit_s = time.monotonic() - t0
+        await asyncio.sleep(0.5)      # the deletes reach every watcher
+        keys = [k for k, _ in await store.get_prefix("dynamo/components/")]
+        keys += [k for k, _ in await store.get_prefix("models/")]
+        left = [k for k in keys if f"{lease:x}" in k]
+        st, raw = await asyncio.to_thread(http_get, http_port,
+                                          "/v1/router/decisions")
+        n0 = len(json.loads(raw).get("decisions", []))
+        res: dict = {}
+        for i in range(4):
+            await asyncio.to_thread(
+                http_post, http_port, "/v1/completions",
+                {"model": PRESET, "prompt": f"after the drain {i}",
+                 "max_tokens": 8}, res, i)
+        st, raw = await asyncio.to_thread(http_get, http_port,
+                                          "/v1/router/decisions")
+        after = [d["worker_id"] for d in json.loads(raw)["decisions"][n0:]]
+        if rc != 0 or left or [r["status"] for r in res.values()] != \
+                [200] * 4 or after != [keep] * 4:
+            raise AssertionError(
+                f"drain of {lease:x}: rc {rc}, keys left {left}, "
+                f"statuses {res}, placed on {after}:\n"
+                f"{fleet.log(victim)[-3000:]}")
+        return dict(worker=f"{lease:x}", rc=rc, exit_s=exit_s,
+                    keys_removed=len(mine), after_workers=len(set(after)))
+    finally:
+        await store.close()
+
+
+def fleet_phase(torch, smi: str, serve_lone: dict) -> dict:
+    """Two Llama-3-8B torch workers behind the port's store, KV-aware
+    router and discovery frontend, each a process of its own on this
+    card: routing by the overlap of the workers' own KV events, routing
+    by load, one trace across processes, the workers' stage dumps
+    (dispatches and kernel launches), the codec's cost, and a SIGTERM
+    drain."""
+    import asyncio
+    import re
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    fleet = Fleet()
+    try:
+        fleet.start("store", "dynamo_tpu_torch.runtime.store_server",
+                    "--host", "127.0.0.1", "--port", "0")
+        line = fleet.wait_line("store", r"listening on \S+:\d+", 60)
+        store_port = int(line.rsplit(":", 1)[1])
+        store = f"127.0.0.1:{store_port}"
+        t0 = time.perf_counter()
+        for name in ("worker0", "worker1"):
+            fleet.start(name, "dynamo_tpu_torch.cli.worker", "--engine",
+                        "torch", "--device", DEVICE, "--store", store,
+                        "--register-model", "--model-name", PRESET,
+                        "--kv-block-size", str(ENGINE_ARGS["page_size"]),
+                        "--metrics-interval", str(FLEET_METRICS_S),
+                        "--extra-engine-args", json.dumps(ENGINE_ARGS))
+        ids = {}
+        for name in ("worker0", "worker1"):
+            line = fleet.wait_line(name, r"worker [0-9a-f]+ serving",
+                                   FLEET_START_S)
+            ids[name] = int(line.split()[1], 16)
+        workers_start_s = time.perf_counter() - t0
+        fleet.start("router", "dynamo_tpu_torch.cli.router", "--store",
+                    store, "--block-size", str(ENGINE_ARGS["page_size"]))
+        fleet.wait_line("router", r"kv router serving", 120)
+        fleet.start("http", "dynamo_tpu_torch.cli.http", "--store", store,
+                    "--host", "127.0.0.1", "--port", "0",
+                    "--router-component", "router", "--namespace",
+                    "dynamo")
+        line = fleet.wait_line("http", r"http frontend on :\d+", 120)
+        http_port = int(re.search(r":(\d+)", line).group(1))
+        t0 = time.monotonic()
+        while PRESET not in http_get(http_port, "/v1/models")[1].decode():
+            if time.monotonic() - t0 > 60:
+                raise AssertionError("frontend never discovered the model")
+            time.sleep(0.1)
+        row = asyncio.run(_fleet_async(fleet, store_port, http_port, smi))
+        # the same greedy requests on the same seeded weights: the fleet
+        # must stream what the in-process server streamed, through the
+        # frontend (text and token strings) and through the router and the
+        # data plane (token ids)
+        lone = row["fleet_lone_stream"]
+        for key in ("text", "tokens", "greedy_ids"):
+            if lone[key] != serve_lone[key]:
+                raise AssertionError(
+                    f"the fleet streamed {key} {lone[key]!r}, the "
+                    f"in-process server {serve_lone[key]!r}")
+        victim = next(n for n, w in ids.items() if f"{w:x}" == row["other"])
+        row["drain"] = asyncio.run(_fleet_drain(
+            fleet, store_port, http_port, victim, int(row["holder"], 16)))
+        row.update(phase="fleet", preset=PRESET, engine=ENGINE_ARGS,
+                   workers_start_s=workers_start_s,
+                   serve_lone_stream=serve_lone,
+                   fleet_added_ttft_ms=1e3 * (
+                       row["fleet_lone_stream"]["ttft_s"]
+                       - serve_lone["ttft_s"]),
+                   dataplane_added_ms_per_token=(
+                       row["fleet_lone_stream"]["itl_ms"]
+                       - serve_lone["itl_ms"]),
+                   phase_s=time.perf_counter() - t_phase)
+        row["flash_launches"] = sum(w["launches"]["flash_attention"]
+                                    for w in row["workers"].values())
+        row["paged_launches"] = sum(w["launches"]["paged_attention"]
+                                    for w in row["workers"].values())
+        emit(row)
+        return row
+    finally:
+        fleet.stop()
+
+
 def main() -> int:
     import torch
 
@@ -1830,6 +2403,7 @@ def main() -> int:
     serve, _ = serve_phase(torch, att, smi)
     default = serve_default_phase(torch, att, smi)
     ckpt = checkpoint_phase(torch, att, smi)
+    fleet = fleet_phase(torch, smi, serve["lone_stream"])
 
     src = "dynamo_tpu_torch/ops/csrc/"
     kernels = [
@@ -1840,6 +2414,7 @@ def main() -> int:
              reuse_launches=sum(r["flash_launches"]
                                 for r in serve["reuse"]["runs"]),
              checkpoint_launches=ckpt["flash_launches"],
+             fleet_launches=fleet["flash_launches"],
              max_abs_err=flash["max_abs_err"], ms=flash["ms"],
              plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
              bound_by=flash["bound_by"], bound_frac=flash["bound_frac"],
@@ -1852,6 +2427,7 @@ def main() -> int:
              reuse_launches=sum(r["paged_launches"]
                                 for r in serve["reuse"]["runs"]),
              checkpoint_launches=ckpt["paged_launches"],
+             fleet_launches=fleet["paged_launches"],
              max_abs_err=paged["max_abs_err"], ms=paged["ms"],
              plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
              bound_by=paged["bound_by"], bound_frac=paged["bound_frac"],

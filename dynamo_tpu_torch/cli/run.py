@@ -1,7 +1,7 @@
 """Single-binary style launcher: ``python -m dynamo_tpu_torch.cli.run in=... out=...``
 
 Input modes:  http | text | batch:<file.jsonl> | none
-Output modes: torch | echo_full
+Output modes: torch | echo_full | dyn://namespace.component.endpoint
 
 ``out=torch`` serves a Llama-family model on the torch engine, on the card
 unless ``--device cpu`` is given; ``--extra-engine-args`` takes the engine
@@ -9,7 +9,9 @@ config as JSON (inline, or a file path), e.g. ``{"preset": "llama-3-8b"}``.
 ``--model-path`` names a HF-style directory (``config.json``,
 ``*.safetensors``, ``tokenizer.json``), a ``.gguf`` file, or an ``org/name``
 repo id already in the local HF cache; without a checkpoint the weights
-are random, made from the engine seed.
+are random, made from the engine seed. ``out=dyn://ns.component.endpoint``
+drives a remote worker's core engine (``cli.worker``, torch or JAX) over
+the runtime's data plane, found through the store at ``--store``.
 
 Reference capability: launch/dynamo-run (lib.rs:53-456, opt.rs, flags.rs,
 input/{http,text,batch}.rs) — the in=X out=Y matrix, model flags, and the
@@ -53,6 +55,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "JSON if the value starts with '{'")
     p.add_argument("--device", default="cuda",
                    help="torch device of out=torch (cuda | cpu)")
+    p.add_argument("--store", default="127.0.0.1:4222",
+                   help="dynstore host:port (out=dyn:// remote mode)")
+    p.add_argument("--connect-timeout", type=float, default=30.0,
+                   help="seconds to wait for a live out=dyn:// instance")
     args = p.parse_args(argv)
     args.input, args.output = "text", "torch"
     for tok in args.positional:
@@ -97,7 +103,36 @@ def make_engines(args, card: ModelDeploymentCard):
         core = TorchEngine(TorchEngineConfig.from_card(card, **extra))
         return (build_chat_engine(card, "core", core),
                 build_completion_engine(card, "core", core), core)
+    if out.startswith("dyn://"):
+        # async connect: handled by connect_remote_engines in amain
+        raise AssertionError("dyn:// handled before make_engines")
     raise SystemExit(f"unknown out={out}")
+
+
+async def connect_remote_engines(args, card: ModelDeploymentCard):
+    """``out=dyn://ns.component.endpoint``: drive a remote worker's core
+    engine over the runtime data plane. Returns (chat_engine,
+    completion_engine, drt); the caller closes ``drt``."""
+    from ..llm.remote import RemoteCoreEngine
+    from ..runtime.component import DistributedRuntime
+
+    path = args.output[len("dyn://"):]
+    parts = path.split(".")
+    if len(parts) != 3:
+        raise SystemExit(f"out=dyn://{path}: expected ns.component.endpoint")
+    host, _, port = args.store.partition(":")
+    drt = await DistributedRuntime(store_host=host or "127.0.0.1",
+                                   store_port=int(port or 4222)).connect()
+    client = await (drt.namespace(parts[0]).component(parts[1])
+                    .endpoint(parts[2]).client().start())
+    try:
+        await client.wait_for_instances(1, timeout=args.connect_timeout)
+    except TimeoutError as e:
+        await drt.close()
+        raise SystemExit(f"out={args.output}: {e}")
+    core = RemoteCoreEngine(client)
+    return (build_chat_engine(card, "core", core),
+            build_completion_engine(card, "core", core), drt)
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +246,13 @@ async def run_batch(args, card, chat_engine, _c, path: str) -> Dict[str, Any]:
 async def amain(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     card = make_card(args)
-    chat_engine, completion_engine, core = make_engines(args, card)
+    drt = None
+    if args.output.startswith("dyn://"):
+        core = None
+        chat_engine, completion_engine, drt = await connect_remote_engines(
+            args, card)
+    else:
+        chat_engine, completion_engine, core = make_engines(args, card)
     mode = args.input
     try:
         if mode == "http":
@@ -228,6 +269,8 @@ async def amain(argv: Optional[List[str]] = None) -> None:
     finally:
         if core is not None:
             core.shutdown()
+        if drt is not None:
+            await drt.close()
 
 
 def main() -> None:

@@ -399,6 +399,38 @@ class EngineCore:
     def active(self) -> int:
         return len(self.by_seq)
 
+    def utilization(self) -> Dict[str, float]:
+        """The worker's ForwardPassMetrics fields, with the JAX engine's
+        keys and values for the same schedule: slots, blocks and waiting
+        requests, the prefix hit rate, the windowed goodput rates, and the
+        KV bytes resident against capacity (device pool plus host tier).
+        ``spec_accept_rate`` stays 0 until speculative decoding is ported
+        (ROADMAP Queue 1 item 7). Any thread: reads counters only."""
+        total = self.pool.num_pages - 1
+        hit_rate = (self.prefix_hit_tokens / self.prefix_query_tokens
+                    if self.prefix_query_tokens else 0.0)
+        goodput = self.goodput.snapshot()
+        blk_bytes = float(llama.kv_block_bytes(self.cfg.model,
+                                               self.cfg.page_size))
+        resident = float(total - self.pool.free_pages) * blk_bytes
+        capacity = float(total) * blk_bytes
+        if self.tiered is not None:
+            capacity += float(self.tiered.host.num_blocks) * blk_bytes
+        return {
+            "request_active_slots": float(self.active),
+            "request_total_slots": float(self.cfg.max_batch),
+            "kv_active_blocks": float(total - self.pool.free_pages),
+            "kv_total_blocks": float(total),
+            "num_requests_waiting": float(len(self.waiting)),
+            "gpu_prefix_cache_hit_rate": hit_rate,
+            "spec_accept_rate": 0.0,
+            "mfu": goodput["mfu"],
+            "mbu": goodput["mbu"],
+            "hbm_gbps": goodput["hbm_gbps"],
+            "kv_resident_bytes": resident,
+            "kv_capacity_bytes": capacity,
+        }
+
     def step(self, flush: Optional[Callable[[List[StepOutput]], None]] = None
              ) -> List[StepOutput]:
         """Run one engine iteration.

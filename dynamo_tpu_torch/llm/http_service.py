@@ -402,6 +402,12 @@ class HttpService:
         return self.port
 
     async def stop(self) -> None:
+        pub = getattr(self, "_stage_pub_task", None)
+        if pub is not None:          # discovery-mode stage publish loop
+            pub.cancel()
+        obs_h = getattr(self, "_obs_handle", None)
+        if obs_h is not None:        # discovery-mode flight-recorder plane
+            await obs_h.stop()
         server, self._server = self._server, None
         if server is not None:
             server.close()

@@ -3,9 +3,8 @@
 ``KvEventPublisher`` bridges the engine's page-pool hooks (block sealed /
 blocks freed) to the event plane without ever stalling the engine step loop:
 events go into an unbounded in-memory queue; a background task drains and
-publishes. The transport is pluggable: an in-process function in tests; the
-worker entry point that wires it to the distributed runtime's event plane is
-not ported yet.
+publishes. The transport is pluggable (in-process function in tests, the
+distributed runtime's event plane in ``cli/worker.py``).
 
 Reference capability: lib/llm/src/kv_router/publisher.rs:32-60 (mpsc ->
 NATS), and the C-ABI publish path (lib/bindings/c) that engines call.

@@ -12,7 +12,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List, Optional
 
 # Default chat template used when the model dir has none (ChatML — a sane
@@ -60,6 +60,17 @@ class ModelDeploymentCard:
             sort_keys=True,
         )
         return hashlib.sha256(ident.encode()).hexdigest()[:16]
+
+    def to_dict(self) -> Dict[str, Any]:
+        """The card as registered under ``models/`` (JSON-ready)."""
+        return asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ModelDeploymentCard":
+        """A card from a registration; fields this version lacks are
+        dropped."""
+        return cls(**{k: v for k, v in d.items()
+                      if k in cls.__dataclass_fields__})
 
     # ------------------------------------------------------------------
     @classmethod

@@ -411,6 +411,15 @@ _F32_PARAMS = ("ln1", "ln2", "ln1_post", "ln2_post", "ln_q", "ln_k",
                "final_norm")
 
 
+def kv_block_bytes(cfg: LlamaConfig, page_size: int) -> int:
+    """Bytes of one KV block (k+v, all layers) at device precision: the
+    unit the engine's residency gauges and the router's bytes scoring
+    price in (the JAX package's ``kv_block_bytes``)."""
+    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+    return (2 * cfg.num_layers * cfg.num_kv_heads * page_size
+            * cfg.head_dim * itemsize)
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device: torch.device) -> Dict[str, Any]:
     """Random-init params (testing/benching without checkpoint files), drawn

@@ -56,6 +56,9 @@ _DOCS = {
     "slo": "docs/observability.md",
     "roofline": "docs/observability.md",
     "llm": "docs/benchmarking.md",
+    "faults": "docs/robustness.md",
+    "router": "docs/kv_cache_routing.md",
+    "store": "docs/observability.md",
 }
 
 
@@ -223,6 +226,59 @@ _ALL: List[Knob] = [
        "good-request fraction objective, e.g. 0.999"),
     _k("DYN_SLO_WINDOWS", "csv", "60,300,1800", "slo",
        "burn-rate windows, seconds"),
+    # ------------------------------------- distributed runtime, store,
+    # faults, stage publishing and the KV router
+    _k("DYN_LEASE_TTL", "float", "10.0", "runtime",
+       'store lease liveness TTL, seconds (keepalives fire every '
+       'ttl/3)'),
+    _k("DYN_DRAIN_TIMEOUT", "float", "10.0", "runtime",
+       'graceful-drain grace on SIGTERM before cooperative stop, '
+       'seconds'),
+    _k("DYN_CB_THRESHOLD", "int", "3", "runtime",
+       'consecutive failures that open an instance circuit breaker '
+       '(0 disables)'),
+    _k("DYN_CB_COOLDOWN", "float", "5.0", "runtime",
+       'breaker OPEN hold before the half-open probe, seconds'),
+    _k("DYN_STORE_RECONNECT", "bool", "1", "runtime",
+       'store-client reconnect + session replay on connection loss'),
+    _k("DYN_STORE_RECONNECT_ATTEMPTS", "int", "10", "runtime",
+       'max reconnect attempts before the client reports closed'),
+    _k("DYN_STORE_RECONNECT_BASE", "float", "0.05", "runtime",
+       'reconnect backoff base delay, seconds (doubles per attempt)'),
+    _k("DYN_STORE_RECONNECT_MAX", "float", "2.0", "runtime",
+       'reconnect backoff ceiling, seconds'),
+    _k("DYN_STORE_METRICS_INTERVAL", "float", "2.0", "store",
+       "seconds between the store server's self-telemetry dumps into"
+       ' its own KV (0 = record but never publish)'),
+    _k("DYN_STORE_SHARDS", "str", "", "store",
+       'static store shard map routing keyspace families/groups to '
+       'extra dynstore processes, e.g. '
+       "'telemetry=10.0.0.2:4222;traces=10.0.0.3:4222' (unset = the "
+       'single default store; unrouted families stay on it)'),
+    _k("DYN_FAULTS", "csv", "", "faults",
+       'fault-injection table armed at process start, e.g. '
+       "'store.connect:refuse,kv.push.part:drop:0.5'"),
+    _k("DYN_METRICS_PUSH_INTERVAL", "float", "0", "metrics",
+       "min seconds between a worker's stage-metrics store writes (0"
+       ' = every metrics-loop beat); writes are delta-coalesced '
+       'either way'),
+    _k("DYN_METRICS_FULL_EVERY", "int", "10", "metrics",
+       'stage-metrics pushes per full snapshot (the rest ship only '
+       'changed metrics)'),
+    _k("DYN_STAGE_SLICES", "int", "16", "metrics",
+       'worker-stable sub-prefix slices of the metrics_stage/ '
+       'keyspace (worker_id mod slices); regional aggregators '
+       'rendezvous-own slices and read only theirs per tick instead '
+       'of scanning the full prefix (must agree fleet-wide)'),
+    _k("DYN_ROUTER_AUDIT", "int", "512", "router",
+       'router decision audit ring capacity'),
+    _k("DYN_ROUTER_FAST_FAIL", "bool", "0", "router",
+       'fail saturated scheduling with a typed 503 instead of '
+       'capacity-waiting'),
+    _k("DYN_KV_CLUSTER", "bool", "0", "router",
+       'cluster-wide KV sharing: workers publish sealed-block '
+       'registry records + serve/consume kv_fetch, routers stamp '
+       'donors'),
     # ---------------------------------------------------------- roofline
     _k("DYN_PEAK_FLOPS", "float", "", "roofline",
        "override peak accelerator FLOP/s for MFU accounting"),

@@ -559,7 +559,8 @@ def test_served_greedy_completions_match_jax_cli(hf_checkpoint, monkeypatch,
 # ---------------------------------------------------------------------------
 
 BLOCKED = ("jax", "dynamo_tpu", "regex", "tokenizers", "transformers",
-           "safetensors", "ml_dtypes", "huggingface_hub", "xxhash", "aiohttp")
+           "safetensors", "ml_dtypes", "huggingface_hub", "xxhash", "aiohttp",
+           "msgpack")
 
 GUARD = r'''
 import importlib, importlib.abc, json, pkgutil, sys
@@ -616,3 +617,42 @@ def test_port_runs_without_the_libraries_the_card_lacks(hf_checkpoint,
     assert res["ids"][f"gguf-sp:{sp}"] == [259, 260, 261, 262]
     assert res["ids"][d] == res["ids"][f"gguf-bpe:{g}"]
     assert res["wq"] == res["gwq"] == [2, 64, 4, 16]
+
+
+ENTRY_GUARD = r'''
+import importlib.abc, json, runpy, sys
+BLOCKED = set(sys.argv[1].split(","))
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+mod = sys.argv[2]
+sys.argv = [mod, "--help"]
+try:
+    runpy.run_module(mod, run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print(json.dumps({"code": code, "leaked": leaked}))
+'''
+
+
+@pytest.mark.parametrize("module", [
+    "dynamo_tpu_torch.runtime.store_server", "dynamo_tpu_torch.cli.worker",
+    "dynamo_tpu_torch.cli.router", "dynamo_tpu_torch.cli.http"])
+def test_fleet_entry_points_run_without_the_libraries_the_card_lacks(module):
+    """Each process of the fleet starts in an interpreter that cannot import
+    any of ``BLOCKED`` (``msgpack`` and ``aiohttp`` among them): the module
+    imports and its argument parser answers ``--help``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run(
+        [sys.executable, "-c", ENTRY_GUARD, ",".join(BLOCKED), module],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT), env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    assert res == {"code": 0, "leaked": []}
+    assert "usage:" in r.stdout
