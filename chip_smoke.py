@@ -54,6 +54,12 @@ with a traceback and prints no result:
                bit for bit, and a warm 24-token prefill over cached pages
                gives the cold chunked prefill's last logits (cosine > 0.99).
                TTFT, dispatches, copy bytes and rates, hashing time.
+   ingest    — on the same engine, the reuse prompt's KV from
+               ``prefill_extract``, streamed back into its pool through a
+               ``KvIngest`` (a disagg decode worker's receive path) with
+               ``torch.cuda.set_sync_debug_mode("error")`` on for every
+               layer's staging and scatter: no host sync, and the entered
+               sequence streams the cold run's tokens.
 7. chain     — on an engine sharing the served weights, one chained
                steady-state decode enqueue under
                ``torch.cuda.set_sync_debug_mode("error")``: no host sync,
@@ -93,6 +99,24 @@ with a traceback and prints no result:
                and gap between tokens of one lone stream, the route span,
                the codec's µs a frame, the data plane's µs an item, each
                worker's ForwardPassMetrics and peak device memory.
+11. disagg   — disaggregated prefill and decode, each piece a process of
+               the port's own: the store, a decode worker
+               (``--enable-disagg --max-local-prefill-length 256``), a
+               prefill worker, both Llama-3-8B at full width and depth with
+               the serve phase's engine arguments and seed, and the
+               discovery frontend. The reuse prompt, sent greedy to the
+               decode worker, is prefilled by the prefill worker, its KV
+               (196 MB) streamed layer by layer into the decode worker's
+               pool: its token ids must equal the serve phase's cold
+               stream. The stage dumps must show flash launches only in
+               the prefill worker (32 a prefill dispatch) and paged ones
+               only in the decode worker (32 a decode step), the KV bytes
+               on both sides, and request 1's trace the disagg spans of
+               three processes. A 64-token prompt prefills locally, and a
+               burst of four 1024-token prompts all goes remote and leaves
+               the queue empty. Remote against local TTFT, transfer
+               seconds and GB/s, the flows, each worker's peak memory, and
+               the data plane's own rate on the same parts.
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2.
@@ -601,6 +625,8 @@ def serve_phase(torch, att, smi: str):
         ref = reference_phase(torch, c)
         row["reuse"] = reuse_phase(torch, att, core, loop)
         row["tiers"] = tier_gauge_check(core, port)
+        row["ingest"] = ingest_phase(torch, core, loop,
+                                     row["reuse"]["cold_tokens"], smi)
         row["chain"] = chain_sync_phase(torch, c)
         row["lone_stream"] = lone_stream(port)
         row["lone_stream"]["greedy_ids"] = asyncio.run_coroutine_threadsafe(
@@ -1161,6 +1187,15 @@ def _copy_rates(torch, core, hashes, reps: int = 3) -> dict:
     return out
 
 
+def reuse_prompt(vocab: int) -> list:
+    """The seeded 1496-token prompt of the reuse, ingest and disagg
+    phases."""
+    import numpy as np
+
+    return np.random.default_rng(REUSE_SEED).integers(
+        0, vocab, REUSE_PROMPT).tolist()
+
+
 def reuse_phase(torch, att, engine, loop) -> dict:
     """KV block reuse on the serving engine (idle between requests)."""
     import numpy as np
@@ -1171,9 +1206,7 @@ def reuse_phase(torch, att, engine, loop) -> dict:
     page = core.page_size
     L = core.cfg.model.num_layers
     cs, tiers = core.copy_stream, core.tiered
-    vocab = core.cfg.model.vocab_size
-    prompt = np.random.default_rng(REUSE_SEED).integers(
-        0, vocab, REUSE_PROMPT).tolist()
+    prompt = reuse_prompt(core.cfg.model.vocab_size)
     t0 = time.perf_counter()
     for _ in range(10):
         hashes = compute_seq_hashes(prompt, page)
@@ -1210,7 +1243,7 @@ def reuse_phase(torch, att, engine, loop) -> dict:
                                  f"account for its dispatches: {r}")
         return toks, r
 
-    _, cold = run("cold")
+    cold_toks, cold = run("cold")
     warm_toks, warm = run("warm_device")
     # offload every reusable device block to the host tier
     d2h0 = (cs.d2h_bytes, cs.d2h_seconds)
@@ -1269,7 +1302,79 @@ def reuse_phase(torch, att, engine, loop) -> dict:
           and cold["tokens"] == warm["tokens"] == REUSE_TOKENS)
     if not ok:
         raise AssertionError(f"reuse phase failed: {row}")
-    return dict(row, runs=[cold, warm, host, again], flush=flush)
+    return dict(row, runs=[cold, warm, host, again], flush=flush,
+                cold_tokens=cold_toks)
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: a layer-streamed KV ingest on the served engine takes no sync
+# ---------------------------------------------------------------------------
+
+def ingest_phase(torch, engine, loop, want: list, smi: str) -> dict:
+    """On the served engine, idle and with its own weights: the reuse
+    prompt's KV from ``prefill_extract``, streamed back into the same
+    engine's pool through a ``KvIngest`` (the decode worker's receive
+    path) while ``torch.cuda.set_sync_debug_mode("error")`` is on for
+    every layer's staging and grouped scatter; the entered sequence must
+    stream the reuse phase's cold tokens."""
+    import asyncio
+
+    from dynamo_tpu_torch.llm.kv_transfer import _meta
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    core = engine.core
+    L = core.cfg.model.num_layers
+    prompt = reuse_prompt(core.cfg.model.vocab_size)
+    bi = BackendInput(token_ids=prompt, stop=StopConditions(
+        max_tokens=REUSE_TOKENS, ignore_eos=True))
+
+    async def go():
+        t0 = time.perf_counter()
+        k, v, tok, logp = await engine.prefill_extract(bi,
+                                                       Context("ingest-x"))
+        extract_s = time.perf_counter() - t0
+        ctx = Context("ingest-1")
+        ingest = engine.kv_ingest(bi, ctx.id)
+        if not ingest.begin(_meta(ctx.id, tok, logp, k)):
+            raise AssertionError("the ingest declined its own geometry")
+        while ctx.id not in core._stream_injects:
+            await asyncio.sleep(0.001)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for layer in range(L):
+                ingest.layer(layer, k[layer], v[layer])
+            # the engine thread stages and scatters them (a sync there
+            # raises, and the ingest fails over with a typed error)
+            while True:
+                st = core._stream_injects.get(ctx.id)
+                if st is None or (st["layers_done"] == L and not st["n"]):
+                    break
+                await asyncio.sleep(0.001)
+            layers_s = time.perf_counter() - t1
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ingest.finish(tok, logp)
+        toks = []
+        async for out in engine.generate_streamed(bi, ctx, ingest):
+            toks += out.token_ids
+        return dict(kv_bytes=k.nbytes + v.nbytes, extract_s=extract_s,
+                    layers_enqueue_s=layers_s, tokens=toks)
+
+    r = asyncio.run_coroutine_threadsafe(go(), loop).result(600)
+    row = dict(phase="ingest", sync_debug_mode="error", layers=L,
+               prompt_tokens=len(prompt), kv_bytes=r["kv_bytes"],
+               extract_s=r["extract_s"],
+               layers_enqueue_s=r["layers_enqueue_s"],
+               tokens_equal=r["tokens"] == want, card=smi)
+    emit(row)
+    if r["tokens"] != want:
+        raise AssertionError(f"the streamed ingest streamed {r['tokens']}, "
+                             f"the served cold stream {want}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1869,16 +1974,17 @@ FLEET_LONG_TOKENS = 384      # keeps A's worker busy while B is routed
 class Fleet:
     """Child processes of the port's own entry points
     (``python -m dynamo_tpu_torch...``), each logging to a file under
-    ``FLEET_DIR``. Never forks: every child is a fresh interpreter. ``stop``
+    ``root`` (``FLEET_DIR`` by default). Never forks: every child is a fresh interpreter. ``stop``
     kills whatever is still running."""
 
-    def __init__(self):
-        os.makedirs(FLEET_DIR, exist_ok=True)
+    def __init__(self, root: str = FLEET_DIR):
+        self.root = root
+        os.makedirs(root, exist_ok=True)
         self.procs: dict = {}
         self.env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1")
 
     def start(self, name: str, module: str, *args: str):
-        log = open(os.path.join(FLEET_DIR, f"{name}.log"), "w")
+        log = open(os.path.join(self.root, f"{name}.log"), "w")
         proc = subprocess.Popen([sys.executable, "-m", module, *args],
                                 stdout=log, stderr=subprocess.STDOUT,
                                 cwd=ROOT, env=self.env,
@@ -1887,7 +1993,7 @@ class Fleet:
         return proc
 
     def log(self, name: str) -> str:
-        with open(os.path.join(FLEET_DIR, f"{name}.log")) as f:
+        with open(os.path.join(self.root, f"{name}.log")) as f:
             return f.read()
 
     def wait_line(self, name: str, pattern: str, timeout: float) -> str:
@@ -2352,6 +2458,327 @@ def fleet_phase(torch, smi: str, serve_lone: dict) -> dict:
         fleet.stop()
 
 
+# ---------------------------------------------------------------------------
+# phase 11: disaggregated prefill and decode, each worker a process
+# ---------------------------------------------------------------------------
+
+DISAGG_DIR = os.path.join(ROOT, "build", "dynamo_tpu_torch", "disagg")
+DISAGG_LOCAL_MAX = 256          # the decode worker's --max-local-prefill-length
+DISAGG_BURST, DISAGG_BURST_TOKENS = 4, 1024
+DISAGG_LOCAL_TOKENS = 64
+
+
+def _component(sc: dict, component: str) -> dict:
+    return {k: v for k, v in sc.items() if f'component="{component}"' in k}
+
+
+def _counts(sc: dict, wid: str) -> dict:
+    """A worker's dispatch and kernel-launch counters from a scrape."""
+    d = _per_worker(sc, "dyn_engine_dispatches_total", "kind").get(wid, {})
+    k = _per_worker(sc, "dyn_kernel_launches_total", "kernel").get(wid, {})
+    return {"prefill": d.get("prefill", 0.0),
+            "decode_step": d.get("decode_step", 0.0),
+            "flash": k.get("flash_attention", 0.0),
+            "paged": k.get("paged_attention", 0.0)}
+
+
+def _delta(a: dict, b: dict) -> dict:
+    return {n: b[n] - a.get(n, 0.0) for n in b}
+
+
+async def _disagg_async(fleet: Fleet, store_port: int, http_port: int,
+                        want: list) -> dict:
+    import asyncio
+
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.disagg import PrefillQueue
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+    from dynamo_tpu_torch.models.llama import preset
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.utils import tracing
+
+    L = preset(PRESET).num_layers
+    # the wrappers count launches on the card only
+    Lk = L * (DEVICE == "cuda")
+    drt = await DistributedRuntime(store_port=store_port).connect()
+    # this process's client spans join request 1's trace in the store
+    tracing.configure(component="smoke")
+    sink = await tracing.StoreSpanSink(drt.store).start()
+    try:
+        client = await drt.namespace("dynamo").component("backend") \
+            .endpoint("generate").client().start()
+        await client.wait_for_instances(1, timeout=60)
+        (wid,) = client.instance_ids()
+        dwid = f"{wid:x}"
+        queue = PrefillQueue(drt.store, "dynamo")
+
+        async def direct(tokens, rid, max_tokens):
+            """One greedy streamed request straight to the decode
+            worker's ``generate`` endpoint: (ids, TTFT s, total s)."""
+            bi = BackendInput(token_ids=list(tokens), stop=StopConditions(
+                max_tokens=max_tokens, ignore_eos=True))
+            ids, ttft = [], None
+            t0 = time.perf_counter()
+            async for item in client.generate(bi.to_dict(), Context(rid),
+                                              mode="direct",
+                                              instance_id=wid):
+                if item.get("finish_reason") == "error":
+                    raise AssertionError(f"{rid} failed: {item}")
+                if ttft is None and item.get("token_ids"):
+                    ttft = time.perf_counter() - t0
+                ids += item.get("token_ids") or []
+            return ids, ttft, time.perf_counter() - t0
+
+        async def stage(settle=2.5):
+            # the decode worker publishes every FLEET_METRICS_S, the
+            # prefill worker every second
+            await asyncio.sleep(settle)
+            return await asyncio.to_thread(scrape, http_port)
+
+        async def post(body):
+            res: dict = {}
+            await asyncio.to_thread(http_post, http_port, "/v1/completions",
+                                    body, res, "r")
+            return res["r"]
+
+        rng = np.random.default_rng(REUSE_SEED + 1)
+        vocab = preset(PRESET).vocab_size
+        # warm-up: one remote request on another prompt (first pinned
+        # allocations and connections of both workers)
+        await direct(rng.integers(0, vocab, DISAGG_BURST_TOKENS).tolist(),
+                     "disagg-warm", 4)
+        sc0 = await stage()
+        prefill_ids = [w for w in _per_worker(
+            sc0, "dyn_engine_dispatches_total", "kind") if w != dwid]
+        if len(prefill_ids) != 1:
+            raise AssertionError(f"prefill worker's dump not found: "
+                                 f"{prefill_ids}")
+        (pwid,) = prefill_ids
+
+        # 1. the lone remote request: the serve phase's cold stream
+        prompt = reuse_prompt(vocab)
+        ids, ttft, total = await direct(prompt, "disagg-remote-1",
+                                        REUSE_TOKENS)
+        sc1 = await stage()
+        if ids != want:
+            raise AssertionError(f"the remote-prefilled request streamed "
+                                 f"{ids}, the served cold stream {want}")
+        remote = dict(ttft_s=ttft, total_s=total, tokens=len(ids),
+                      decode=_delta(_counts(sc0, dwid), _counts(sc1, dwid)),
+                      prefill=_delta(_counts(sc0, pwid),
+                                     _counts(sc1, pwid)))
+        dp, pp = remote["decode"], remote["prefill"]
+        if not (pp["prefill"] > 0 and pp["flash"] == Lk * pp["prefill"]
+                and pp["paged"] == 0 and dp["prefill"] == 0
+                and dp["flash"] == 0 and dp["decode_step"] > 0
+                and dp["paged"] == Lk * dp["decode_step"]):
+            raise AssertionError(f"request 1's launches by process: "
+                                 f"decode {dp}, prefill {pp}")
+        ingests = _total(_component(sc1, "backend"),
+                         "dyn_kv_stream_ingests_total") - _total(
+            _component(sc0, "backend"), "dyn_kv_stream_ingests_total")
+        xfer = {}
+        for comp, direction in (("prefill", "send"), ("backend", "recv")):
+            a, b = _component(sc0, comp), _component(sc1, comp)
+            n = _total(b, "llm_kv_transfer_bytes_total",
+                       direction=direction) - _total(
+                a, "llm_kv_transfer_bytes_total", direction=direction)
+            sec = _total(b, "llm_kv_transfer_seconds_sum",
+                         direction=direction) - _total(
+                a, "llm_kv_transfer_seconds_sum", direction=direction)
+            xfer[direction] = dict(bytes=n, seconds=sec,
+                                   gb_s=n / sec / 1e9 if sec else None)
+        kv_bytes = REUSE_PROMPT * 2 * L * preset(PRESET).num_kv_heads \
+            * preset(PRESET).head_dim * 2
+        if ingests != 1 or xfer["send"]["bytes"] != kv_bytes \
+                or xfer["recv"]["bytes"] != kv_bytes:
+            raise AssertionError(f"request 1's KV: {ingests} streamed "
+                                 f"ingests, {xfer}, want {kv_bytes} bytes")
+        st, raw = await asyncio.to_thread(http_get, http_port, "/v1/flows")
+        flows = [lk for lk in json.loads(raw)["links"]
+                 if {"disagg_push", "disagg_stream_rx"} & set(lk["kinds"])]
+
+        # 2. a short prompt prefills on the decode worker
+        local = await post({"model": PRESET, "max_tokens": 8,
+                            "prompt": bytes(rng.choice(
+                                np.frombuffer(b"abcdefgh ", np.uint8),
+                                DISAGG_LOCAL_TOKENS)).decode()})
+        sc2 = await stage()
+        lp = _delta(_counts(sc1, dwid), _counts(sc2, dwid))
+        if local["status"] != 200 or local["usage"]["prompt_tokens"] \
+                > DISAGG_LOCAL_MAX or not (lp["prefill"] > 0
+                                           and lp["flash"]
+                                           == Lk * lp["prefill"]) \
+                or _delta(_counts(sc1, pwid), _counts(sc2, pwid))[
+                    "prefill"] != 0:
+            raise AssertionError(f"the local request: {local}, decode "
+                                 f"worker {lp}")
+
+        # 3. a burst of long prompts, all remote
+        letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ",
+                                np.uint8)
+        burst_t0 = time.perf_counter()
+        res = await asyncio.gather(*[post({
+            "model": PRESET, "max_tokens": 16,
+            "prompt": bytes(rng.choice(letters,
+                                       DISAGG_BURST_TOKENS)).decode()})
+            for _ in range(DISAGG_BURST)])
+        burst_s = time.perf_counter() - burst_t0
+        depth = await queue.size()
+        sc3 = await stage()
+        bd = _delta(_counts(sc2, dwid), _counts(sc3, dwid))
+        bp = _delta(_counts(sc2, pwid), _counts(sc3, pwid))
+        b_ingests = _total(_component(sc3, "backend"),
+                           "dyn_kv_stream_ingests_total") - _total(
+            _component(sc2, "backend"), "dyn_kv_stream_ingests_total")
+        if [r["status"] for r in res] != [200] * DISAGG_BURST \
+                or any(r["usage"]["completion_tokens"] != 16 for r in res) \
+                or depth != 0 or b_ingests != DISAGG_BURST \
+                or bd["flash"] != 0 or bp["paged"] != 0 \
+                or bp["flash"] != Lk * bp["prefill"] \
+                or bd["paged"] != Lk * bd["decode_step"]:
+            raise AssertionError(f"burst: {res}, queue depth {depth}, "
+                                 f"{b_ingests} ingests, decode {bd}, "
+                                 f"prefill {bp}")
+
+        # 5. request 1's trace, across processes
+        await asyncio.sleep(1.5)          # span sinks flush every 0.25 s
+        st, raw = await asyncio.to_thread(http_get, http_port,
+                                          "/v1/traces/disagg-remote-1")
+        spans = json.loads(raw)["spans"] if st == 200 else []
+        names = {s["name"] for s in spans}
+        pids = {s["pid"] for s in spans}
+        need = {"prefill.remote_wait", "prefill.compute", "kv.push",
+                "kv.receive", "decode.stream"}
+        if not need <= names or len(pids) < 3:
+            raise AssertionError(f"request 1's trace: {sorted(names)} from "
+                                 f"{len(pids)} processes")
+        span_ms = {n: 1e3 * sum(s["end"] - s["start"] for s in spans
+                                if s["name"] == n) for n in sorted(need)}
+        peak = _per_worker(sc3, "dyn_device_memory_peak_bytes")
+
+        # the data plane alone: request 1's 2·L parts of one layer's k or
+        # v each, pushed through an endpoint of this process that only
+        # drains them (both ends on this process's one loop)
+        async def drain(request, ctx):
+            n = 0
+            async for part in request.parts:
+                n += len(part)
+            yield {"bytes": n}
+
+        ep = drt.namespace("probe").component("plane").endpoint("kv")
+        await ep.serve(drain)
+        plane = await ep.client().start()
+        await plane.wait_for_instances(1, timeout=30)
+        part = bytes(kv_bytes // (2 * L))
+
+        async def parts():
+            for _ in range(2 * L):
+                yield part
+
+        for _ in range(2):                  # warm-up, then timed
+            t0 = time.perf_counter()
+            async for ack in plane.generate({}, parts=parts()):
+                got = ack["bytes"]
+            plane_s = time.perf_counter() - t0
+        if got != kv_bytes:
+            raise AssertionError(f"the plane probe moved {got} bytes")
+        return dict(
+            decode_worker=dwid, prefill_worker=pwid,
+            remote=remote, kv_bytes=kv_bytes, kv_transfer=xfer,
+            flows=flows, local=dict(status=local["status"],
+                                    prompt_tokens=local["usage"][
+                                        "prompt_tokens"],
+                                    decode=lp),
+            burst=dict(requests=DISAGG_BURST, wall_s=burst_s,
+                       prompt_tokens=[r["usage"]["prompt_tokens"]
+                                      for r in res],
+                       queue_depth_after=depth, ingests=b_ingests,
+                       decode=bd, prefill=bp),
+            trace=dict(spans=len(spans), processes=len(pids),
+                       span_ms=span_ms),
+            peak_mem_bytes={"decode": peak.get(dwid, {}).get(""),
+                            "prefill": peak.get(pwid, {}).get("")},
+            plane_probe=dict(bytes=kv_bytes, parts=2 * L, seconds=plane_s,
+                             gb_s=kv_bytes / plane_s / 1e9),
+            flash_launches=pp["flash"] + bp["flash"],
+            paged_launches=dp["paged"] + bd["paged"])
+    finally:
+        await sink.stop()
+        await drt.close()
+
+
+def disagg_phase(torch, smi: str, serve: dict) -> dict:
+    """Disaggregated prefill and decode on this card, each piece a process
+    of the port's own: the store, a decode worker (``--enable-disagg``,
+    prompts over 256 tokens prefilled remotely), a prefill worker with the
+    same seeded weights, and the discovery frontend. The reuse prompt,
+    sent greedy to the decode worker, is prefilled by the prefill worker
+    (flash kernel), streamed layer by layer into the decode worker's pool
+    and decoded there (paged kernel): its tokens must be the serve phase's
+    cold stream. Then a short prompt prefills locally, and a burst of
+    long prompts all goes remote and drains the queue."""
+    import asyncio
+    import re
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    fleet = Fleet(DISAGG_DIR)
+    try:
+        fleet.start("store", "dynamo_tpu_torch.runtime.store_server",
+                    "--host", "127.0.0.1", "--port", "0")
+        line = fleet.wait_line("store", r"listening on \S+:\d+", 60)
+        store_port = int(line.rsplit(":", 1)[1])
+        store = f"127.0.0.1:{store_port}"
+        common = ("--device", DEVICE, "--store", store, "--model-name",
+                  PRESET, "--kv-block-size", str(ENGINE_ARGS["page_size"]),
+                  "--extra-engine-args", json.dumps(ENGINE_ARGS))
+        t0 = time.perf_counter()
+        fleet.start("decode", "dynamo_tpu_torch.cli.worker", "--engine",
+                    "torch", "--register-model", "--metrics-interval",
+                    str(FLEET_METRICS_S), "--enable-disagg",
+                    "--max-local-prefill-length", str(DISAGG_LOCAL_MAX),
+                    "--max-prefill-queue-size", str(2 * DISAGG_BURST),
+                    *common)
+        fleet.start("prefill", "dynamo_tpu_torch.cli.prefill_worker",
+                    *common)
+        fleet.wait_line("decode", r"worker [0-9a-f]+ serving",
+                        FLEET_START_S)
+        fleet.wait_line("prefill", r"prefill worker pulling", FLEET_START_S)
+        workers_start_s = time.perf_counter() - t0
+        fleet.start("http", "dynamo_tpu_torch.cli.http", "--store", store,
+                    "--host", "127.0.0.1", "--port", "0", "--namespace",
+                    "dynamo")
+        line = fleet.wait_line("http", r"http frontend on :\d+", 120)
+        http_port = int(re.search(r":(\d+)", line).group(1))
+        t0 = time.monotonic()
+        while PRESET not in http_get(http_port, "/v1/models")[1].decode():
+            if time.monotonic() - t0 > 60:
+                raise AssertionError("frontend never discovered the model")
+            time.sleep(0.1)
+        row = asyncio.run(_disagg_async(fleet, store_port, http_port,
+                                        serve["reuse"]["cold_tokens"]))
+        local_ttft = serve["reuse"]["ttft_s"]["cold"]
+        xfer = row["kv_transfer"]
+        row.update(phase="disagg", preset=PRESET, engine=ENGINE_ARGS,
+                   workers_start_s=workers_start_s,
+                   remote_ttft_s=row["remote"]["ttft_s"],
+                   local_ttft_s=local_ttft,
+                   remote_added_ttft_ms=1e3 * (row["remote"]["ttft_s"]
+                                               - local_ttft),
+                   send_gb_s=xfer["send"]["gb_s"],
+                   recv_gb_s=xfer["recv"]["gb_s"],
+                   ingest=serve["ingest"], card=smi,
+                   phase_s=time.perf_counter() - t_phase)
+        emit(row)
+        return row
+    finally:
+        fleet.stop()
+
+
 def main() -> int:
     import torch
 
@@ -2404,6 +2831,7 @@ def main() -> int:
     default = serve_default_phase(torch, att, smi)
     ckpt = checkpoint_phase(torch, att, smi)
     fleet = fleet_phase(torch, smi, serve["lone_stream"])
+    disagg = disagg_phase(torch, smi, serve)
 
     src = "dynamo_tpu_torch/ops/csrc/"
     kernels = [
@@ -2415,6 +2843,7 @@ def main() -> int:
                                 for r in serve["reuse"]["runs"]),
              checkpoint_launches=ckpt["flash_launches"],
              fleet_launches=fleet["flash_launches"],
+             disagg_launches=disagg["flash_launches"],
              max_abs_err=flash["max_abs_err"], ms=flash["ms"],
              plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
              bound_by=flash["bound_by"], bound_frac=flash["bound_frac"],
@@ -2428,6 +2857,7 @@ def main() -> int:
                                 for r in serve["reuse"]["runs"]),
              checkpoint_launches=ckpt["paged_launches"],
              fleet_launches=fleet["paged_launches"],
+             disagg_launches=disagg["paged_launches"],
              max_abs_err=paged["max_abs_err"], ms=paged["ms"],
              plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
              bound_by=paged["bound_by"], bound_frac=paged["bound_frac"],

@@ -11,10 +11,16 @@ store under its lease (routers scrape the prefix). The wire, the store keys
 and the event payloads are the JAX package's ``cli.worker``'s, so a JAX
 router and frontend route to this worker as to their own.
 
-Not ported yet, and refused at start instead of ignored: ``--enable-disagg``
-(ROADMAP Queue 1 item 6), ``DYN_KV_CLUSTER`` (item 8) and ``--num-nodes``
-above 1 (item 11); a model-mobility swap or prefetch command (item 12) is
-refused in the log and left for another worker.
+With ``--enable-disagg`` the worker is a decode worker with conditional
+remote prefill, as the JAX worker's: long cold prompts go to the shared
+prefill queue (``cli/prefill_worker.py`` pulls it), their KV streams back
+on the ``kv_receive`` endpoint layer by layer into the engine's pool, and
+the request enters decode directly.
+
+Not ported yet, and refused at start instead of ignored: ``DYN_KV_CLUSTER``
+(ROADMAP Queue 1 item 8) and ``--num-nodes`` above 1 (item 11); a
+model-mobility swap or prefetch command (item 12) is refused in the log
+and left for another worker.
 """
 
 from __future__ import annotations
@@ -23,13 +29,19 @@ import argparse
 import asyncio
 import json
 import logging
+import time
 from typing import Optional
 
+from ..llm.disagg import (DisaggConfig, DisaggRouter, PrefillQueue,
+                          RemotePrefillRequest)
 from ..llm.kv_router.protocols import KV_EVENT_SUBJECT, ForwardPassMetrics
 from ..llm.kv_router.publisher import KvEventPublisher
 from ..llm.kv_router.router import check_kv_cluster_off
+from ..llm.kv_transfer import (KV_RECEIVE_ENDPOINT, KvReceiver,
+                               RemotePrefillError, stream_enabled)
 from ..llm.metrics_aggregator import metrics_key
 from ..llm.model_card import ModelDeploymentCard
+from ..llm.protocols.common import BackendInput
 from ..llm.remote import register_model, serve_core_engine
 from ..runtime.component import DistributedRuntime
 from ..runtime.store_client import StoreError
@@ -45,11 +57,6 @@ MOBILITY_PREFIX = "mobility/"
 def check_ported(args) -> None:
     """Raise, naming the ROADMAP item, for options whose JAX code paths the
     port does not have yet."""
-    if getattr(args, "enable_disagg", False):
-        raise NotImplementedError(
-            "--enable-disagg: disaggregated prefill/decode (llm/disagg.py, "
-            "llm/kv_transfer.py) is not ported to dynamo_tpu_torch yet "
-            "(ROADMAP Queue 1 item 6)")
     if getattr(args, "num_nodes", 1) > 1:
         raise NotImplementedError(
             "--num-nodes above 1: multi-node serving (parallel/) is not "
@@ -100,6 +107,150 @@ async def _refuse_mobility(drt: DistributedRuntime, namespace: str,
 
     for key, value in await drt.store.watch_prefix(prefix, on_event):
         await on_event(key, value, False)
+
+
+async def _disagg_handler(args, drt: DistributedRuntime, component,
+                          engine, gate):
+    """The decode worker's ``generate`` handler with conditional remote
+    prefill (SURVEY §3.2): long cold prompts go to the shared queue; KV
+    comes back on the ``kv_receive`` endpoint (served here) and the
+    request enters decode directly. Any failure of the remote path falls
+    back to a local prefill, never to a user error."""
+    core = engine.core
+    queue = PrefillQueue(drt.store, args.namespace)
+    drouter = await DisaggRouter(
+        args.namespace,
+        config=DisaggConfig(
+            max_local_prefill_length=args.max_local_prefill_length,
+            max_prefill_queue_size=args.max_prefill_queue_size),
+    ).start(drt.store)
+    receiver = KvReceiver(worker_id=drt.worker_id)
+    await component.endpoint(KV_RECEIVE_ENDPOINT).serve(receiver.handler)
+    remote_timeout = args.remote_prefill_timeout
+
+    from ..llm.kv_transfer import await_remote_kv as _await_kv
+
+    async def await_remote_kv(ctx, fut):
+        return await _await_kv(ctx, fut, queue, receiver, remote_timeout)
+
+    async def generate_handler(request, ctx):
+        bi = BackendInput.from_dict(request)
+        # the JAX worker's cluster prefix fetch (DYN_KV_CLUSTER, refused
+        # at start) and tier prefetch (prefetch_tiers) hooks run here when
+        # the engine has them; the torch engine has neither yet
+        if hasattr(engine, "prefetch_tiers"):
+            from ..utils.aiotasks import spawn_blocking
+            spawn_blocking(engine.prefetch_tiers, bi, name="h2d-prefetch")
+        if gate is not None:
+            await gate.acquire(ctx.priority, ctx.deadline)
+            svc_started = time.monotonic()
+            try:
+                async for item in _generate_disagg(bi, request, ctx):
+                    yield item
+            finally:
+                gate.release(time.monotonic() - svc_started)
+        else:
+            async for item in _generate_disagg(bi, request, ctx):
+                yield item
+
+    async def _generate_disagg(bi, request, ctx):
+        # local prefix-cache hits count against remoting: a prompt we
+        # mostly have cached prefills locally regardless of length.
+        # CROSS-THREAD CONTRACT: this runs on the asyncio thread while the
+        # engine thread mutates the block pool. probe_prefix and
+        # TieredKvCache.__contains__ are strictly READ-ONLY (no LRU
+        # reorder), which is what makes the unlocked probe safe under the
+        # GIL — do not swap in tiered.lookup() (it mutates LRU order)
+        # without adding a lock.
+        host = core.tiered
+        prefix_hit = core.pool.probe_prefix(
+            bi.token_ids, (lambda h: h in host) if host else None,
+            lora_id=bi.kv_salt or bi.lora_id)
+        remote = False
+        qsize = 0
+        if drouter.length_exceeds_local(len(bi.token_ids), prefix_hit):
+            # only candidates pay the queue-depth RPC
+            qsize = await queue.size()
+            remote = drouter.should_prefill_remote(
+                len(bi.token_ids), prefix_hit, qsize)
+        tracer = tracing.get_tracer()
+        if remote:
+            # layer-streamed ingest (DYN_KV_STREAM): hand the receiver an
+            # engine handle so each arriving layer's scatter is enqueued
+            # while later layers are still on the wire — the future then
+            # resolves to the handle (not arrays) once the final scatter
+            # is enqueued, never synced
+            ingest = None
+            if stream_enabled() and hasattr(engine, "kv_ingest"):
+                ingest = engine.kv_ingest(bi, ctx.id)
+            # register interest BEFORE enqueueing: a fast prefill worker
+            # may push the KV back before we'd otherwise start listening
+            fut = receiver.expect(ctx.id, ingest=ingest)
+            async with tracer.span("prefill.remote_wait", trace_id=ctx.id,
+                                   prompt_tokens=len(bi.token_ids),
+                                   prefix_hit_tokens=prefix_hit) as wsp:
+                remote_t0 = time.monotonic()
+                try:
+                    await queue.enqueue(RemotePrefillRequest(
+                        ctx.id, drt.worker_id, request,
+                        deadline=ctx.deadline, priority=ctx.priority))
+                except overload.OverloadError as e:
+                    # bounded-queue / predictive shed at enqueue: the
+                    # remote path is refused in milliseconds; local
+                    # prefill (deadline-bounded) takes over
+                    receiver.abandon(ctx.id)
+                    log.info("prefill enqueue shed for %s (%s); "
+                             "prefilling locally", ctx.id, e.reason)
+                    kv = None
+                else:
+                    try:
+                        kv = await await_remote_kv(ctx, fut)
+                    except RemotePrefillError as e:
+                        log.warning("remote prefill for %s dead-lettered "
+                                    "(%s); prefilling locally", ctx.id, e)
+                        kv = None
+                    if kv is not None:
+                        # the predictive shed needs PER-ITEM service time:
+                        # normalize the turnaround by the depth seen at
+                        # the remote decision (raw turnaround would count
+                        # the queue twice and feed back into shedding)
+                        queue.observe_service(
+                            (time.monotonic() - remote_t0)
+                            / max(qsize + 1, 1))
+                if wsp is not None:
+                    wsp.attrs["fallback_local"] = kv is None
+                    wsp.attrs["streamed"] = kv is not None \
+                        and kv is ingest
+            if kv is not None and ingest is not None and kv is ingest:
+                # the sequence is already entering decode; consume its
+                # output queue. An engine-side ingest failure surfaces
+                # BEFORE the first token as a typed error — fall through
+                # to local prefill, never a user error
+                try:
+                    async with tracer.span("decode.stream", trace_id=ctx.id,
+                                           injected=True, streamed=True):
+                        async for out in engine.generate_streamed(
+                                bi, ctx, ingest):
+                            yield out.to_dict()
+                    return
+                except RemotePrefillError as e:
+                    log.warning("streamed KV ingest for %s failed (%s); "
+                                "prefilling locally", ctx.id, e)
+                    kv = None
+            if kv is not None:
+                k, v, tok, logp = kv
+                async with tracer.span("decode.stream", trace_id=ctx.id,
+                                       injected=True):
+                    async for out in engine.generate_prefilled(
+                            bi, ctx, k, v, tok, logp):
+                        yield out.to_dict()
+                return
+        async with tracer.span("decode.stream", trace_id=ctx.id,
+                               injected=False):
+            async for out in engine.generate(bi, ctx):
+                yield out.to_dict()
+
+    return generate_handler
 
 
 def engine_counters(core, worker_id: int) -> dict:
@@ -211,9 +362,13 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
     # this stage instead of queueing into a deadline burn
     gate = overload.gate_from_env()
     endpoint = component.endpoint("generate")
-    served = engine if gate is None else overload.SlotGatedEngine(engine,
-                                                                  gate)
-    await serve_core_engine(endpoint, served)
+    if getattr(args, "enable_disagg", False) and core is not None:
+        await endpoint.serve(await _disagg_handler(args, drt, component,
+                                                   engine, gate))
+    else:
+        served = engine if gate is None \
+            else overload.SlotGatedEngine(engine, gate)
+        await serve_core_engine(endpoint, served)
     if args.register_model:
         await register_model(drt.store, card, endpoint.path,
                              model_type="chat", lease=drt.lease)
@@ -307,8 +462,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="advertised request slots of the echo engine "
                         "(its occupancy signal for the planner)")
     p.add_argument("--enable-disagg", action="store_true",
-                   help="decode role with remote prefill (raises until "
-                        "the disaggregation slice)")
+                   help="decode role with conditional remote prefill")
+    p.add_argument("--max-local-prefill-length", type=int, default=1000,
+                   help="with --enable-disagg: prefill prompts longer "
+                        "than this (minus prefix hits) remotely")
+    p.add_argument("--max-prefill-queue-size", type=int, default=2,
+                   help="with --enable-disagg: remote only while the "
+                        "prefill queue is shorter than this")
+    p.add_argument("--remote-prefill-timeout", type=float, default=120.0,
+                   help="seconds to wait for remote KV before prefilling "
+                        "locally")
     p.add_argument("--extra-engine-args", default=None,
                    help="inline JSON engine kwargs")
     p.add_argument("--num-nodes", type=int, default=1,

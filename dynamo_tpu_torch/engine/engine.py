@@ -36,9 +36,17 @@ Architecture:
   times the engine already takes (the prefill's first-token fetch, the
   decode dispatch's event-waited fetch): no host sync is added.
 
-Not ported yet (the JAX engine has them): cluster write-through and placement prefetch of the KV tiers,
-speculative decoding, disaggregated prefill, the long-context paging lane,
-multimodal input, MoE and tp/pp/sp.
+- Disaggregated prefill, as in the JAX engine: ``prefill_extract`` runs
+  a prompt's chunked prefill and gathers its KV to the host for a prefill
+  worker; a decode worker enters a remotely prefilled sequence straight
+  into decode, either from whole arrays (``inject_prefilled``) or layer by
+  layer as the KV arrives (``begin_stream_inject`` ... ``finish_stream_
+  inject``, driven through :class:`KvIngest`), each group of layers going
+  to the card through pinned staging without a host sync.
+
+Not ported yet (the JAX engine has them): cluster write-through and
+placement prefetch of the KV tiers, speculative decoding, the long-context
+paging lane, multimodal input, MoE and tp/pp/sp.
 
 Reference capability: the role vLLM/TRT-LLM play behind the reference's
 adapters (continuous batching, paged KV, streaming detached tokens), per
@@ -66,14 +74,14 @@ import torch
 
 from ..device import resolve_device, to_device
 from ..llm.kvbm.tiers import DiskKvTier, HostKvTier, TieredKvCache
-from ..llm.kvbm.transfer import CopyStream, host_dtype
+from ..llm.kvbm.transfer import CopyStream, host_dtype, to_host_array
 from ..llm.model_card import ModelDeploymentCard
 from ..llm.protocols.common import BackendInput, EngineOutput, FinishReason
 from ..models import llama
 from ..obs import flightrec as _flightrec
 from ..ops.attention import (check_kernel_support, flash_attention,
                              paged_attention)
-from ..runtime.engine import AsyncEngine, Context
+from ..runtime.engine import AsyncEngine, Context, EngineError
 from ..utils import roofline
 from ..utils.prometheus import stage_metrics
 from .cache import OutOfPages, PagePool
@@ -310,6 +318,8 @@ class EngineCore:
         self.generators: List[Optional[torch.Generator]] = [None] * B
         self._seed_source = random.Random(cfg.seed)
         self._decode_seen: Dict[int, str] = {}
+        # layer-streamed KV injections in progress, by sequence
+        self._stream_injects: Dict[str, Dict[str, Any]] = {}
         # in-flight decode dispatches, oldest first: each record is a
         # dispatch whose results are not on the host yet (at most two)
         self._inflight: Deque[Dict[str, Any]] = collections.deque()
@@ -390,6 +400,9 @@ class EngineCore:
         else:
             self.waiting = collections.deque(
                 (s, r) for s, r in self.waiting if s != seq_id)
+            if seq_id in self._stream_injects:
+                # mid-stream cancel: release the half-written pages
+                self.abort_stream_inject(seq_id)
 
     @property
     def has_work(self) -> bool:
@@ -430,6 +443,269 @@ class EngineCore:
             "kv_resident_bytes": resident,
             "kv_capacity_bytes": capacity,
         }
+
+    # ------------------------------------------------------------------
+    # KV export/import (disaggregated prefill -> decode transfer)
+    # ------------------------------------------------------------------
+    def _kv_slots(self, seq_id: str, count: int) -> torch.Tensor:
+        """Flat pool token slots (page * page_size + offset) of a
+        sequence's first ``count`` tokens, on the engine's device."""
+        slots = self.pool.write_slots(seq_id, 0, count).astype(np.int64)
+        return to_device(slots, self.device)
+
+    def _flat(self, pool: torch.Tensor) -> torch.Tensor:
+        """A view of ``pool`` (or of a run of its layers) with the page and
+        offset axes merged: [L, Hkv, n_pages * page, Dh]."""
+        L, H, n, pg, D = pool.shape
+        return pool.view(L, H, n * pg, D)
+
+    def _to_host(self, tensors: List[torch.Tensor]) -> List[np.ndarray]:
+        """Device tensors as host arrays (:func:`to_host_array`: bf16 as
+        ``uint16`` bits), through pinned buffers on a card and one event
+        wait for all of them."""
+        if self.device.type != "cuda":
+            return [to_host_array(t.contiguous()) for t in tensors]
+        host = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            host.append(h)
+        ev = torch.cuda.Event()
+        ev.record()
+        ev.synchronize()       # the pinned buffers are read after this
+        return [to_host_array(h) for h in host]
+
+    def extract_kv(self, seq_id: str, layer: Optional[int] = None,
+                   count: Optional[int] = None):
+        """Gather a sequence's KV out of the pool -> host numpy arrays.
+        With ``layer`` set, returns that layer only ([T,Hkv,Dh] k, v) for
+        layer-pipelined transfer; otherwise all layers ([L,T,Hkv,Dh]).
+        ``count`` limits extraction to the first N tokens (e.g. the
+        prompt). A bf16 pool's arrays are ``uint16`` bits."""
+        sc = self.pool.seqs[seq_id]
+        n = sc.num_tokens if count is None else min(count, sc.num_tokens)
+        slots = self._kv_slots(seq_id, n)
+        out = []
+        for pool in (self.k_pool, self.v_pool):
+            if layer is None:
+                # [L, Hkv, n, Dh] -> [L, n, Hkv, Dh]
+                out.append(self._flat(pool).index_select(2, slots)
+                           .transpose(1, 2))
+            else:
+                out.append(self._flat(pool[layer:layer + 1])[0]
+                           .index_select(1, slots).transpose(0, 1))
+        k, v = self._to_host(out)
+        return k, v
+
+    def prefill_extract(self, seq_id: str, request: BackendInput
+                        ) -> Tuple[np.ndarray, np.ndarray, int, float]:
+        """Prefill-worker path: run the full (chunked) prefill for a request,
+        sample its first token, gather the prompt KV to host, release the
+        slot. Returns (k [L,T,Hkv,Dh], v, first_token, first_logprob).
+        The caller owns queue/transfer; this runs on the engine thread."""
+        from dataclasses import replace
+
+        prompt = list(request.token_ids)
+        if len(prompt) + 1 >= self.cfg.max_context:
+            # typed 400 (not a bare ValueError): the disagg frontend's
+            # error body names the configured limit and the stage that
+            # rejected, end to end over the wire
+            raise EngineError(
+                f"prompt of {len(prompt)} tokens exceeds the configured "
+                f"max_context of {self.cfg.max_context}", 400,
+                stage="prefill", reason="context_exceeded")
+        if request.images:
+            raise ValueError("disaggregated prefill does not take image "
+                             "requests yet; serve VLM prompts aggregated")
+        if None not in self.slots:
+            raise RuntimeError("no free slot for prefill job")
+        # the first sampled token must never finish the slot (we need the KV
+        # before release) — neutralize stop conditions for the prefill pass
+        req = replace(request, stop=replace(
+            request.stop, max_tokens=None, stop_token_ids=[],
+            min_tokens=None, ignore_eos=True))
+        slot_idx = self.slots.index(None)
+        slot = _Slot(seq_id, req, prompt)
+        self.slots[slot_idx] = slot
+        self.by_seq[seq_id] = slot
+        self.pool.create(seq_id, lora_id=getattr(req, "lora_id", 0))
+        self._load_sampling(slot_idx, req)
+        out: List[StepOutput] = []
+        try:
+            with torch.no_grad():
+                while slot.prefill_done < len(prompt):
+                    self._prefill_dispatch([(slot_idx, slot)], out)
+                    if out and out[-1].finish == FinishReason.ERROR:
+                        raise OutOfPages("prefill ran out of KV pages")
+                so = out[-1]
+                k, v = self.extract_kv(seq_id, count=len(prompt))
+        finally:
+            self._free_slot(slot_idx)
+        return k, v, so.token, so.logprob
+
+    def inject_prefilled(self, seq_id: str, request: BackendInput,
+                         k: np.ndarray, v: np.ndarray,
+                         first_token: int,
+                         first_logprob: float = 0.0) -> StepOutput:
+        """Receive a remotely-prefilled sequence: write its prompt KV into
+        this pool and enter it straight into decode (prefill_done=len).
+        ``k``/``v``: [L, T, Hkv, Dh] for the prompt tokens."""
+        if None not in self.slots:
+            raise RuntimeError("no free slot for injected sequence")
+        prompt = list(request.token_ids)
+        T = k.shape[1]
+        if T != len(prompt):
+            raise ValueError(f"KV covers {T} tokens, prompt is {len(prompt)}")
+        m = self.cfg.model
+        want = (m.num_layers, T, m.num_kv_heads, m.head_dim)
+        if k.shape != want or v.shape != want:
+            # checked before any page is leased (the JAX engine leases
+            # first and leaks the sequence's pages when its scatter fails)
+            raise ValueError(f"KV geometry {k.shape}/{v.shape} does not "
+                             f"match this engine's {want}")
+        self.pool.create(seq_id, lora_id=getattr(request, "lora_id", 0))
+        try:
+            self.pool.extend(seq_id, prompt)
+            self._flush_evictions()
+            slots = self._kv_slots(seq_id, T)
+            for pool, arr in ((self.k_pool, k), (self.v_pool, v)):
+                # to the card through pinned memory, non-blocking; vals
+                # [L, T, Hkv, Dh] -> the pool's [L, Hkv, T, Dh]
+                vals = to_device(_kv_tensor(arr), self.device)
+                self._flat(pool).index_copy_(
+                    2, slots, vals.to(pool.dtype).transpose(1, 2))
+        except Exception:
+            self.pool.release(seq_id)
+            raise
+        return self._enter_injected(seq_id, request, prompt, first_token,
+                                    first_logprob)
+
+    def _enter_injected(self, seq_id: str, request: BackendInput,
+                        prompt: List[int], first_token: int,
+                        first_logprob: float) -> StepOutput:
+        """Shared tail of the two KV-import paths (bulk inject / layer
+        stream): claim a slot straight into decode, seed bookkeeping, and
+        emit the prefill-worker-sampled first token."""
+        slot_idx = self.slots.index(None)
+        slot = _Slot(seq_id, request, prompt, prefill_done=len(prompt),
+                     kv_written=len(prompt))
+        self.slots[slot_idx] = slot
+        self.by_seq[seq_id] = slot
+        self._load_sampling(slot_idx, request)
+        if request.sampling.seed is not None:
+            # the prefill worker drew one uniform sampling the first token
+            # (``_prefill_dispatch``'s last chunk); draw it here too so
+            # token 2 onward matches a local prefill of the same request
+            torch.rand(1, generator=self.generators[slot_idx])
+        t = int(first_token)
+        try:
+            slot.generated += 1
+            slot.last_token = t
+            self.pool.extend(seq_id, [t])
+        except OutOfPages:
+            self._free_slot(slot_idx)
+            raise
+        slot.cum_logprob = float(first_logprob)
+        fin = self._finish_reason(slot, t)
+        so = StepOutput(seq_id, t, slot.cum_logprob, fin,
+                        prompt_tokens=len(prompt),
+                        token_logprob=float(first_logprob))
+        if fin is not None:
+            self._free_slot(slot_idx)
+        return so
+
+    # ------------------------------------------------------------------
+    # layer-streamed KV injection (disagg receive; engine thread)
+    # ------------------------------------------------------------------
+    def begin_stream_inject(self, seq_id: str,
+                            request: BackendInput) -> None:
+        """Lease pool pages for a remotely-prefilled prompt whose KV is
+        still on the wire. The pages stay UNSEALED (no hash registration,
+        no stored events) until :meth:`finish_stream_inject` — a torn
+        stream releases them with nothing ever having referenced them."""
+        prompt = list(request.token_ids)
+        if None not in self.slots:
+            raise RuntimeError("no free slot for streamed sequence")
+        self.pool.create(seq_id, lora_id=getattr(request, "lora_id", 0))
+        try:
+            self.pool.ensure_pages(seq_id, len(prompt))
+        except Exception:
+            self.pool.release(seq_id)
+            raise
+        # leasing may have evicted reusable pages: their offload d2h must
+        # be enqueued before our scatters overwrite them
+        self._flush_evictions()
+        self._stream_injects[seq_id] = {
+            "request": request, "prompt": prompt,
+            "slots": self._kv_slots(seq_id, len(prompt)),
+            "layers_done": 0, "stage": None, "n": 0, "buf_l0": 0,
+            # layers a scatter: each group of arrivals lands in one
+            # scatter a pool (a scatter per layer would spend more host
+            # time enqueueing than the scatters it overlaps)
+            "group": max(1, min(4, self.cfg.model.num_layers)),
+        }
+
+    def _flush_stream_buf(self, st) -> None:
+        """Send the staged group of layers to the card (pinned source,
+        ``non_blocking=True``) and scatter it into both pools."""
+        n = st["n"]
+        if not n:
+            return
+        l0 = st["buf_l0"]
+        for pool, staged in zip((self.k_pool, self.v_pool), st["stage"]):
+            vals = staged[:n].to(self.device, non_blocking=True)
+            # [G, T, Hkv, Dh] -> the pool's [G, Hkv, T, Dh]
+            self._flat(pool[l0:l0 + n]).index_copy_(
+                2, st["slots"], vals.to(pool.dtype).transpose(1, 2))
+        st["buf_l0"] = l0 + n
+        st["stage"], st["n"] = None, 0
+
+    def stream_inject_layer(self, seq_id: str, layer: int,
+                            k: np.ndarray, v: np.ndarray) -> None:
+        """Accept ONE arriving layer ([T,Hkv,Dh] each) into its group's
+        pinned staging buffers, and enqueue the group's scatter once it is
+        full, while later layers are still in flight. Never syncs the
+        host: the engine keeps dispatching other sequences' work."""
+        st = self._stream_injects[seq_id]
+        if st["stage"] is None:
+            G = min(st["group"], self.cfg.model.num_layers - st["buf_l0"])
+            st["stage"] = [torch.empty((G, *k.shape), dtype=_kv_dtype(
+                k.dtype), pin_memory=self.device.type == "cuda")
+                for _ in range(2)]
+        for staged, arr in zip(st["stage"], (k, v)):
+            np.copyto(to_host_array(staged[st["n"]]), arr)
+        st["n"] += 1
+        st["layers_done"] = layer + 1
+        if st["n"] >= len(st["stage"][0]):
+            self._flush_stream_buf(st)
+
+    def finish_stream_inject(self, seq_id: str, first_token: int,
+                             first_logprob: float) -> StepOutput:
+        """All scatters enqueued: seal+register the blocks (stored events
+        fire only now, for fully-arrived KV) and enter the sequence
+        straight into decode."""
+        st = self._stream_injects.pop(seq_id)
+        prompt = st["prompt"]
+        if st["layers_done"] != self.cfg.model.num_layers:
+            self.pool.release(seq_id)
+            raise ValueError(
+                f"stream inject for {seq_id} finished at layer "
+                f"{st['layers_done']}/{self.cfg.model.num_layers}")
+        if None not in self.slots:
+            self.pool.release(seq_id)
+            raise RuntimeError("no free slot for streamed sequence")
+        self._flush_stream_buf(st)         # tail group (< group layers)
+        self.pool.account_tokens(seq_id, prompt)
+        return self._enter_injected(seq_id, st["request"], prompt,
+                                    first_token, first_logprob)
+
+    def abort_stream_inject(self, seq_id: str) -> None:
+        """Torn stream: drop the ingest state and release the leased
+        pages. They were never sealed/registered, so nothing — attention,
+        prefix match, KV events — can have observed the partial writes;
+        the pages return to the free list."""
+        if self._stream_injects.pop(seq_id, None) is not None:
+            self.pool.release(seq_id)
 
     def step(self, flush: Optional[Callable[[List[StepOutput]], None]] = None
              ) -> List[StepOutput]:
@@ -815,7 +1091,8 @@ class EngineCore:
         rec = self._inflight[-1]
         # the chained dispatch feeds the previous dispatch's final tokens to
         # every lane, so the decode-ready set must be exactly its lanes: a
-        # deferred slot unblocking has a last_token the device lacks
+        # newly injected slot (remote prefill) or a deferred slot unblocking
+        # has a last_token the device lacks
         ready_now = {i for i, s in enumerate(self.slots)
                      if s is not None and s.prefill_done >= len(s.prompt)}
         if ready_now != {i for i, _, _ in rec["active"]}:
@@ -974,6 +1251,20 @@ class EngineCore:
         return outs
 
 
+def _kv_dtype(dtype: np.dtype) -> torch.dtype:
+    """torch dtype of received KV arrays of numpy ``dtype``: ``uint16``
+    arrays are bf16 bits (``llm/kv_transfer.wire_dtype``)."""
+    if dtype == np.uint16:
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def _kv_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A received KV array as a CPU tensor sharing its memory."""
+    return torch.from_numpy(np.ascontiguousarray(arr)).view(
+        _kv_dtype(arr.dtype))
+
+
 def _tree_nbytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_tree_nbytes(v) for v in tree.values())
@@ -1031,6 +1322,8 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
                     self.core.submit(seq_id, payload)
                 elif kind == "cancel":
                     self.core.cancel(seq_id)
+                else:
+                    self._run_kv_command(kind, seq_id, payload)
             if not self.core.has_work:
                 # idle: keep the windowed goodput gauges honest (they decay
                 # to 0 as the last burst ages out of the window)
@@ -1086,6 +1379,63 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
             # the short capture
             self._stop_profile(prof, profile_dir)
 
+    def _run_kv_command(self, kind: str, seq_id: str, payload) -> None:
+        """The disaggregation commands of the inbox, on the engine thread:
+        a prefill worker's ``prefill_extract``, and a decode worker's
+        whole-array ``inject`` or layer-streamed ``ingest_*`` steps."""
+        core = self.core
+        if kind == "inject":
+            try:
+                so = core.inject_prefilled(seq_id, *payload)
+            except Exception as e:  # noqa: BLE001
+                log.exception("KV injection failed")
+                so = StepOutput(seq_id, 0, 0.0, FinishReason.ERROR,
+                                error=f"KV injection failed: {e}")
+            self._deliver(so)
+        elif kind == "ingest_begin":
+            try:
+                core.begin_stream_inject(seq_id, payload)
+            except Exception as e:  # noqa: BLE001
+                log.exception("stream-inject begin failed")
+                self._ingest_fail(seq_id, e)
+        elif kind == "ingest_layer":
+            # a begin/earlier-layer failure already dropped the state and
+            # delivered the error: later commands no-op
+            if seq_id in core._stream_injects:
+                try:
+                    core.stream_inject_layer(seq_id, *payload)
+                except Exception as e:  # noqa: BLE001
+                    log.exception("stream-inject layer failed")
+                    self._ingest_fail(seq_id, e)
+        elif kind == "ingest_finish":
+            if seq_id in core._stream_injects:
+                try:
+                    self._deliver(core.finish_stream_inject(seq_id,
+                                                            *payload))
+                except Exception as e:  # noqa: BLE001
+                    log.exception("stream-inject finish failed")
+                    self._ingest_fail(seq_id, e)
+        elif kind == "ingest_abort":
+            core.abort_stream_inject(seq_id)
+        elif kind == "prefill_extract":
+            request, loop, fut = payload
+            try:
+                res = core.prefill_extract(seq_id, request)
+                loop.call_soon_threadsafe(_set_result, fut, res)
+            except Exception as e:  # noqa: BLE001
+                log.exception("prefill_extract failed")
+                loop.call_soon_threadsafe(_set_exception, fut, e)
+
+    def _ingest_fail(self, seq_id: str, e: Exception) -> None:
+        """Engine-thread cleanup of a failed stream inject: release the
+        pages (never sealed, never seen) and deliver ONE typed error the
+        consumer turns into a local-prefill fallback."""
+        self.core.abort_stream_inject(seq_id)
+        self._deliver(StepOutput(
+            seq_id, 0, 0.0, FinishReason.ERROR,
+            error=f"KV stream inject failed: {e}",
+            error_stage="kv_ingest", error_reason="ingest_failed"))
+
     def _start_profile(self):
         from torch.profiler import ProfilerActivity, profile
 
@@ -1139,12 +1489,70 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
     # ------------------------------------------------------------------
     async def generate(self, request: BackendInput,
                        context: Context) -> AsyncIterator[EngineOutput]:
+        async for out in self._generate(("submit", request), context):
+            yield out
+
+    async def prefill_extract(self, request: BackendInput, context: Context
+                              ) -> Tuple[np.ndarray, np.ndarray, int, float]:
+        """Prefill-worker entry: compute prompt KV + first token on the
+        engine thread, await the result. Returns (k, v, token, logprob)."""
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        self._inbox.put(("prefill_extract", context.id,
+                         (request, loop, fut)))
+        self._wake.set()
+        return await fut
+
+    async def generate_prefilled(self, request: BackendInput, context: Context,
+                                 k, v, first_token: int,
+                                 first_logprob: float = 0.0
+                                 ) -> AsyncIterator[EngineOutput]:
+        """Stream a request whose prompt KV (and first token) arrived from a
+        remote prefill worker — enters decode directly."""
+        payload = (request, k, v, first_token, first_logprob)
+        async for out in self._generate(("inject", payload), context):
+            yield out
+
+    # ------------------------------------------------------------------
+    # layer-streamed KV ingest (disagg receive path)
+    # ------------------------------------------------------------------
+    def kv_ingest(self, request: BackendInput, seq_id: str) -> "KvIngest":
+        """An asyncio-side handle the :class:`~..llm.kv_transfer.
+        KvReceiver` drives to scatter a remote prefill's KV layer-by-
+        layer as it arrives. Register it with ``receiver.expect(...,
+        ingest=handle)``; consume the entered sequence with
+        :meth:`generate_streamed` once the awaited future resolves to
+        the handle."""
+        return KvIngest(self, request, seq_id)
+
+    async def generate_streamed(self, request: BackendInput,
+                                context: Context, ingest: "KvIngest"
+                                ) -> AsyncIterator[EngineOutput]:
+        """Stream a request whose KV was ingested layer-streamed — the
+        inject commands are already queued; this only consumes the output
+        queue the ingest registered. Raises
+        :class:`~..llm.kv_transfer.RemotePrefillError` (before yielding
+        anything) if the engine-side ingest failed, so the caller can
+        fall back to local prefill."""
+        async for out in self._consume(context.id, context,
+                                       ingest_fallback=True):
+            yield out
+
+    async def _generate(self, work, context: Context
+                        ) -> AsyncIterator[EngineOutput]:
+        kind, payload = work
         self._loop = asyncio.get_running_loop()
         seq_id = context.id
-        q: asyncio.Queue = asyncio.Queue()
-        self._queues[seq_id] = q
-        self._inbox.put(("submit", seq_id, request))
+        self._queues[seq_id] = asyncio.Queue()
+        self._inbox.put((kind, seq_id, payload))
         self._wake.set()
+        async for out in self._consume(seq_id, context):
+            yield out
+
+    async def _consume(self, seq_id: str, context: Context,
+                       ingest_fallback: bool = False
+                       ) -> AsyncIterator[EngineOutput]:
+        q = self._queues[seq_id]
 
         async def watch_cancel():
             await context.stopped()
@@ -1156,6 +1564,14 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
             while True:
                 so: StepOutput = await q.get()
                 if so.finish == FinishReason.ERROR:
+                    if ingest_fallback and so.error_stage == "kv_ingest":
+                        # torn/failed stream inject: the pages are
+                        # released; hand control back so the caller
+                        # prefills locally instead of erroring the user
+                        from ..llm.kv_transfer import RemotePrefillError
+
+                        raise RemotePrefillError(so.error
+                                                 or "kv ingest failed")
                     yield EngineOutput(token_ids=[],
                                        finish_reason=FinishReason.ERROR,
                                        error=so.error or "engine error",
@@ -1163,6 +1579,7 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
                                        error_stage=so.error_stage,
                                        error_reason=so.error_reason)
                     return
+                ingest_fallback = False   # tokens flowed: no fallback
                 yield EngineOutput(
                     token_ids=[so.token],
                     cum_log_prob=so.logprob,
@@ -1188,3 +1605,96 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
         # the engine's per-worker gauge series die with it: a process that
         # outlives its engine would otherwise export ghost occupancy/MFU
         self.core.stage.clear_worker(str(os.getpid()))
+
+
+def _set_result(fut: asyncio.Future, res) -> None:
+    if not fut.done():
+        fut.set_result(res)
+
+
+def _set_exception(fut: asyncio.Future, exc: BaseException) -> None:
+    if not fut.done():
+        fut.set_exception(exc)
+
+
+class KvIngest:
+    """Asyncio-side handle for one layer-streamed KV injection.
+
+    Created by :meth:`TorchEngine.kv_ingest` before the request parks on
+    the prefill queue; the :class:`~..llm.kv_transfer.KvReceiver` drives
+    it from the ``kv_receive`` handler: :meth:`begin` validates the wire
+    geometry against the engine and registers the output queue,
+    :meth:`layer` posts one arrived layer to the engine thread (staged,
+    and scattered a group of layers at a time while later layers are
+    still on the wire), :meth:`finish` posts the finalize (seal + enter
+    decode + first token), :meth:`abort` tears everything down with the
+    pool pages released unseen. All methods are cheap posts — no device
+    syncs."""
+
+    def __init__(self, engine: TorchEngine, request: BackendInput,
+                 seq_id: str):
+        self.engine = engine
+        self.request = request
+        self.seq_id = seq_id
+        self.began = False
+        self.finished = False
+
+    def _post(self, kind: str, payload) -> None:
+        self.engine._inbox.put((kind, self.seq_id, payload))
+        self.engine._wake.set()
+
+    def begin(self, meta: dict) -> bool:
+        """Validate the stream's geometry and arm the ingest. False =
+        decline (mismatched model geometry / tokens): the receiver falls
+        back to buffered assembly, which surfaces the mismatch through
+        the whole-array import path."""
+        m = self.engine.core.cfg.model
+        if (int(meta.get("layers", -1)) != m.num_layers
+                or int(meta.get("kv_heads", -1)) != m.num_kv_heads
+                or int(meta.get("head_dim", -1)) != m.head_dim
+                or int(meta.get("tokens", -1))
+                != len(self.request.token_ids)):
+            log.warning("kv stream geometry %s does not match engine "
+                        "(%d layers, %d kv heads, %d head_dim); buffering",
+                        {k: meta.get(k) for k in
+                         ("layers", "kv_heads", "head_dim", "tokens")},
+                        m.num_layers, m.num_kv_heads, m.head_dim)
+            return False
+        self.engine._loop = asyncio.get_running_loop()
+        self.engine._queues[self.seq_id] = asyncio.Queue()
+        self._post("ingest_begin", self.request)
+        self.began = True
+        return True
+
+    def layer(self, layer: int, k: np.ndarray, v: np.ndarray) -> None:
+        self._post("ingest_layer", (layer, k, v))
+
+    def finish(self, first_token: int, first_logprob: float) -> None:
+        self.finished = True
+        self._post("ingest_finish", (int(first_token),
+                                     float(first_logprob)))
+
+    def abort(self) -> None:
+        """Idempotent, and a no-op once :meth:`finish` posted: the waiter
+        consumes the finished sequence's queue, so a late abandon (the
+        ``await_remote_kv`` finally) must not tear it down. For an
+        UNfinished ingest the abort posts through the same FIFO inbox the
+        begin rode, so a local-prefill resubmit of the same seq_id is
+        processed strictly after the pool pages were released."""
+        if self.began and not self.finished:
+            self._post("ingest_abort", None)
+            self.engine._queues.pop(self.seq_id, None)
+            self.began = False
+
+    def discard(self) -> None:
+        """The waiter gave up AFTER the ingest finished (its sequence is
+        already decoding) and will never consume the outputs: cancel the
+        orphaned sequence and drop its queue so the slot and the dict
+        entry don't leak until max_tokens."""
+        if self.finished:
+            self._post("cancel", None)
+            self.engine._queues.pop(self.seq_id, None)
+            self.finished = False
+            self.began = False
+        else:
+            self.abort()

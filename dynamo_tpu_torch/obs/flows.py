@@ -34,11 +34,10 @@ via ``fetch_stage_states`` — :func:`flows_from_states` folds that merged
 view back into one link table (the shared backend of ``dyntop links:``,
 ``GET /v1/flows`` and ``ctl flows``).
 
-In the JAX package every flow with measured seconds also feeds the
-per-(src,dst) bandwidth EWMA behind the router's transfer-cost model
-(``llm/kv_transfer.observe_pair_bw``). The port has no ``kv_transfer``
-module yet, so that feed arrives with it; the ledger, its gauges and its
-views are the JAX module's.
+Every flow with measured seconds also feeds the per-(src,dst) bandwidth
+EWMA behind the router's transfer-cost model
+(``llm/kv_transfer.observe_pair_bw``), as in the JAX package; the ledger,
+its gauges and its views are the JAX module's.
 """
 
 from __future__ import annotations
@@ -205,6 +204,13 @@ class FlowLedger:
                                   cap=round(cap))
             _incidents.trigger("link_congested", link=link,
                                sat=round(sat, 3), kind=kind)
+        if seconds > 0:
+            # ALL kinds feed the router's per-pair bandwidth EWMA — the
+            # TransferCostModel prices total observed traffic, not just
+            # disagg receives (lazy import: kv_transfer imports obs)
+            from ..llm.kv_transfer import observe_pair_bw
+
+            observe_pair_bw(src, dst, int(nbytes), float(seconds))
         if trace_id is not None and seconds > 0:
             from ..utils.tracing import get_tracer
 

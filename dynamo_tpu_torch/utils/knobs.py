@@ -59,6 +59,7 @@ _DOCS = {
     "faults": "docs/robustness.md",
     "router": "docs/kv_cache_routing.md",
     "store": "docs/observability.md",
+    "disagg": "docs/disagg_serving.md",
 }
 
 
@@ -179,6 +180,9 @@ _ALL: List[Knob] = [
     _k("DYN_WATCHDOG_FLOOR", "float", "1.0", "tracing",
        "absolute floor, seconds, under the EWMA-multiple threshold — a "
        "noisy sub-millisecond EWMA must not yield false stalls"),
+    _k("DYN_WATCHDOG_TRANSFER", "float", "5.0", "tracing",
+       "no-layer-progress budget for an in-flight disagg KV stream, "
+       "seconds, before stall:transfer fires"),
     _k("DYN_WATCHDOG_LOOP_STALL", "float", "1.0", "tracing",
        "event-loop stall threshold: watchdog tick lateness, seconds"),
     _k("DYN_INCIDENT_TTL", "float", "3600", "tracing",
@@ -279,6 +283,18 @@ _ALL: List[Knob] = [
        'cluster-wide KV sharing: workers publish sealed-block '
        'registry records + serve/consume kv_fetch, routers stamp '
        'donors'),
+    # -------------------------------------------------------------- disagg
+    _k("DYN_PREFILL_QUEUE_MAX", "int", "0", "disagg",
+       "bounded shared prefill queue depth (0 = unbounded)"),
+    _k("DYN_PREFILL_QUEUE_MAX_BATCH", "int", "max/2", "disagg",
+       "batch-priority share of the prefill queue"),
+    _k("DYN_KV_STREAM", "bool", "1", "disagg",
+       "layer-streamed disagg KV ingestion: each arriving layer's device "
+       "scatter is enqueued while later layers are in flight (0 = legacy "
+       "full-arrival import; the bench A/B switch)"),
+    _k("DYN_KV_BW_ALPHA", "float", "0.3", "disagg",
+       "EWMA weight of a new per-pair KV-transfer bandwidth observation "
+       "(llm_kv_pair_bw_bytes_per_s)"),
     # ---------------------------------------------------------- roofline
     _k("DYN_PEAK_FLOPS", "float", "", "roofline",
        "override peak accelerator FLOP/s for MFU accounting"),

@@ -11,8 +11,9 @@ for O(1) outputs in bf16. Each case also checks that the wrapper counted
 its launches. ``test_paged_split_plan`` checks the paged kernel's host-side
 split plan and runs on the CPU. The engine tests at the end serve the
 CLI's default tiny-byte (Dh=16), check the construction-time kernel check,
-and enqueue a chained decode dispatch under
-``torch.cuda.set_sync_debug_mode("error")``.
+enqueue a chained decode dispatch under
+``torch.cuda.set_sync_debug_mode("error")``, and stream a prompt's KV into
+a pool layer by layer under the same mode.
 """
 
 import numpy as np
@@ -416,6 +417,53 @@ def test_chained_decode_enqueue_does_not_sync():
             break
     assert got["a"] + got["b"] > 0 and not core.has_work
     assert core.pool.free_pages == core.pool.num_pages - 1
+
+
+@pytest.mark.cuda
+def test_streamed_kv_ingest_matches_inject_and_does_not_sync():
+    """A prompt's KV, extracted from one engine on the card, entered into
+    another whole (``inject_prefilled``) and layer by layer
+    (``stream_inject_layer`` under ``set_sync_debug_mode("error")``: the
+    pinned staging and the grouped scatters take no host sync): both
+    pools hold the same bits, and both sequences stream the same tokens
+    as a local prefill."""
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+
+    _card()
+    src, dst = _tiny_core(), _tiny_core()
+    prompt = list(range(3, 203))
+    req = BackendInput(token_ids=prompt, stop=StopConditions(
+        max_tokens=12, ignore_eos=True))
+    _submit(src, "local", prompt, 12)
+    local = []
+    while src.has_work:
+        local += [so.token for so in src.step()]
+    k, v, tok, logp = src.prefill_extract("x", req)
+    assert k.dtype == np.uint16 and k.shape == (2, 200, 2, 16)
+    assert tok == local[0]
+    for sid in ("whole", "streamed"):
+        if sid == "whole":
+            first = dst.inject_prefilled(sid, req, k, v, tok, logp)
+        else:
+            dst.begin_stream_inject(sid, req)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for layer in range(k.shape[0]):
+                    dst.stream_inject_layer(sid, layer, k[layer], v[layer])
+                first = dst.finish_stream_inject(sid, tok, logp)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        kk, vv = dst.extract_kv(sid, count=len(prompt))
+        np.testing.assert_array_equal(kk, k)
+        np.testing.assert_array_equal(vv, v)
+        # decoded alone, as the local request was: the same shapes
+        got = [first.token]
+        while dst.has_work:
+            got += [so.token for so in dst.step()]
+        assert got == local, sid
+    assert dst.pool.free_pages == dst.pool.num_pages - 1
 
 
 # ---------------------------------------------------------------------------

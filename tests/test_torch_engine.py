@@ -431,15 +431,18 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """...nor ``xxhash`` or ``aiohttp``, which the card's machine lacks: the
-    port carries its own XXH3-64 (``llm/xxh3.py``) and serves HTTP on the
-    standard library's asyncio (``llm/http_service.py``)."""
+    """...nor ``xxhash``, ``aiohttp``, ``msgpack`` or ``ml_dtypes``, which
+    the card's machine lacks: the port carries its own XXH3-64
+    (``llm/xxh3.py``) and MessagePack (``runtime/_msgpack.py``), serves
+    HTTP on the standard library's asyncio (``llm/http_service.py``), and
+    moves bf16 KV as ``uint16`` bits (``llm/kv_transfer.py``)."""
     files = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): sorted(
                r for r in set(_imported_roots(f))
-               if r in ("jax", "jaxlib", "dynamo_tpu", "xxhash", "aiohttp"))
+               if r in ("jax", "jaxlib", "dynamo_tpu", "xxhash", "aiohttp",
+                        "msgpack", "ml_dtypes"))
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
 
