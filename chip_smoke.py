@@ -118,6 +118,26 @@ with a traceback and prints no result:
                seconds and GB/s, the flows, each worker's peak memory, and
                the data plane's own rate on the same parts.
 
+12. spec     — speculative decoding in process on the serve phase's
+               weight tensors (Llama-3-8B, full width and depth, its engine
+               arguments): an n-gram engine (k=4) with four concurrent
+               requests (a 64-token block repeated 8 times and the reuse
+               prompt, greedy; one sampled; one presence-penalty lane that
+               rides the verify with zero drafts), then a ``no_spec``
+               request, and a draft-model engine (llama-3.2-1b, Dh=64,
+               random weights from seed + 101) on the two greedy prompts,
+               each against a spec-off engine. Every verify dispatch
+               launches the flash kernel once a layer and the target no
+               paged kernel, the draft's sync chunks and steps launch both
+               kernels at Dh=64, a greedy stream equals spec off or first
+               differs at a near-tie (top-2 gap under 2e-2 of the top
+               logit), the pool drains. Tokens per verify dispatch, accept
+               rate, K buckets, host seconds a round, the repeated prompt's
+               decode rate and ITL alone with spec on and off. The spec
+               counters on ``/metrics`` must equal the engine's: the HTTP
+               service in front of the draft engine (which drafts every
+               round), then ``cli.run`` serving ``{"spec": "ngram"}``.
+
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2.
 """
@@ -399,19 +419,46 @@ def http_post(port: int, path: str, body: dict, results: dict, key: str):
 
 
 @contextlib.contextmanager
+def http_front(card, core):
+    """The OpenAI HTTP service in front of the torch engine ``core`` (the
+    pipeline ``cli.run`` builds for ``out=torch``) on a free port, its loop
+    on a thread of its own: yields (loop, port, ModelManager); stops the
+    service after, not the engine."""
+    import asyncio
+
+    from dynamo_tpu_torch.llm.http_service import (HttpService, ModelManager,
+                                                   ServedModel)
+    from dynamo_tpu_torch.llm.pipeline import (build_chat_engine,
+                                               build_completion_engine)
+
+    loop = asyncio.new_event_loop()
+    manager = ModelManager()
+    manager.add(ServedModel(card, build_chat_engine(card, "core", core),
+                            build_completion_engine(card, "core", core)))
+    svc = HttpService(manager, host="127.0.0.1", port=0)
+    port = loop.run_until_complete(svc.start())
+    server = threading.Thread(target=loop.run_forever, name="http",
+                              daemon=True)
+    server.start()
+    try:
+        yield loop, port, manager
+    finally:
+        asyncio.run_coroutine_threadsafe(svc.stop(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        server.join(timeout=60)
+        loop.close()
+
+
+@contextlib.contextmanager
 def served(argv, env=None):
     """The CLI's torch engine (``cli.run`` arguments ``argv``; ``env`` set
     while it is built) behind the OpenAI HTTP service on a free port, its
     loop on a thread of its own: yields (TorchEngine, loop, port, model id,
     the engine's construction seconds, the ModelManager); stops both
     after."""
-    import asyncio
-
     import torch
 
     from dynamo_tpu_torch.cli.run import make_card, make_engines, parse_args
-    from dynamo_tpu_torch.llm.http_service import (HttpService, ModelManager,
-                                                   ServedModel)
 
     t0 = time.perf_counter()
     args = parse_args(["in=http", "out=torch", "--device", DEVICE, *argv])
@@ -419,7 +466,7 @@ def served(argv, env=None):
     saved = {k: os.environ.get(k) for k in env or {}}
     os.environ.update(env or {})
     try:
-        chat, comp, core = make_engines(args, card)
+        _, _, core = make_engines(args, card)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -428,24 +475,13 @@ def served(argv, env=None):
                 os.environ[k] = v
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    loop = asyncio.new_event_loop()
-    manager = ModelManager()
-    manager.add(ServedModel(card, chat, comp))
-    svc = HttpService(manager, host="127.0.0.1", port=0)
-    port = loop.run_until_complete(svc.start())
-    server = threading.Thread(target=loop.run_forever, name="http",
-                              daemon=True)
-    server.start()
     try:
-        http_post(port, "/v1/completions",
-                  {"model": card.name, "prompt": "warm up", "max_tokens": 2},
-                  {}, "warm")
-        yield core, loop, port, card.name, init_s, manager
+        with http_front(card, core) as (loop, port, manager):
+            http_post(port, "/v1/completions",
+                      {"model": card.name, "prompt": "warm up",
+                       "max_tokens": 2}, {}, "warm")
+            yield core, loop, port, card.name, init_s, manager
     finally:
-        asyncio.run_coroutine_threadsafe(svc.stop(), loop).result(60)
-        loop.call_soon_threadsafe(loop.stop)
-        server.join(timeout=60)
-        loop.close()
         core.shutdown()
 
 
@@ -635,7 +671,8 @@ def serve_phase(torch, att, smi: str):
         # read the trace only now: loading it builds millions of Python
         # objects, which must not overlap a timed phase
         row["profile_trace"] = profile_trace_check(core, launch)
-    return row, ref
+        params = c.params
+    return row, ref, params
 
 
 # ---------------------------------------------------------------------------
@@ -1969,6 +2006,11 @@ FLEET_PREFIX_TOKENS, FLEET_SUFFIX_TOKENS, FLEET_SEED = 1024, 64, 1024
 FLEET_START_S = 600          # the slowest start: two 8B workers at once
 FLEET_METRICS_S = 0.25       # the workers' metrics interval
 FLEET_LONG_TOKENS = 384      # keeps A's worker busy while B is routed
+# the children's liveness lease TTL (DYN_LEASE_TTL, default 10 s): two 8B
+# workers starting at once on the card's 8-core host block their event
+# loops for 5-9 s (their watchdogs), and a prefill worker's default lease
+# then lapsed before its first job ended (ROADMAP Queue 3 item 8)
+FLEET_LEASE_TTL_S = 30
 
 
 class Fleet:
@@ -1981,7 +2023,8 @@ class Fleet:
         self.root = root
         os.makedirs(root, exist_ok=True)
         self.procs: dict = {}
-        self.env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1")
+        self.env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1",
+                        DYN_LEASE_TTL=str(FLEET_LEASE_TTL_S))
 
     def start(self, name: str, module: str, *args: str):
         log = open(os.path.join(self.root, f"{name}.log"), "w")
@@ -2555,7 +2598,8 @@ async def _disagg_async(fleet: Fleet, store_port: int, http_port: int,
             sc0, "dyn_engine_dispatches_total", "kind") if w != dwid]
         if len(prefill_ids) != 1:
             raise AssertionError(f"prefill worker's dump not found: "
-                                 f"{prefill_ids}")
+                                 f"{prefill_ids}; its log:\n"
+                                 f"{fleet.log('prefill')[-3000:]}")
         (pwid,) = prefill_ids
 
         # 1. the lone remote request: the serve phase's cold stream
@@ -2779,6 +2823,352 @@ def disagg_phase(torch, smi: str, serve: dict) -> dict:
         fleet.stop()
 
 
+# ---------------------------------------------------------------------------
+# phase 12: speculative decoding
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_SEED = 1111
+SPEC_DRAFT = "llama-3.2-1b"      # the one preset with Llama-3's vocab
+SPEC_NEAR_TIE = 2e-2             # top-2 gap / |top logit| at a divergence
+SPEC_BUDGET_S = 300              # the phase's time limit on the card
+SPEC_GREEDY = ("repeat", "reuse", "penalty")
+SPEC_COUNTERS = ("prefill_dispatches", "decode_dispatches",
+                 "spec_dispatch_total", "spec_proposed_total",
+                 "spec_accepted_total", "spec_lane_rounds", "spec_seconds")
+
+
+def verify_inputs(torch, T, ctx=(64, 300, 777, 1024, 1500, 1800, 2000, 2112),
+                  Hq=32, Hkv=8, Dh=128):
+    """A verify dispatch as ``engine._spec_round`` builds it: lane b's
+    T = K+1 query rows are the last T positions of its ctx[b]-token context
+    (valid slots t < ctx[b]), S the longest context, up to max_context plus
+    the page pad (2112)."""
+    dev = torch.device(DEVICE)
+    B, S = len(ctx), max(ctx)
+    g = torch.Generator(device=dev).manual_seed(6)
+    bf = torch.bfloat16
+    q = torch.randn((B, T, Hq, Dh), generator=g, device=dev).to(bf)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=dev).to(bf)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device=dev).to(bf)
+    n = torch.tensor(ctx, dtype=torch.int32, device=dev)[:, None]
+    k_pos = torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+    q_pos = (n - T + torch.arange(T, dtype=torch.int32, device=dev)[None])
+    return (q, k, v, q_pos.contiguous(), k_pos, k_pos < n), []
+
+
+def spec_requests(vocab: int) -> dict:
+    """The spec phase's requests, made from the seed: a 64-token block
+    repeated 8 times (greedy, 128 tokens), the reuse prompt (greedy, 64),
+    one sampled request and one presence-penalty request (greedy, an
+    opt-out lane riding the verify with zero drafts)."""
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       SamplingOptions,
+                                                       StopConditions)
+
+    rng = np.random.default_rng(SPEC_SEED)
+    block = rng.integers(0, vocab, 64).tolist()
+
+    def bi(prompt, n, **sp):
+        return BackendInput(token_ids=prompt, sampling=SamplingOptions(**sp),
+                            stop=StopConditions(max_tokens=n,
+                                                ignore_eos=True))
+
+    return {"repeat": bi(block * 8, 128),
+            "reuse": bi(reuse_prompt(vocab), 64),
+            "sampled": bi(block * 2, 64, temperature=0.8, seed=SPEC_SEED),
+            "penalty": bi(rng.integers(0, vocab, 200).tolist(), 32,
+                          presence_penalty=0.5)}
+
+
+def spec_streams(engine, reqs: dict) -> dict:
+    """The requests of ``reqs`` at once through the engine's AsyncEngine
+    entry point: each one's token ids, TTFT and last-token time (s)."""
+    import asyncio
+
+    from dynamo_tpu_torch.llm.protocols.common import FinishReason
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    async def one(key, bi):
+        toks, stamps = [], []
+        t0 = time.perf_counter()
+        async for o in engine.generate(bi, Context()):
+            if o.finish_reason == FinishReason.ERROR:
+                raise AssertionError(f"spec request {key} failed: {o.error}")
+            toks += o.token_ids
+            stamps += [time.perf_counter() - t0] * len(o.token_ids)
+        if len(toks) != bi.stop.max_tokens:
+            raise AssertionError(f"spec request {key}: {len(toks)} tokens")
+        return dict(tokens=toks, ttft_s=stamps[0], last_s=stamps[-1])
+
+    async def go():
+        res = await asyncio.gather(*(one(k, bi) for k, bi in reqs.items()))
+        return dict(zip(reqs, res))
+
+    return asyncio.run(go())
+
+
+def _decode_rate(st: dict) -> dict:
+    n = len(st["tokens"])
+    span = st["last_s"] - st["ttft_s"]
+    return dict(ttft_s=st["ttft_s"], decode_tok_s=(n - 1) / span,
+                itl_ms=1e3 * span / (n - 1))
+
+
+def _spec_counts(core) -> dict:
+    out = {n: getattr(core, n) for n in SPEC_COUNTERS}
+    out["k_rounds"] = dict(core.spec_k_rounds)
+    p = core.proposer
+    out["draft_sync"] = getattr(p, "sync_dispatches", 0)
+    out["draft_steps"] = getattr(p, "steps_run", 0)
+    return out
+
+
+def _spec_delta(a: dict, b: dict) -> dict:
+    out = {k: b[k] - a[k] for k in a if k != "k_rounds"}
+    out["k_rounds"] = {k: v - a["k_rounds"].get(k, 0)
+                       for k, v in b["k_rounds"].items()
+                       if v - a["k_rounds"].get(k, 0)}
+    return out
+
+
+def _launches(att) -> dict:
+    return {"flash": dict(att.flash_attention.launches_by_head_dim),
+            "paged": dict(att.paged_attention.launches_by_head_dim)}
+
+
+def _reset_launches(att) -> None:
+    for w in (att.flash_attention, att.paged_attention):
+        w.launches = 0
+        w.launches_by_head_dim.clear()
+
+
+def greedy_rule(torch, core, bi, got: list, want: list) -> dict:
+    """Spec-on ``got`` against spec-off ``want`` for one greedy request:
+    equal, or, where they first differ, a near-tie: a teacher-forced
+    prefill of the prompt and the common prefix (with the request's
+    presence penalty over its generated tokens) has a top-2 logit gap
+    under SPEC_NEAR_TIE x |top logit| there."""
+    n = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if n is None:
+        if len(got) != len(want):
+            raise AssertionError(f"spec stream length {len(got)} vs "
+                                 f"{len(want)}")
+        return dict(first_divergence="none")
+    lg, _ = _prefix_logits(torch, core, list(bi.token_ids) + want[:n], 1)
+    pres = bi.sampling.presence_penalty or 0.0
+    if pres and n:
+        lg[torch.tensor(sorted(set(want[:n])), device=lg.device)] -= pres
+    top = torch.topk(lg, 2).values.tolist()
+    row = dict(first_divergence=n, tokens=[got[n], want[n]],
+               top2_gap=top[0] - top[1],
+               rel_gap=(top[0] - top[1]) / abs(top[0]))
+    if row["rel_gap"] >= SPEC_NEAR_TIE:
+        raise AssertionError(f"greedy spec stream diverged without a "
+                             f"near-tie: {row}")
+    return row
+
+
+def spec_phase(torch, att, smi: str, params) -> dict:
+    """Speculative decoding in process at Llama-3-8B full width and depth,
+    the serve phase's engine arguments, on the serve phase's weight
+    tensors (spec on and off hold the same weights; the card holds one
+    copy): n-gram (k=4) and draft-model (llama-3.2-1b, random weights from
+    seed + 101) engines against a spec-off one. Every verify dispatch must
+    launch the flash kernel once a layer (the target launches no paged
+    kernel), the draft's sync chunks and steps launch both kernels at
+    Dh=64, greedy streams follow the near-tie rule, every request answers,
+    the pool drains, and the HTTP service in front of the draft engine
+    shows its spec counters on ``/metrics``."""
+    from collections import Counter
+    from dataclasses import replace
+
+    from dynamo_tpu_torch.engine.engine import (TorchEngine,
+                                                TorchEngineConfig)
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+    t_phase = time.perf_counter()
+    card = ModelDeploymentCard.synthetic(PRESET)
+
+    def engine(**kw):
+        return TorchEngine(TorchEngineConfig.from_card(
+            card, **ENGINE_ARGS, device=DEVICE, **kw), params)
+
+    off = engine(spec="off")
+    try:
+        c = off.core
+        L = c.cfg.model.num_layers
+        reqs = spec_requests(c.cfg.model.vocab_size)
+        want = spec_streams(off, reqs)
+        off_alone = _decode_rate(spec_streams(
+            off, {"repeat": reqs["repeat"]})["repeat"])
+    finally:
+        off.shutdown()
+    rows = {}
+    for mode in ("ngram", "draft"):
+        kw = dict(spec=mode, spec_k=SPEC_K)
+        mine = dict(reqs)
+        if mode == "draft":
+            kw["spec_draft"] = SPEC_DRAFT
+            mine = {k: reqs[k] for k in ("repeat", "reuse")}
+        eng = engine(**kw)
+        try:
+            c = eng.core
+            c0 = _spec_counts(c)
+            _reset_launches(att)
+            t0 = time.perf_counter()
+            got = spec_streams(eng, mine)
+            wall = time.perf_counter() - t0
+            launches = _launches(att)
+            d = _spec_delta(c0, _spec_counts(c))
+            row = dict(phase="spec", mode=mode, k=SPEC_K, preset=PRESET,
+                       engine=ENGINE_ARGS, requests=len(mine), wall_s=wall,
+                       **{k: v for k, v in d.items()
+                          if k not in ("draft_sync", "draft_steps")},
+                       accept_rate=(d["spec_accepted_total"]
+                                    / d["spec_proposed_total"]
+                                    if d["spec_proposed_total"] else None),
+                       launches=launches, card=smi)
+            decode_tokens = sum(len(st["tokens"]) - 1 for st in got.values())
+            V = d["spec_dispatch_total"]
+            row.update(decode_tokens=decode_tokens,
+                       tokens_per_verify=decode_tokens / V if V else None,
+                       host_s_per_round=d["spec_seconds"] / V if V else None)
+            # by head dim: the target's, and the draft's (Dh=64 on the
+            # card) in draft mode
+            spec_flash = L * (d["prefill_dispatches"] + V)
+            want_flash = Counter({c.cfg.model.head_dim: spec_flash})
+            want_paged = Counter()
+            if mode == "draft":
+                dm = c.proposer.mcfg
+                dl = dm.num_layers
+                want_flash[dm.head_dim] += dl * d["draft_sync"]
+                want_paged[dm.head_dim] += dl * d["draft_steps"]
+                row.update(draft=SPEC_DRAFT, draft_layers=dl,
+                           draft_head_dim=dm.head_dim,
+                           draft_sync_dispatches=d["draft_sync"],
+                           draft_steps=d["draft_steps"],
+                           draft_flash_launches=dl * d["draft_sync"],
+                           draft_paged_launches=dl * d["draft_steps"])
+            row.update(spec_flash_launches=spec_flash,
+                       spec_paged_launches=0)
+            if not (V > 0 and d["decode_dispatches"] == 0
+                    and sum(d["k_rounds"].values()) == V
+                    and launches["flash"] == dict(+want_flash)
+                    and launches["paged"] == dict(+want_paged)
+                    and (mode == "ngram" or d["draft_steps"] > 0)):
+                raise AssertionError(
+                    f"spec {mode}: dispatches and launches do not account "
+                    f"for each other: {row}, want flash {want_flash}, "
+                    f"paged {want_paged}")
+            row["greedy"] = {k: greedy_rule(torch, c, reqs[k],
+                                            got[k]["tokens"],
+                                            want[k]["tokens"])
+                             for k in SPEC_GREEDY if k in mine}
+            if mode == "ngram":
+                row["repeat_alone"] = {"spec": _decode_rate(spec_streams(
+                    eng, {"repeat": reqs["repeat"]})["repeat"]),
+                    "off": off_alone}
+                p0 = c.spec_proposed_total
+                v0 = c.spec_dispatch_total
+                spec_streams(eng, {"no_spec": replace(
+                    reqs["repeat"], no_spec=True,
+                    stop=replace(reqs["repeat"].stop, max_tokens=32))})
+                row["no_spec"] = dict(
+                    proposed=c.spec_proposed_total - p0,
+                    verify_dispatches=c.spec_dispatch_total - v0)
+                if row["no_spec"]["proposed"] or \
+                        not row["no_spec"]["verify_dispatches"]:
+                    raise AssertionError(f"no_spec drafted: {row}")
+            else:
+                # the draft proposes every round: the HTTP service in
+                # front of this engine shows non-zero spec counters
+                with http_front(card, eng) as (_, port, _):
+                    row["http"] = spec_metrics_check(
+                        c, port, card.name, smi, "http-draft", drafts=True)
+            row["pool_free"] = c.pool.free_pages == c.pool.num_pages - 1
+            row["utilization_accept_rate"] = c.utilization()[
+                "spec_accept_rate"]
+            emit(row)
+            if not row["pool_free"]:
+                raise AssertionError(f"spec {mode}: pages leaked: {row}")
+            rows[mode] = row
+        finally:
+            eng.shutdown()
+    phase_s = time.perf_counter() - t_phase
+    if phase_s > SPEC_BUDGET_S:
+        raise AssertionError(f"spec phase took {phase_s:.1f} s, over its "
+                             f"{SPEC_BUDGET_S} s budget")
+    return dict(rows, phase_s=phase_s)
+
+
+def spec_metrics_check(c, port: int, model: str, smi: str, mode: str,
+                       drafts: bool) -> dict:
+    """One streamed and one plain greedy completion through the HTTP
+    service at ``port`` in front of engine core ``c``: the spec counters'
+    change on ``/metrics`` (proposed, accepted, and the accepted-per-
+    dispatch histogram's count and sum) must equal the engine's, and with
+    ``drafts`` be non-zero."""
+    prompt = "the card verifies drafts in one pass " * 12
+    names = ("spec_proposed_total", "spec_accepted_total",
+             "spec_lane_rounds", "spec_dispatch_total")
+    e0 = [getattr(c, n) for n in names]
+    sc0 = scrape(port)
+    res: dict = {}
+    for key, stream in (("stream", True), ("plain", False)):
+        http_post(port, "/v1/completions",
+                  {"model": model, "prompt": prompt, "max_tokens": 48,
+                   "stream": stream, "temperature": 0.0, "ignore_eos": True},
+                  res, key)
+    sc1 = scrape(port)
+    e = [getattr(c, n) - a for n, a in zip(names, e0)]
+
+    def delta(name):
+        return _total(sc1, name) - _total(sc0, name)
+
+    engine = dict(proposed=e[0], accepted=e[1], lane_rounds=e[2],
+                  verify_dispatches=e[3])
+    metrics = dict(
+        proposed=delta("dyn_spec_proposed_total"),
+        accepted=delta("dyn_spec_accepted_total"),
+        lane_rounds=delta("dyn_spec_accepted_per_dispatch_count"),
+        accepted_sum=delta("dyn_spec_accepted_per_dispatch_sum"))
+    row = dict(phase="spec", mode=mode, engine=engine, metrics=metrics,
+               tokens={k: r["usage"]["completion_tokens"]
+                       for k, r in res.items()},
+               status={k: r["status"] for k, r in res.items()}, card=smi)
+    emit(row)
+    ok = (all(r["status"] == 200 and r["usage"]["completion_tokens"] > 0
+              for r in res.values())
+          and engine["verify_dispatches"] > 0
+          and (engine["proposed"] > 0 or not drafts)
+          and metrics["proposed"] == engine["proposed"]
+          and metrics["accepted"] == engine["accepted"]
+          and metrics["lane_rounds"] == engine["lane_rounds"]
+          and metrics["accepted_sum"] == engine["accepted"])
+    if not ok:
+        raise AssertionError(f"spec counters on /metrics disagree with "
+                             f"the engine: {row}")
+    return row
+
+
+def spec_http_phase(torch, smi: str) -> dict:
+    """``cli.run in=http out=torch`` with n-gram speculation from
+    ``--extra-engine-args``: :func:`spec_metrics_check` on its server."""
+    argv = ["--model-name", PRESET, "--extra-engine-args",
+            json.dumps({"preset": PRESET, "spec": "ngram"})]
+    with served(argv) as (core, _, port, model, _, _):
+        c = core.core
+        if c.spec is None or c.spec.mode != "ngram":
+            raise AssertionError("the CLI's engine does not speculate")
+        row = spec_metrics_check(c, port, model, smi, "http-cli-ngram",
+                                 drafts=False)
+        row["engine_args"] = argv[-1]
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2821,17 +3211,35 @@ def main() -> int:
     # the CLI's default model, tiny-byte: Hq=4, Hkv=2, Dh=16
     flash16 = flash_case(torch, att, "tiny-byte",
                          *flash_inputs(torch, 2, 512, 1024, 4, 2, 16))
+    # speculative verify dispatches: K+1 = 5 and 2 query positions a lane
+    # over eight ragged contexts up to 2112 tokens
+    verify5 = flash_case(torch, att, "llama3-8b-verify",
+                         *verify_inputs(torch, 5))
+    verify2 = flash_case(torch, att, "llama3-8b-verify-t2",
+                         *verify_inputs(torch, 2))
+    # the llama-3.2-1b draft's sync chunk (Dh=64): the reuse prompt's
+    # second 512-token chunk
+    flash64 = flash_case(torch, att, "llama-3.2-1b",
+                         *flash_inputs(torch, 1, 512, 1024, 32, 8, 64,
+                                       ragged=False))
     from dynamo_tpu_torch.ops.paged_probe import PAGED_CASES
 
     paged_rows = {name: paged_case(torch, att, name, **kw)
                   for name, kw in PAGED_CASES.items()}
     paged, paged16 = paged_rows["llama3-8b"], paged_rows["tiny-byte"]
+    paged64 = paged_rows["llama-3.2-1b-draft"]
 
-    serve, _ = serve_phase(torch, att, smi)
+    serve, _, params = serve_phase(torch, att, smi)
     default = serve_default_phase(torch, att, smi)
     ckpt = checkpoint_phase(torch, att, smi)
     fleet = fleet_phase(torch, smi, serve["lone_stream"])
     disagg = disagg_phase(torch, smi, serve)
+    spec = spec_phase(torch, att, smi, params)
+    del params      # the HTTP engine draws the same weights from the seed
+    torch.cuda.empty_cache()
+    spec["http"] = spec_http_phase(torch, smi)
+    emit({"phase": "spec", "mode": "summary", "phase_s": spec["phase_s"]})
+    ngram, draft = spec["ngram"], spec["draft"]
 
     src = "dynamo_tpu_torch/ops/csrc/"
     kernels = [
@@ -2844,6 +3252,11 @@ def main() -> int:
              checkpoint_launches=ckpt["flash_launches"],
              fleet_launches=fleet["flash_launches"],
              disagg_launches=disagg["flash_launches"],
+             spec_launches=ngram["spec_flash_launches"],
+             draft_launches=draft["spec_flash_launches"],
+             verify_ms={"t5": verify5["ms"], "t2": verify2["ms"]},
+             verify_bound_frac={"t5": verify5["bound_frac"],
+                                "t2": verify2["bound_frac"]},
              max_abs_err=flash["max_abs_err"], ms=flash["ms"],
              plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
              bound_by=flash["bound_by"], bound_frac=flash["bound_frac"],
@@ -2858,6 +3271,8 @@ def main() -> int:
              checkpoint_launches=ckpt["paged_launches"],
              fleet_launches=fleet["paged_launches"],
              disagg_launches=disagg["paged_launches"],
+             spec_launches=ngram["spec_paged_launches"],
+             draft_launches=draft["spec_paged_launches"],
              max_abs_err=paged["max_abs_err"], ms=paged["ms"],
              plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
              bound_by=paged["bound_by"], bound_frac=paged["bound_frac"],
@@ -2879,6 +3294,24 @@ def main() -> int:
              max_abs_err=paged16["max_abs_err"], ms=paged16["ms"],
              plain_ms=paged16["plain_ms"], bound_ms=paged16["bound_ms"],
              bound_by=paged16["bound_by"], bound_frac=paged16["bound_frac"],
+             library_ms=None),
+        # the Dh=64 instances, on the llama-3.2-1b draft's path
+        dict(name="flash_attention_dh64", route="cuda",
+             source=src + "flash_attention.cu",
+             replaces="dynamo_tpu/ops/attention.py:166",
+             launches=draft["draft_flash_launches"],
+             max_abs_err=flash64["max_abs_err"], ms=flash64["ms"],
+             plain_ms=flash64["plain_ms"], bound_ms=flash64["bound_ms"],
+             bound_by=flash64["bound_by"], bound_frac=flash64["bound_frac"],
+             library_ms=flash64["library_ms"]),
+        dict(name="paged_attention_dh64", route="cuda",
+             source=src + "paged_attention.cu",
+             replaces="dynamo_tpu/ops/attention.py:400",
+             also_replaces="dynamo_tpu/ops/attention.py:552",
+             launches=draft["draft_paged_launches"], splits=paged64["splits"],
+             max_abs_err=paged64["max_abs_err"], ms=paged64["ms"],
+             plain_ms=paged64["plain_ms"], bound_ms=paged64["bound_ms"],
+             bound_by=paged64["bound_by"], bound_frac=paged64["bound_frac"],
              library_ms=None),
     ]
     emit({"kernels": kernels})

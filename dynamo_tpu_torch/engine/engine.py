@@ -43,10 +43,16 @@ Architecture:
   layer as the KV arrives (``begin_stream_inject`` ... ``finish_stream_
   inject``, driven through :class:`KvIngest`), each group of layers going
   to the card through pinned staging without a host sync.
+- Speculative decoding, as in the JAX engine (``spec="ngram"|"draft"`` or
+  ``DYN_SPEC``): each round a proposer (:mod:`.spec`) drafts up to k tokens
+  a lane, ONE forward over the k+1 positions (the flash kernel) verifies
+  them, and :func:`~.sampling.spec_verify` samples acceptance on the device
+  for one packed fetch. Rounds are synchronous: there is no in-flight
+  window in this mode.
 
 Not ported yet (the JAX engine has them): cluster write-through and
-placement prefetch of the KV tiers, speculative decoding, the long-context
-paging lane, multimodal input, MoE and tp/pp/sp.
+placement prefetch of the KV tiers, the long-context paging lane,
+multimodal input, MoE and tp/pp/sp.
 
 Reference capability: the role vLLM/TRT-LLM play behind the reference's
 adapters (continuous batching, paged KV, streaming detached tokens), per
@@ -86,7 +92,9 @@ from ..utils import roofline
 from ..utils.prometheus import stage_metrics
 from .cache import OutOfPages, PagePool
 from .sampling import (STATIC_K, apply_penalties, draw_uniforms,
-                       lane_generator, resume_seed, sample)
+                       lane_generator, resume_seed, sample, spec_accept,
+                       spec_uniforms, spec_unpack, spec_verify)
+from .spec import SeqSpecState, build_proposer, resolve_spec
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
@@ -94,9 +102,8 @@ log = logging.getLogger("dynamo_tpu_torch.engine")
 # raises instead of silently serving a different engine
 _NOT_PORTED = frozenset({
     "tp", "sp", "ep", "pp", "prefill_lanes", "attn_impl",
-    "warmup", "cluster_writethrough", "spec", "spec_k", "spec_draft",
-    "kvpage_budget", "kvpage_seg_pages", "kvpage_prefetch",
-    "kvpage_max_context", "kvpage_batch"})
+    "warmup", "cluster_writethrough", "kvpage_budget", "kvpage_seg_pages",
+    "kvpage_prefetch", "kvpage_max_context", "kvpage_batch"})
 
 
 @dataclass
@@ -119,6 +126,11 @@ class TorchEngineConfig:
     host_cache_blocks: int = 0          # host-DRAM KV tier capacity (0 = off)
     disk_cache_blocks: int = 0          # mmap spill tier capacity (0 = off)
     disk_cache_path: Optional[str] = None
+    # speculative decoding (engine/spec.py). None => consult the DYN_SPEC*
+    # env knobs; "" / "off" force-disables regardless of env
+    spec: Optional[str] = None          # "ngram" | "draft" | "off"/None
+    spec_k: Optional[int] = None        # max drafts/lane (None => DYN_SPEC_K)
+    spec_draft: Optional[str] = None    # draft preset/dir (None => env)
 
     @classmethod
     def from_card(cls, card: ModelDeploymentCard,
@@ -239,9 +251,14 @@ class EngineCore:
             # fallback: a model the CUDA kernels lack raises ValueError
             check_kernel_support(m.head_dim, m.dtype)
         self.page_size = cfg.page_size
+        self.spec = resolve_spec(cfg)
         # a dispatch may overshoot a finishing sequence by up to
-        # decode_steps tokens: they land in its own pre-allocated pages
-        self._pad = -(-cfg.decode_steps // cfg.page_size) * cfg.page_size
+        # decode_steps tokens (or, under spec decode, k_max drafts + 1
+        # bonus token): they land in its own pre-allocated pages
+        overshoot = cfg.decode_steps
+        if self.spec is not None:
+            overshoot = max(overshoot, self.spec.k_max + 1)
+        self._pad = -(-overshoot // cfg.page_size) * cfg.page_size
         self.max_pages_per_seq = -(-(cfg.max_context + self._pad)
                                    // cfg.page_size)
         num_pages = cfg.num_pages or (cfg.max_batch * self.max_pages_per_seq
@@ -352,6 +369,17 @@ class EngineCore:
         if self.device.type == "cuda":
             self._probe_kernels()
 
+        # --- speculative decoding: proposer, per-sequence state, counters
+        self.proposer = (build_proposer(self.spec, cfg, self.device)
+                         if self.spec is not None else None)
+        self._spec_states: Dict[str, SeqSpecState] = {}
+        self.spec_proposed_total = 0
+        self.spec_accepted_total = 0
+        self.spec_dispatch_total = 0    # verify dispatches
+        self.spec_k_rounds: Dict[int, int] = collections.Counter()  # by K
+        self.spec_lane_rounds = 0       # (lane, round) pairs that drafted
+        self.spec_seconds = 0.0         # host clock of whole rounds
+
     def _probe_kernels(self) -> None:
         """Build both CUDA kernels and launch each once at this engine's
         head shapes, so that a build or launch fault raises at construction
@@ -416,9 +444,9 @@ class EngineCore:
         """The worker's ForwardPassMetrics fields, with the JAX engine's
         keys and values for the same schedule: slots, blocks and waiting
         requests, the prefix hit rate, the windowed goodput rates, and the
-        KV bytes resident against capacity (device pool plus host tier).
-        ``spec_accept_rate`` stays 0 until speculative decoding is ported
-        (ROADMAP Queue 1 item 7). Any thread: reads counters only."""
+        KV bytes resident against capacity (device pool plus host tier),
+        and the drafted-token acceptance rate (0 with spec off or nothing
+        proposed yet). Any thread: reads counters only."""
         total = self.pool.num_pages - 1
         hit_rate = (self.prefix_hit_tokens / self.prefix_query_tokens
                     if self.prefix_query_tokens else 0.0)
@@ -436,7 +464,9 @@ class EngineCore:
             "kv_total_blocks": float(total),
             "num_requests_waiting": float(len(self.waiting)),
             "gpu_prefix_cache_hit_rate": hit_rate,
-            "spec_accept_rate": 0.0,
+            "spec_accept_rate": (
+                self.spec_accepted_total / self.spec_proposed_total
+                if self.spec_proposed_total else 0.0),
             "mfu": goodput["mfu"],
             "mbu": goodput["mbu"],
             "hbm_gbps": goodput["hbm_gbps"],
@@ -752,7 +782,11 @@ class EngineCore:
                 out = []
             if any(s is not None and s.prefill_done >= len(s.prompt)
                    for s in self.slots):
-                self._dispatch_decode(out)
+                if self.spec is not None:
+                    # synchronous per round: the window stays empty
+                    self._spec_round(out)
+                else:
+                    self._dispatch_decode(out)
         return self._tag_prefix_hits(out)
 
     def drop_window(self) -> None:
@@ -787,6 +821,9 @@ class EngineCore:
             return
         self._decode_seen.pop(i, None)
         self.generators[i] = None
+        self._spec_states.pop(slot.seq_id, None)
+        if self.proposer is not None:
+            self.proposer.drop(slot.seq_id)
         # the last sampled token's KV exists only once a later step fed it
         # back: a block it completed must not stay matchable
         if self._inflight:
@@ -1061,11 +1098,13 @@ class EngineCore:
         return None
 
     # ------------------------------------------------------------------
-    def _decode_eligible(self):
+    def _decode_eligible(self, lookahead: Optional[int] = None):
         """(slot_idx, slot, phys_len) for every decode-ready slot whose next
         dispatch's pages could be reserved; deferred = ready but no pages.
-        ``phys_len`` counts the tokens every enqueued dispatch has fed."""
-        N = self.cfg.decode_steps
+        ``phys_len`` counts the tokens every enqueued dispatch has fed.
+        ``lookahead`` is the page reservation beyond phys (default: the
+        decode dispatch's steps; the spec path passes its verify window)."""
+        N = self.cfg.decode_steps if lookahead is None else lookahead
         active, deferred = [], []
         for i, slot in enumerate(self.slots):
             if slot is None or slot.prefill_done < len(slot.prompt):
@@ -1249,6 +1288,159 @@ class EngineCore:
                     self._free_slot(i)
                     break
         return outs
+
+    # ------------------------------------------------------------------
+    # speculative decoding (engine/spec.py owns proposers and state)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _spec_opt_out(req: BackendInput) -> bool:
+        """Lanes that must not speculate (they still ride the verify
+        dispatch with zero drafts, which IS a plain single-token decode
+        step): per-request opt-out, and penalty requests, whose counts the
+        verify applies per dispatch, which is exact only when each dispatch
+        commits one token."""
+        if getattr(req, "no_spec", False):
+            return True
+        sp = req.sampling
+        return bool(sp.frequency_penalty or sp.presence_penalty)
+
+    def _spec_seq_state(self, slot: _Slot) -> SeqSpecState:
+        st = self._spec_states.get(slot.seq_id)
+        if st is None:
+            # created at first decode entry: exactly one generated token
+            # exists (the prefill- or injection-sampled first token)
+            st = SeqSpecState(tokens=list(slot.prompt) + [slot.last_token],
+                              k=self.spec.k_max,
+                              pending=[slot.last_token])
+            self._spec_states[slot.seq_id] = st
+        return st
+
+    def _spec_round(self, out: List[StepOutput]) -> None:
+        """One synchronous speculative-decoding round over the decode-ready
+        lanes (compact: active lanes only): propose up to k drafts a lane,
+        verify all of them in ONE forward over K+1 positions (the flash
+        kernel), sample acceptance on the device, fetch it once, and commit
+        only accepted tokens plus one correction or bonus token a lane."""
+        m, sp = self.cfg.model, self.spec
+        t0 = time.perf_counter()
+        # reserve the whole verify window (k_max drafts + bonus) up front:
+        # rollback is then pure bookkeeping, never data movement
+        active, deferred = self._decode_eligible(lookahead=sp.k_max + 1)
+        if not active:
+            if deferred:
+                self._evict_largest_deferred(deferred, out)
+            return
+        self._flush_evictions()   # ensure_pages() may have evicted pages
+        drafts: List[List[int]] = []
+        for i, slot, _ in active:
+            st = self._spec_seq_state(slot)
+            d: List[int] = []
+            if not self._spec_opt_out(slot.request):
+                d = [int(x) for x in
+                     self.proposer.propose(slot.seq_id, st, st.k)[:st.k]]
+            drafts.append(d)
+            self.spec_proposed_total += len(d)
+            if d:
+                self.stage.spec_proposed.inc(amount=float(len(d)))
+
+        K = sp.bucket(max(len(d) for d in drafts))
+        T, U = K + 1, sp.k_max + 1
+        Ba = len(active)
+        S = max(phys for _, _, phys in active) + K
+        tokens = np.zeros((Ba, T), np.int64)
+        positions = np.zeros((Ba, T), np.int32)
+        write_idx = np.zeros((Ba, T), np.int64)
+        read_idx = np.zeros((Ba, S), np.int64)
+        read_pos = np.zeros((Ba, S), np.int32)
+        read_valid = np.zeros((Ba, S), bool)
+        upd_tok = np.zeros((Ba, U), np.int64)
+        upd_mask = np.zeros((Ba, U), np.int32)
+        fresh = []
+        for a, ((i, slot, phys), d) in enumerate(zip(active, drafts)):
+            # column 0 is the last committed token (its KV is written here,
+            # as in single-token decode); columns 1.. are its drafts
+            tokens[a, 0] = slot.last_token
+            tokens[a, 1:1 + len(d)] = d
+            positions[a] = np.arange(phys - 1, phys - 1 + T)
+            write_idx[a] = self.pool.write_slots(slot.seq_id, phys - 1, T)
+            # causality masks the not-yet-written tail per query; validity
+            # only needs the lane's coverage
+            read_idx[a], read_pos[a], read_valid[a] = self.pool.read_slots(
+                slot.seq_id, phys + K, S)
+            upd = self._spec_states[slot.seq_id].pending[-U:]
+            upd_tok[a, :len(upd)] = upd
+            upd_mask[a, :len(upd)] = 1
+            if self._decode_seen.get(i) != slot.seq_id:
+                fresh.append(i)
+                self._decode_seen[i] = slot.seq_id
+        dev = self.device
+        idx = [i for i, _, _ in active]
+        lane = to_device(np.asarray(idx, np.int64), dev)
+        for i in fresh:
+            # a sequence entering decode restarts its penalty counts; the
+            # fold below adds its first generated token
+            self.gen_counts[i].zero_()
+        # fold the previous round's committed tokens into the counts
+        self.gen_counts.index_put_(
+            (lane[:, None].expand(Ba, U).reshape(-1),
+             to_device(upd_tok, dev).reshape(-1)),
+            to_device(upd_mask, dev).reshape(-1), accumulate=True)
+        temp, top_p, top_k = self._lane_tensors(idx)
+        freq = to_device(self.freq_pen[idx], dev)[:, None, None]
+        pres = to_device(self.pres_pen[idx], dev)[:, None, None]
+        uniforms = spec_uniforms([self.generators[i] for i in idx], K,
+                                 sp.k_max, dev)
+        tok_d = to_device(tokens, dev)
+        t_v = time.perf_counter()
+        logits, _, _ = llama.forward(
+            self.params, m, tok_d, to_device(positions, dev), self.k_pool,
+            self.v_pool, to_device(write_idx, dev), to_device(read_idx, dev),
+            to_device(read_pos, dev), to_device(read_valid, dev),
+            attn_impl="flash")                                 # [Ba, T, V]
+        cf = self.gen_counts[lane].float()[:, None, :]
+        lg = logits - freq * cf - pres * (cf > 0).float()
+        packed = spec_verify(lg, tok_d[:, 1:], temp, top_p, top_k, uniforms)
+        r = spec_unpack(packed.cpu().numpy(), K)      # ONE host fetch
+        elapsed = time.perf_counter() - t_v
+        self.spec_dispatch_total += 1
+        self.spec_k_rounds[K] += 1
+        fl, by, tk = roofline.verify_cost(
+            self.costs, [phys for _, _, phys in active], T)
+        self.goodput.account(fl, by, elapsed, tk)
+        n_emitted = 0
+        for a, ((i, slot, phys), d) in enumerate(zip(active, drafts)):
+            st = self._spec_states[slot.seq_id]
+            toks, lps, acc = spec_accept(
+                d, float(self.temperature[i]) <= 0.0,
+                {k: v[a] for k, v in r.items()})
+            self.spec_accepted_total += acc
+            if d:
+                self.spec_lane_rounds += 1
+                self.stage.spec_accepted.inc(amount=float(acc))
+                self.stage.spec_per_dispatch.observe(value=float(acc))
+            # positions phys-1 .. phys-1+acc hold committed tokens' KV; the
+            # last emitted token's slot holds a rejected draft's, or none
+            slot.kv_written = phys + acc
+            st.pending = []
+            for tok, lp in zip(toks, lps):
+                self.pool.account_tokens(slot.seq_id, [tok])
+                slot.generated += 1
+                slot.last_token = tok
+                slot.cum_logprob += lp
+                st.tokens.append(tok)
+                st.pending.append(tok)
+                n_emitted += 1
+                fin = self._finish_reason(slot, tok)
+                out.append(StepOutput(slot.seq_id, tok, slot.cum_logprob,
+                                      fin, token_logprob=lp))
+                if fin is not None:
+                    self._free_slot(i)
+                    break
+            if d and self.slots[i] is slot:
+                st.k = sp.next_k(st.k, acc, len(d))
+        if n_emitted:
+            self.stage.decode_step.observe(value=elapsed / n_emitted)
+        self.spec_seconds += time.perf_counter() - t0
 
 
 def _kv_dtype(dtype: np.dtype) -> torch.dtype:

@@ -16,7 +16,9 @@ PyTorch version of the same function beside it:
 A wrapper runs the plain version only for tensors on the CPU. A CUDA tensor
 always goes to the kernel; a kernel that fails to build or launch raises.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, so a run
-can show that the main path went through the kernel.
+can show that the main path went through the kernel, and by head dim in
+``<wrapper>.launches_by_head_dim``, so a run that serves two models (a target
+and its speculative draft) reads each one's launches apart.
 
 Reference capability: the CUDA paged/flash attention vLLM supplies behind the
 reference's engine adapters (SURVEY §2.1 engine rows).
@@ -24,6 +26,7 @@ reference's engine adapters (SURVEY §2.1 engine rows).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -174,10 +177,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention kernel launch failed "
                            f"(cudaError {err})")
     flash_attention.launches += 1
+    flash_attention.launches_by_head_dim[Dh] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_head_dim = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -290,10 +295,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise RuntimeError(f"paged_attention kernel launch failed "
                            f"(cudaError {err})")
     paged_attention.launches += 1
+    paged_attention.launches_by_head_dim[Dh] += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.launches_by_head_dim = collections.Counter()
 
 
 @functools.lru_cache(maxsize=None)

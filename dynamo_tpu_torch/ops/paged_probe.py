@@ -55,6 +55,9 @@ PAGED_CASES = {
                                "B": 6, "P": 25},
     "gemma2-9b-paged-dh256": {"softcap": 50.0, "window": 256, "Hq": 16,
                               "Hkv": 8, "Dh": 256},
+    # the llama-3.2-1b speculative draft's greedy step: one lane at the
+    # reuse prompt's length, head dim 64
+    "llama-3.2-1b-draft": {"lengths_l": [1500], "B": 1, "P": 24, "Dh": 64},
     # the tiny presets' heads at Dh 16: tiny-byte (the CLI's default
     # model) and tiny-gemma (one kv head), over the same 2048-token table
     "tiny-byte": {"Hq": 4, "Hkv": 2, "Dh": 16},

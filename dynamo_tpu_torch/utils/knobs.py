@@ -60,6 +60,7 @@ _DOCS = {
     "router": "docs/kv_cache_routing.md",
     "store": "docs/observability.md",
     "disagg": "docs/disagg_serving.md",
+    "spec": "docs/speculative.md",
 }
 
 
@@ -283,6 +284,22 @@ _ALL: List[Knob] = [
        'cluster-wide KV sharing: workers publish sealed-block '
        'registry records + serve/consume kv_fetch, routers stamp '
        'donors'),
+    # ---------------------------------------------------------------- spec
+    _k("DYN_SPEC", "str", "", "spec",
+       "speculative decoding mode: '' (off) | ngram | draft"),
+    _k("DYN_SPEC_K", "int", "4", "spec",
+       "max draft tokens per lane per dispatch"),
+    _k("DYN_SPEC_K_MIN", "int", "1", "spec", "adaptive-k floor"),
+    _k("DYN_SPEC_ADAPT", "bool", "1", "spec",
+       "per-lane adaptive k on acceptance history"),
+    _k("DYN_SPEC_NGRAM_MAX", "int", "3", "spec",
+       "longest suffix n-gram the prompt-lookup proposer tries"),
+    _k("DYN_SPEC_NGRAM_MIN", "int", "1", "spec",
+       "shortest suffix n-gram fallback"),
+    _k("DYN_SPEC_NGRAM_WINDOW", "int", "2048", "spec",
+       "trailing-token window the n-gram proposer indexes"),
+    _k("DYN_SPEC_DRAFT", "str", "", "spec",
+       "draft model preset name or checkpoint dir (mode=draft)"),
     # -------------------------------------------------------------- disagg
     _k("DYN_PREFILL_QUEUE_MAX", "int", "0", "disagg",
        "bounded shared prefill queue depth (0 = unbounded)"),

@@ -9,9 +9,12 @@ it runs without the suite's conftest:
 Inputs are made with numpy from a seed and cast to bf16; tolerance 2e-2,
 for O(1) outputs in bf16. Each case also checks that the wrapper counted
 its launches. ``test_paged_split_plan`` checks the paged kernel's host-side
-split plan and runs on the CPU. The engine tests at the end serve the
-CLI's default tiny-byte (Dh=16), check the construction-time kernel check,
-enqueue a chained decode dispatch under
+split plan and runs on the CPU. The flash cases at the speculative verify's
+shapes (T=2 and T=5 over ragged Llama-3-8B contexts) and both kernels at the
+llama-3.2-1b draft's head dim (64) hold the spec path's shapes. The engine
+tests at the end serve the CLI's default tiny-byte (Dh=16), speculate
+through the flash kernel (n-gram and draft), check the construction-time
+kernel check, enqueue a chained decode dispatch under
 ``torch.cuda.set_sync_debug_mode("error")``, and stream a prompt's KV into
 a pool layer by layer under the same mode.
 """
@@ -65,6 +68,71 @@ def test_flash_kernel_matches_plain(Hq, Hkv, Dh, kw):
     assert tatt.flash_attention.launches == n0 + 1
     assert (got - want).abs().max().item() <= TOL
     assert got[1, T - 8:].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,Hq,Hkv,Dh,ctx", [
+    # speculative verify dispatches of Llama-3-8B: K+1 query positions a
+    # lane at the end of ragged contexts (T=5: k=4, T=2: k=1)
+    (5, 32, 8, 128, (64, 300, 777, 1024, 1500, 1800, 2000, 2112)),
+    (2, 32, 8, 128, (1, 2, 129, 1024, 2111, 2112, 640, 65)),
+    # the llama-3.2-1b draft (Dh=64): a sync chunk, and a one-token one
+    (64, 32, 8, 64, (64, 200, 1500)),
+    (1, 32, 8, 64, (1, 700, 1500)),
+])
+def test_flash_kernel_at_spec_shapes(T, Hq, Hkv, Dh, ctx):
+    """Each lane's T query rows are the last T positions of its context,
+    as the verify (``engine._spec_round``) and the draft's sync chunk lay
+    them out; a lane shorter than T pads its first rows at position 0."""
+    dev = _card()
+    rng = np.random.default_rng(8)
+    B, S = len(ctx), max(ctx)
+    bf = torch.bfloat16
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(dev, bf) for shape in ((B, T, Hq, Dh), (B, S, Hkv, Dh),
+                                          (B, S, Hkv, Dh)))
+    q_pos = np.zeros((B, T), np.int32)
+    for b, n in enumerate(ctx):
+        rows = min(T, n)
+        q_pos[b, T - rows:] = np.arange(n - rows, n)
+    k_pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    k_valid = k_pos < np.asarray(ctx)[:, None]
+    q_pos, k_pos, k_valid = (torch.from_numpy(a).to(dev)
+                             for a in (q_pos, k_pos, k_valid))
+    n0 = tatt.flash_attention.launches
+    d0 = tatt.flash_attention.launches_by_head_dim[Dh]
+    got = tatt.flash_attention(q, k, v, q_pos, k_pos, k_valid).float()
+    want = tatt.flash_attention_plain(q, k, v, q_pos, k_pos,
+                                      k_valid).float()
+    assert tatt.flash_attention.launches == n0 + 1
+    assert tatt.flash_attention.launches_by_head_dim[Dh] == d0 + 1
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [(1500,), (2,), (64, 1497, 2048)])
+def test_paged_kernel_at_draft_shapes(lengths):
+    """The llama-3.2-1b draft's greedy step (Hq=32, Hkv=8, Dh=64, page
+    64): one lane, and a few at ragged lengths."""
+    dev = _card()
+    rng = np.random.default_rng(9)
+    B, P, page, Hq, Hkv, Dh = len(lengths), 32, 64, 32, 8, 64
+    n_pages = B * P + 1
+    bf = torch.bfloat16
+    q = torch.from_numpy(rng.standard_normal((B, Hq, Dh), np.float32))
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (Hkv, n_pages, page, Dh), np.float32)) for _ in range(2))
+    q, kp, vp = (x.to(dev, bf) for x in (q, kp, vp))
+    pt = torch.from_numpy((rng.permutation(n_pages - 1)[:B * P] + 1)
+                          .reshape(B, P).astype(np.int32)).to(dev)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    d0 = tatt.paged_attention.launches_by_head_dim[Dh]
+    got = tatt.paged_attention(q, kp, vp, pt, ln).float()
+    want = tatt.paged_attention_plain(q, kp, vp, pt, ln).float()
+    assert tatt.paged_attention.launches_by_head_dim[Dh] == d0 + 1
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
 
 
 def _gather_view(pool, read_idx, page):
@@ -372,6 +440,41 @@ def test_engine_serves_tiny_byte_at_head_dim_16():
     L = core.cfg.model.num_layers
     assert tatt.flash_attention.launches == L * core.prefill_dispatches > 0
     assert tatt.paged_attention.launches == L * core.decode_steps_run > 0
+    assert core.pool.free_pages == core.pool.num_pages - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ngram", "draft"])
+def test_spec_engine_verifies_through_the_flash_kernel(mode):
+    """Speculative decoding on the card (tiny-byte, and a tiny-byte draft
+    model): every verify dispatch launches the flash kernel once a layer,
+    the target launches no paged kernel, and the draft's steps launch it
+    once a draft layer."""
+    _card()
+    core = _tiny_core(spec=mode, spec_k=4)
+    tatt.flash_attention.launches = tatt.paged_attention.launches = 0
+    _submit(core, "a", [7] * 40, 24)
+    _submit(core, "b", list(range(50, 90)) * 2, 17)
+    got = {"a": 0, "b": 0}
+    for _ in range(200):
+        for so in core.step():
+            assert so.finish is None or so.finish.value == "length", so
+            got[so.seq_id] += 1
+        if not core.has_work:
+            break
+    assert got == {"a": 24, "b": 17}
+    L = core.cfg.model.num_layers
+    verify = core.spec_dispatch_total
+    assert verify > 0 and core.decode_dispatches == 0
+    draft_flash = draft_paged = 0
+    if mode == "draft":
+        p = core.proposer
+        draft_flash = p.mcfg.num_layers * p.sync_dispatches
+        draft_paged = p.mcfg.num_layers * p.steps_run
+        assert draft_flash > 0 and draft_paged > 0
+    assert tatt.flash_attention.launches == \
+        L * (core.prefill_dispatches + verify) + draft_flash
+    assert tatt.paged_attention.launches == draft_paged
     assert core.pool.free_pages == core.pool.num_pages - 1
 
 
