@@ -664,6 +664,8 @@ def serve_phase(torch, att, smi: str):
         row["ingest"] = ingest_phase(torch, core, loop,
                                      row["reuse"]["cold_tokens"], smi)
         row["chain"] = chain_sync_phase(torch, c)
+        row["chain_writethrough"] = chain_sync_phase(torch, c,
+                                                     writethrough=True)
         row["lone_stream"] = lone_stream(port)
         row["lone_stream"]["greedy_ids"] = asyncio.run_coroutine_threadsafe(
             greedy_ids(core), loop).result(600)
@@ -1305,6 +1307,31 @@ def reuse_phase(torch, att, engine, loop) -> dict:
         host_bits = np.stack([tiers.peek(h)[which]
                               for h in hashes[:n_blocks]])
         bitwise = bitwise and np.array_equal(dev_bits, host_bits)
+    # placement-driven prefetch: the same host-tier restore with the
+    # blocks staged on the side stream before admission (what a worker
+    # does while a request waits at its slot gate)
+    from dynamo_tpu_torch.llm.protocols.common import BackendInput
+
+    core.flush_reusable()
+    stage = core.stage
+    hits0 = stage.prefetch_h2d_hits.get()
+    stalls0 = stage.prefetch_h2d_stalls.get()
+    t0 = time.perf_counter()
+    staged_n = engine.prefetch_tiers(BackendInput(token_ids=prompt))
+    stage_s = time.perf_counter() - t0
+    staged_toks, staged = run("warm_host_staged")
+    prefetch = dict(staged_blocks=staged_n, stage_s=stage_s,
+                    h2d_hits=stage.prefetch_h2d_hits.get() - hits0,
+                    h2d_stalls=stage.prefetch_h2d_stalls.get() - stalls0,
+                    ttft_s=staged["ttft_s"], restore_s=staged["restore_s"],
+                    tokens_equal_sync=staged_toks == host_toks,
+                    kv_prefix_hit_tokens=staged["kv_prefix_hit_tokens"])
+    emit({"phase": "reuse", "run": "prefetch", **prefetch})
+    if not (staged_n == prefetch["h2d_hits"] == n_blocks
+            and prefetch["h2d_stalls"] == 0
+            and prefetch["tokens_equal_sync"]
+            and staged["kv_prefix_hit_tokens"] == expect_hit):
+        raise AssertionError(f"staged prefetch: {prefetch}")
     rates = _copy_rates(torch, core, hashes[:n_blocks])
     cold_lg, warm_lg = _prefix_logits(torch, core, prompt,
                                       REUSE_PROMPT - expect_hit)
@@ -1339,8 +1366,14 @@ def reuse_phase(torch, att, engine, loop) -> dict:
           and cold["tokens"] == warm["tokens"] == REUSE_TOKENS)
     if not ok:
         raise AssertionError(f"reuse phase failed: {row}")
-    return dict(row, runs=[cold, warm, host, again], flush=flush,
-                cold_tokens=cold_toks)
+    # the prompt's blocks as a cold prefill wrote them (the host tier's
+    # bits): the cluster phase holds a worker's write-through mirrors to
+    # them
+    block_bits = [np.stack([tiers.peek(h)[which] for h in hashes[:n_blocks]])
+                  for which in (0, 1)]
+    return dict(row, runs=[cold, warm, host, again, staged], flush=flush,
+                prefetch=prefetch, cold_tokens=cold_toks,
+                warm_host_tokens=host_toks, block_bits=block_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -1418,52 +1451,113 @@ def ingest_phase(torch, engine, loop, want: list, smi: str) -> dict:
 # phase 7: a chained decode enqueue makes no host sync
 # ---------------------------------------------------------------------------
 
-def chain_sync_phase(torch, served) -> dict:
+def _ready_mirrors(core) -> list:
+    """A core's pending write-through entries whose KV is written (what
+    the next step boundary gathers), without taking them."""
+    out = []
+    for seq_hash, page, seq_id, end in core._wt_pending:
+        written = core._kv_written(seq_id)
+        if core.pool.blocks.sealed_hash(page) == seq_hash and (
+                written is None or written >= end):
+            out.append(seq_hash)
+    return out
+
+
+def chain_sync_phase(torch, served, writethrough: bool = False) -> dict:
     """On a second engine core that shares the served weights (the serving
     core belongs to its engine thread), two requests decode until the next
     dispatch can chain off the one in flight; that enqueue then runs under
     ``torch.cuda.set_sync_debug_mode("error")``, where any host sync (a
-    pageable copy, ``.item()``, a stream sync) raises."""
+    pageable copy, ``.item()``, a stream sync) raises.
+
+    With ``writethrough`` the core has a host tier and cluster
+    write-through, the requests run until a sealed block's mirror is ready
+    at a chainable step, and the step boundary's mirror gather runs under
+    the same mode before the chained enqueue; every mirrored block must
+    then equal its device pages bit for bit."""
     import dataclasses
+
+    import numpy as np
 
     from dynamo_tpu_torch.engine.engine import EngineCore
     from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
                                                        StopConditions)
 
     cfg = dataclasses.replace(served.cfg, max_batch=2, num_pages=None,
-                              host_cache_blocks=0)
+                              host_cache_blocks=32 if writethrough else 0,
+                              cluster_writethrough=writethrough)
     core = EngineCore(cfg, served.params)
-    for sid in ("a", "b"):
-        core.submit(sid, BackendInput(
-            token_ids=list(range(1, 65)) if sid == "a" else [7] * 40,
-            stop=StopConditions(max_tokens=48, ignore_eos=True)))
+    # with write-through, a's 60-token prompt fills its first page on the
+    # fourth decoded token: that block seals inside the chained window
+    prompts = {"a": list(range(1, 61 if writethrough else 65)),
+               "b": [7] * 40}
+    for sid, prompt in prompts.items():
+        core.submit(sid, BackendInput(token_ids=prompt, stop=StopConditions(
+            max_tokens=48, ignore_eos=True)))
     for _ in range(20):
         core.step()
-        if len(core._inflight) == 1 and core._can_chain():
+        if len(core._inflight) == 1 and core._can_chain() and (
+                not writethrough or _ready_mirrors(core)):
             break
     else:
-        raise AssertionError("the window never became chainable")
+        raise AssertionError("the window never became chainable"
+                             + (" with a mirror ready" if writethrough
+                                else ""))
     n = core.decode_dispatches
+    ready = set(_ready_mirrors(core))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
+        if writethrough:
+            core._advance_writethrough()
+        t1 = time.perf_counter()
         core._dispatch_decode()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    enqueue_s = time.perf_counter() - t0
+    enqueue_s = time.perf_counter() - t1
+    mirror_enqueue_s = t1 - t0
     chained = core.decode_dispatches == n + 1 and core._inflight[-1]["chained"]
+    moving = {h for r in core._wt_copies for h, _ in r["entries"]}
     tokens = 0
     for _ in range(40):
         tokens += len(core.step())
         if not core.has_work:
             break
     row = dict(phase="chain", sync_debug_mode="error", chained=chained,
+               writethrough=writethrough,
                enqueue_s=enqueue_s, decode_steps=core.cfg.decode_steps,
+               decode_step_ms=1e3 * core.decode_seconds
+               / core.decode_steps_run,
                tokens_after=tokens, drained=not core.has_work,
                pages_free=core.pool.free_pages == core.pool.num_pages - 1)
+    ok = chained and row["drained"] and row["pages_free"]
+    if writethrough:
+        core.flush_writethrough()
+        host, _ = core.tiered.hashes()
+        bitwise = True
+        for h in host:
+            page = core.pool.blocks._by_hash[h]
+            for which, pool in enumerate((core.k_pool, core.v_pool)):
+                dev = pool[:, :, page].view(torch.int16).cpu().numpy()
+                bitwise = bitwise and np.array_equal(
+                    core.tiered.peek(h)[which].view(np.int16), dev)
+        row.update(mirror_enqueue_s=mirror_enqueue_s,
+                   mirrors_ready=len(ready),
+                   mirrors_in_the_gather=len(ready & moving),
+                   mirrored_blocks=core.writethrough_blocks,
+                   tier_blocks=len(host),
+                   mirror_bytes=core.writethrough_bytes,
+                   mirror_s=core.writethrough_seconds,
+                   mirror_host_enqueue_s=core.writethrough_enqueue_seconds,
+                   mirror_gb_s=core.writethrough_bytes
+                   / core.writethrough_seconds / 1e9
+                   if core.writethrough_seconds else None,
+                   mirrors_bitwise_equal=bitwise)
+        ok = ok and bool(ready) and ready <= moving | set(host) \
+            and bitwise and len(host) == core.writethrough_blocks >= 2
     emit(row)
-    if not (chained and row["drained"] and row["pages_free"]):
+    if not ok:
         raise AssertionError(f"chained enqueue check failed: {row}")
     return row
 
@@ -2006,11 +2100,6 @@ FLEET_PREFIX_TOKENS, FLEET_SUFFIX_TOKENS, FLEET_SEED = 1024, 64, 1024
 FLEET_START_S = 600          # the slowest start: two 8B workers at once
 FLEET_METRICS_S = 0.25       # the workers' metrics interval
 FLEET_LONG_TOKENS = 384      # keeps A's worker busy while B is routed
-# the children's liveness lease TTL (DYN_LEASE_TTL, default 10 s): two 8B
-# workers starting at once on the card's 8-core host block their event
-# loops for 5-9 s (their watchdogs), and a prefill worker's default lease
-# then lapsed before its first job ended (ROADMAP Queue 3 item 8)
-FLEET_LEASE_TTL_S = 30
 
 
 class Fleet:
@@ -2023,8 +2112,8 @@ class Fleet:
         self.root = root
         os.makedirs(root, exist_ok=True)
         self.procs: dict = {}
-        self.env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1",
-                        DYN_LEASE_TTL=str(FLEET_LEASE_TTL_S))
+        # the children run with the default liveness lease TTL (10 s)
+        self.env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1")
 
     def start(self, name: str, module: str, *args: str):
         log = open(os.path.join(self.root, f"{name}.log"), "w")
@@ -2056,6 +2145,15 @@ class Fleet:
             time.sleep(0.1)
         raise AssertionError(f"fleet {name}: no {pattern!r} in {timeout} s:"
                              f"\n{self.log(name)[-3000:]}")
+
+    def wedges(self) -> dict:
+        """Each child's event-loop stalls as its watchdog logged them
+        ("event_loop wedged for X s"), in seconds."""
+        import re
+
+        return {name: [float(x) for x in re.findall(
+            r"event_loop wedged for ([0-9.]+)s", self.log(name))]
+            for name in self.procs}
 
     def stop(self) -> None:
         for name, (proc, log) in self.procs.items():
@@ -2490,6 +2588,7 @@ def fleet_phase(torch, smi: str, serve_lone: dict) -> dict:
                    dataplane_added_ms_per_token=(
                        row["fleet_lone_stream"]["itl_ms"]
                        - serve_lone["itl_ms"]),
+                   loop_wedges_s=fleet.wedges(),
                    phase_s=time.perf_counter() - t_phase)
         row["flash_launches"] = sum(w["launches"]["flash_attention"]
                                     for w in row["workers"].values())
@@ -2816,6 +2915,410 @@ def disagg_phase(torch, smi: str, serve: dict) -> dict:
                    send_gb_s=xfer["send"]["gb_s"],
                    recv_gb_s=xfer["recv"]["gb_s"],
                    ingest=serve["ingest"], card=smi,
+                   loop_wedges_s=fleet.wedges(),
+                   phase_s=time.perf_counter() - t_phase)
+        emit(row)
+        return row
+    finally:
+        fleet.stop()
+
+
+# ---------------------------------------------------------------------------
+# phase 11b: cluster-wide KV sharing, each worker a process
+# ---------------------------------------------------------------------------
+
+CLUSTER_DIR = os.path.join(ROOT, "build", "dynamo_tpu_torch", "cluster")
+CLUSTER_SEED = 1497             # the router step's shared prefix
+CLUSTER_PUBLISH_S = 0.25        # the workers' registry publish interval
+CLUSTER_COST_S = 6.0            # the router refreshes its cost model every 5 s
+CLUSTER_BUSY_TOKENS = 128       # B's request that the staged one waits behind
+# one request at a time a worker: a running and a waiting request saturate
+# one, and a worker's pool (33 pages) holds about one 1496-token prompt
+CLUSTER_MAX_BATCH = 1
+
+
+async def _cluster_async(fleet: Fleet, store_port: int, http_port: int,
+                         ids: dict, reuse: dict) -> dict:
+    import asyncio
+
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.kv_cluster import KvClusterIndex
+    from dynamo_tpu_torch.llm.kv_cluster.fetch import fetch_prefix
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+    from dynamo_tpu_torch.llm.tokens import compute_seq_hashes
+    from dynamo_tpu_torch.models.llama import preset
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    m = preset(PRESET)
+    Lk = m.num_layers * (DEVICE == "cuda")   # the wrappers count on a card
+    page = ENGINE_ARGS["page_size"]
+    wa, wb = ids["A"], ids["B"]
+    ha, hb = f"{wa:x}", f"{wb:x}"
+    n_blocks = (REUSE_PROMPT - 1) // page            # the match stops at n-1
+    drt = await DistributedRuntime(store_port=store_port).connect()
+    try:
+        backend = drt.namespace("dynamo").component("backend")
+        workers = await backend.endpoint("generate").client().start()
+        await workers.wait_for_instances(2, timeout=60)
+        fetcher = await backend.endpoint("kv_fetch").client().start()
+        await fetcher.wait_for_instances(2, timeout=60)
+        index = await KvClusterIndex().start(drt.store, "dynamo")
+
+        async def direct(wid, tokens, max_tokens, rid, **stamp):
+            """One greedy request straight to worker ``wid``."""
+            bi = BackendInput(token_ids=list(tokens), stop=StopConditions(
+                max_tokens=max_tokens, ignore_eos=True), **stamp)
+            out = dict(ids=[], ttft_s=None, prefix_hit=None)
+            t0 = time.perf_counter()
+            async for item in workers.generate(bi.to_dict(), Context(rid),
+                                               mode="direct",
+                                               instance_id=wid):
+                if item.get("finish_reason") == "error":
+                    raise AssertionError(f"{rid} failed: {item}")
+                if out["ttft_s"] is None and item.get("token_ids"):
+                    out["ttft_s"] = time.perf_counter() - t0
+                if out["prefix_hit"] is None:
+                    out["prefix_hit"] = item.get("kv_prefix_hit_tokens")
+                out["ids"] += item.get("token_ids") or []
+            out["total_s"] = time.perf_counter() - t0
+            return out
+
+        async def record_holds(wid, hashes, timeout=30.0):
+            t0 = time.monotonic()
+            while True:
+                rec = index.records.get(wid)
+                if rec is not None and all(rec.holds(h) for h in hashes):
+                    return time.monotonic() - t0
+                if time.monotonic() - t0 > timeout:
+                    raise AssertionError(
+                        f"worker {wid:x}'s registry record never listed "
+                        f"{len(hashes)} blocks: "
+                        f"{rec.block_count if rec else None} listed")
+                await asyncio.sleep(0.02)
+
+        async def stage(settle=4 * FLEET_METRICS_S):
+            await asyncio.sleep(settle)
+            return await asyncio.to_thread(scrape, http_port)
+
+        def total(sc, name, component="backend", **labels):
+            return _total(_component(sc, component), name, **labels)
+
+        async def metrics_of(wid):
+            raw = await drt.store.get(f"metrics/dynamo/backend/{wid:x}")
+            return json.loads(raw.decode())
+
+        # warm-up, on a prompt of the reuse prompt's length: A prefills it
+        # cold, and B fetches it stamped and restores it (each path's first
+        # pinned allocations, handles and connections in each process)
+        rng = np.random.default_rng(CLUSTER_SEED)
+        warm_up = rng.integers(0, m.vocab_size, REUSE_PROMPT).tolist()
+        await direct(wa, warm_up, 4, "cluster-warm-up-a")
+        await record_holds(wa, compute_seq_hashes(warm_up, page)[:n_blocks])
+        await direct(wb, warm_up, 4, "cluster-warm-up-b", kv_donor=wa,
+                     kv_donor_blocks=n_blocks)
+
+        # 1. the donor fetch, stamped directly: A serves the reuse prompt
+        # cold, mirrors its 23 blocks write-through and lists them in its
+        # registry record; B, stamped with A as donor, fetches them and
+        # prefills only the last 24 tokens
+        prompt = reuse_prompt(m.vocab_size)
+        hashes = compute_seq_hashes(prompt, page)[:n_blocks]
+        sc0 = await stage(0)
+        cold = await direct(wa, prompt, REUSE_TOKENS, "cluster-cold")
+        listed_s = await record_holds(wa, hashes)
+        sc1 = await stage()
+        warm = await direct(wb, prompt, REUSE_TOKENS, "cluster-fetch",
+                            kv_donor=wa, kv_donor_blocks=n_blocks)
+        sc2 = await stage()
+        t_fetched = time.monotonic()
+
+        def moved(a, b, direction):
+            return dict(
+                bytes=total(b, "llm_kv_transfer_bytes_total",
+                            direction=direction)
+                - total(a, "llm_kv_transfer_bytes_total",
+                        direction=direction),
+                seconds=total(b, "llm_kv_transfer_seconds_sum",
+                              direction=direction)
+                - total(a, "llm_kv_transfer_seconds_sum",
+                        direction=direction))
+
+        recv, send = moved(sc1, sc2, "cluster_recv"), moved(sc1, sc2,
+                                                            "cluster_send")
+        want_bytes = n_blocks * reuse["block_bytes"]
+        fetch = dict(
+            fetches=total(sc2, "dyn_kv_cluster_fetches_total")
+            - total(sc1, "dyn_kv_cluster_fetches_total"),
+            fallbacks=total(sc2, "dyn_kv_cluster_fallbacks_total")
+            - total(sc1, "dyn_kv_cluster_fallbacks_total"),
+            recv_bytes=recv["bytes"], send_bytes=send["bytes"],
+            want_bytes=want_bytes, seconds=recv["seconds"],
+            gb_s=recv["bytes"] / recv["seconds"] / 1e9
+            if recv["seconds"] else None,
+            fetch_seconds_sum=total(sc2, "dyn_kv_cluster_fetch_seconds_sum")
+            - total(sc1, "dyn_kv_cluster_fetch_seconds_sum"),
+            # B's staged upload of the deposited prefix, racing admission
+            prefetch_hits=total(sc2, "dyn_prefetch_h2d_hits_total")
+            - total(sc1, "dyn_prefetch_h2d_hits_total"),
+            prefetch_stalls=total(sc2, "dyn_prefetch_h2d_stalls_total")
+            - total(sc1, "dyn_prefetch_h2d_stalls_total"))
+        b1 = _delta(_counts(sc1, hb), _counts(sc2, hb))
+        a1 = _delta(_counts(sc0, ha), _counts(sc1, ha))
+        step1 = dict(cold=dict(ttft_s=cold["ttft_s"],
+                               prefix_hit=cold["prefix_hit"], launches=a1),
+                     warm=dict(ttft_s=warm["ttft_s"],
+                               prefix_hit=warm["prefix_hit"], launches=b1),
+                     cold_equals_in_process=cold["ids"]
+                     == reuse["cold_tokens"],
+                     warm_equals_warm_host=warm["ids"]
+                     == reuse["warm_host_tokens"],
+                     warm_equals_cold=warm["ids"] == reuse["cold_tokens"],
+                     # the first position where a restored prefix's stream
+                     # (its last chunk at 24 rows, not 472) left the cold one
+                     warm_leaves_cold_at=next(
+                         (i for i, (a, b) in enumerate(zip(
+                             warm["ids"], reuse["cold_tokens"])) if a != b),
+                         None),
+                     record_listed_s=listed_s, fetch=fetch)
+        emit({"phase": "cluster", "step": "donor_fetch", **step1})
+        if not (step1["cold_equals_in_process"]
+                and step1["warm_equals_warm_host"]
+                and cold["prefix_hit"] == 0
+                and warm["prefix_hit"] == n_blocks * page
+                and fetch["fetches"] == 1 and fetch["fallbacks"] == 0
+                and recv["bytes"] == send["bytes"] == want_bytes
+                and b1["prefill"] == 1 and b1["flash"] == Lk
+                and b1["decode_step"] > 0
+                and b1["paged"] == Lk * b1["decode_step"]):
+            raise AssertionError(f"the stamped donor fetch: {step1}")
+        # A's mirrors, as its kv_fetch endpoint serves them, against the
+        # blocks a cold prefill of the same prompt wrote in process
+        got = await fetch_prefix(fetcher, wa, hashes)
+        bits = reuse["block_bits"]
+        mirrors_equal = len(got) == n_blocks and all(
+            np.array_equal(k, bits[0][i]) and np.array_equal(v, bits[1][i])
+            for i, (_, k, v) in enumerate(got))
+        if not mirrors_equal:
+            raise AssertionError("A's write-through mirrors differ from the "
+                                 "in-process cold prefill's blocks")
+
+        # 2. through the router: A holds a second prefix but is saturated
+        # (max_batch 1, one request running and one waiting), so the
+        # router places that prefix on B and stamps A as its donor
+        letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ", np.uint8)
+        p2_text = bytes(rng.choice(letters, REUSE_PROMPT)).decode()
+        p2 = list(p2_text.encode())
+        await direct(wa, p2, 4, "cluster-p2-on-a")
+        await record_holds(wa, compute_seq_hashes(p2, page)[:n_blocks])
+        # a cost-model refresh since the fetch (the router prices the pair)
+        await asyncio.sleep(max(0.0, CLUSTER_COST_S
+                                - (time.monotonic() - t_fetched)))
+        busy = asyncio.ensure_future(direct(
+            wa, rng.integers(0, m.vocab_size, 64).tolist(), FLEET_LONG_TOKENS,
+            "cluster-busy"))
+        t0 = time.monotonic()
+        while (await metrics_of(wa))["request_active_slots"] < 1:
+            if busy.done() or time.monotonic() - t0 > 30:
+                raise AssertionError("A's worker never reported busy")
+            await asyncio.sleep(0.05)
+        queued = asyncio.ensure_future(direct(
+            wa, rng.integers(0, m.vocab_size, 64).tolist(), 8,
+            "cluster-queued"))
+        t0 = time.monotonic()
+        while (await metrics_of(wa))["num_requests_waiting"] < 1:
+            if busy.done() or time.monotonic() - t0 > 30:
+                raise AssertionError("A's worker never reported a queue")
+            await asyncio.sleep(0.05)
+        await asyncio.sleep(1.2)           # two router scrapes
+        st, raw = await asyncio.to_thread(http_get, http_port,
+                                          "/v1/router/decisions")
+        n0 = len(json.loads(raw)["decisions"])
+        sc3 = await stage(0)
+        res: dict = {}
+        await asyncio.to_thread(http_post, http_port, "/v1/completions",
+                                {"model": PRESET, "prompt": p2_text,
+                                 "max_tokens": REUSE_TOKENS}, res, "r")
+        busy_at_route = not busy.done()
+        st, raw = await asyncio.to_thread(http_get, http_port,
+                                          "/v1/router/decisions")
+        decisions = json.loads(raw)["decisions"]
+        dec = decisions[n0:]
+        await asyncio.wait_for(asyncio.gather(busy, queued), 300)
+        sc4 = await stage()
+        stamps = sum(1 for d in decisions for c in d["candidates"]
+                     if c["worker_id"] == d["worker_id"]
+                     and c.get("kv_donor") is not None)
+        t0 = time.monotonic()
+        while total(sc4, "dyn_kv_cluster_hits_total", "router") < stamps \
+                and time.monotonic() - t0 < 10:
+            sc4 = await stage(0.5)   # the router publishes every 2 s
+        cands = {c["worker_id"]: c for c in dec[0]["candidates"]} \
+            if len(dec) == 1 else {}
+        cb = cands.get(wb, {})
+        routed = dict(
+            status=res["r"]["status"],
+            completion_tokens=res["r"].get("usage", {}).get(
+                "completion_tokens"),
+            busy_at_route=busy_at_route,
+            decisions=len(dec),
+            worker=f"{dec[0]['worker_id']:x}" if dec else None,
+            kv_donor=f"{cb['kv_donor']:x}" if cb.get("kv_donor") else None,
+            kv_donor_blocks=cb.get("kv_donor_blocks"),
+            transfer_seconds=cb.get("transfer_seconds"),
+            transfer_src=cb.get("transfer_src"),
+            a_saturated=cands.get(wa, {}).get("saturated"),
+            router_hits=total(sc4, "dyn_kv_cluster_hits_total", "router"),
+            stamps=stamps,
+            fetches=total(sc4, "dyn_kv_cluster_fetches_total")
+            - total(sc3, "dyn_kv_cluster_fetches_total"),
+            b_prefill=_delta(_counts(sc3, hb), _counts(sc4, hb)))
+        emit({"phase": "cluster", "step": "routed", **routed})
+        if not (routed["status"] == 200
+                and routed["completion_tokens"] == REUSE_TOKENS
+                and routed["a_saturated"] and len(dec) == 1
+                and dec[0]["worker_id"] == wb and cb.get("kv_donor") == wa
+                and cb.get("kv_donor_blocks") == n_blocks
+                and cb.get("transfer_seconds", 0) > 0
+                and routed["router_hits"] == stamps == 1
+                and routed["fetches"] == 1):
+            raise AssertionError(f"the routed cluster request: {routed}, "
+                                 f"{dec}")
+
+        # 3. a prefix in B's host tier and not on its device (B's pool of
+        # 33 pages gave the reuse prompt's pages up to the second prefix):
+        # sent while B is busy, it waits in B's queue and its blocks stage
+        # on the side stream meanwhile; admission then scatters them
+        b_host = set(index.records[wb].host) if wb in index.records else set()
+        busy_b = asyncio.ensure_future(direct(
+            wb, rng.integers(0, m.vocab_size, 64).tolist(),
+            CLUSTER_BUSY_TOKENS, "cluster-busy-b"))
+        t0 = time.monotonic()
+        while (await metrics_of(wb))["request_active_slots"] < 1:
+            if busy_b.done() or time.monotonic() - t0 > 30:
+                raise AssertionError("B's worker never reported busy")
+            await asyncio.sleep(0.05)
+        sc5 = await stage(0)
+        busy_at_send = not busy_b.done()
+        queued_b = await direct(wb, prompt, REUSE_TOKENS, "cluster-staged")
+        await asyncio.wait_for(busy_b, 300)
+        sc6 = await stage()
+        staged = dict(
+            ttft_s=queued_b["ttft_s"], prefix_hit=queued_b["prefix_hit"],
+            in_b_host_tier=len(b_host & set(hashes)),
+            busy_at_send=busy_at_send,
+            h2d_hits=total(sc6, "dyn_prefetch_h2d_hits_total")
+            - total(sc5, "dyn_prefetch_h2d_hits_total"),
+            h2d_stalls=total(sc6, "dyn_prefetch_h2d_stalls_total")
+            - total(sc5, "dyn_prefetch_h2d_stalls_total"),
+            tokens_equal_sync_restore=queued_b["ids"]
+            == reuse["warm_host_tokens"])
+        emit({"phase": "cluster", "step": "staged_on_b", **staged})
+        if not (staged["tokens_equal_sync_restore"] and staged["h2d_hits"] > 0
+                and busy_at_send and staged["in_b_host_tier"] == n_blocks
+                and queued_b["prefix_hit"] == n_blocks * page):
+            raise AssertionError(f"the staged restore on B: {staged}")
+
+        # 4. readings: the write-through mirrors, memory, launches
+        wt = {w: {n: _per_worker(sc6, f"dyn_kv_writethrough_{n}_total")
+                  .get(w, {}).get("", 0.0)
+                  for n in ("blocks", "bytes", "seconds", "enqueue_seconds")}
+              for w in (ha, hb)}
+        for w in wt.values():
+            w["gb_s"] = w["bytes"] / w["seconds"] / 1e9 if w["seconds"] \
+                else None
+            w["ms_per_block"] = 1e3 * w["seconds"] / w["blocks"] \
+                if w["blocks"] else None
+            w["enqueue_ms_per_block"] = 1e3 * w["enqueue_seconds"] \
+                / w["blocks"] if w["blocks"] else None
+        peak = _per_worker(sc6, "dyn_device_memory_peak_bytes")
+        launches = {w: _delta(_counts(sc0, w), _counts(sc6, w))
+                    for w in (ha, hb)}
+        return dict(
+            donor=ha, receiver=hb, prompt_tokens=REUSE_PROMPT,
+            blocks=n_blocks, step1=step1,
+            ttft_s=dict(cold_local=cold["ttft_s"],
+                        cluster_warm=warm["ttft_s"],
+                        warm_host_in_process=reuse["ttft_s"][
+                            "warm_host_again"]),
+            a_mirrors_bitwise_equal_cold_blocks=mirrors_equal,
+            routed=routed, staged_on_b=staged, writethrough=wt,
+            peak_mem_bytes={w: peak.get(w, {}).get("") for w in (ha, hb)},
+            launches=launches,
+            flash_launches=sum(v["flash"] for v in launches.values()),
+            paged_launches=sum(v["paged"] for v in launches.values()))
+    finally:
+        await drt.close()
+
+
+def cluster_phase(torch, smi: str, serve: dict) -> dict:
+    """Cluster-wide KV sharing on this card, each piece a process of the
+    port's own with ``DYN_KV_CLUSTER=1`` and the default lease: the store,
+    two Llama-3-8B workers (``max_batch`` 1, so that two requests saturate
+    one), the KV router and the discovery frontend. A serves the reuse
+    prompt and mirrors its blocks write-through; B, stamped with A as
+    donor, fetches them over the data plane and prefills the last 24
+    tokens; the router places a second prefix that A holds on B while A is
+    saturated, stamping A as donor; last, the reuse prompt, by then in B's
+    host tier and partly off its device, waits behind a busy B while its
+    blocks stage on the side stream."""
+    import asyncio
+    import re
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    engine_args = dict(ENGINE_ARGS, max_batch=CLUSTER_MAX_BATCH)
+    fleet = Fleet(CLUSTER_DIR)
+    fleet.env.update(DYN_KV_CLUSTER="1",
+                     DYN_KV_CLUSTER_PUBLISH_INTERVAL=str(CLUSTER_PUBLISH_S))
+    try:
+        fleet.start("store", "dynamo_tpu_torch.runtime.store_server",
+                    "--host", "127.0.0.1", "--port", "0")
+        line = fleet.wait_line("store", r"listening on \S+:\d+", 60)
+        store_port = int(line.rsplit(":", 1)[1])
+        store = f"127.0.0.1:{store_port}"
+        t0 = time.perf_counter()
+        for name in ("A", "B"):
+            fleet.start(name, "dynamo_tpu_torch.cli.worker", "--engine",
+                        "torch", "--device", DEVICE, "--store", store,
+                        "--register-model", "--model-name", PRESET,
+                        "--kv-block-size", str(ENGINE_ARGS["page_size"]),
+                        "--metrics-interval", str(FLEET_METRICS_S),
+                        "--extra-engine-args", json.dumps(engine_args))
+        ids = {}
+        for name in ("A", "B"):
+            line = fleet.wait_line(name, r"worker [0-9a-f]+ serving",
+                                   FLEET_START_S)
+            ids[name] = int(line.split()[1], 16)
+        workers_start_s = time.perf_counter() - t0
+        fleet.start("router", "dynamo_tpu_torch.cli.router", "--store",
+                    store, "--block-size", str(ENGINE_ARGS["page_size"]))
+        fleet.wait_line("router", r"kv router serving", 120)
+        fleet.start("http", "dynamo_tpu_torch.cli.http", "--store", store,
+                    "--host", "127.0.0.1", "--port", "0",
+                    "--router-component", "router", "--namespace",
+                    "dynamo")
+        line = fleet.wait_line("http", r"http frontend on :\d+", 120)
+        http_port = int(re.search(r":(\d+)", line).group(1))
+        t0 = time.monotonic()
+        while PRESET not in http_get(http_port, "/v1/models")[1].decode():
+            if time.monotonic() - t0 > 60:
+                raise AssertionError("frontend never discovered the model")
+            time.sleep(0.1)
+        row = asyncio.run(_cluster_async(fleet, store_port, http_port, ids,
+                                         serve["reuse"]))
+        fetch = row["step1"]["fetch"]
+        row.update(phase="cluster", preset=PRESET, engine=engine_args,
+                   workers_start_s=workers_start_s,
+                   fetch_s=fetch["seconds"], fetch_gb_s=fetch["gb_s"],
+                   cluster_warm_minus_cold_ttft_ms=1e3 * (
+                       row["ttft_s"]["cluster_warm"]
+                       - row["ttft_s"]["cold_local"]),
+                   chain_writethrough=serve["chain_writethrough"],
+                   chain=serve["chain"], card=smi,
+                   loop_wedges_s=fleet.wedges(),
                    phase_s=time.perf_counter() - t_phase)
         emit(row)
         return row
@@ -3234,6 +3737,7 @@ def main() -> int:
     ckpt = checkpoint_phase(torch, att, smi)
     fleet = fleet_phase(torch, smi, serve["lone_stream"])
     disagg = disagg_phase(torch, smi, serve)
+    cluster = cluster_phase(torch, smi, serve)
     spec = spec_phase(torch, att, smi, params)
     del params      # the HTTP engine draws the same weights from the seed
     torch.cuda.empty_cache()
@@ -3252,6 +3756,7 @@ def main() -> int:
              checkpoint_launches=ckpt["flash_launches"],
              fleet_launches=fleet["flash_launches"],
              disagg_launches=disagg["flash_launches"],
+             cluster_launches=cluster["flash_launches"],
              spec_launches=ngram["spec_flash_launches"],
              draft_launches=draft["spec_flash_launches"],
              verify_ms={"t5": verify5["ms"], "t2": verify2["ms"]},
@@ -3271,6 +3776,7 @@ def main() -> int:
              checkpoint_launches=ckpt["paged_launches"],
              fleet_launches=fleet["paged_launches"],
              disagg_launches=disagg["paged_launches"],
+             cluster_launches=cluster["paged_launches"],
              spec_launches=ngram["spec_paged_launches"],
              draft_launches=draft["spec_paged_launches"],
              max_abs_err=paged["max_abs_err"], ms=paged["ms"],

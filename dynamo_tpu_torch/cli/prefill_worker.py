@@ -16,6 +16,10 @@ processes — unacked jobs are redelivered if one dies mid-prefill.
 Its stage dump (component ``prefill``) also carries the port-only engine
 counters of ``cli/worker.engine_counters``: its prefill dispatches, its
 flash-kernel launches and its peak device memory.
+
+As the decode worker does, it builds its engine before it connects to the
+store (:func:`build_engine`): no liveness lease exists while the bring-up
+holds the process.
 """
 
 from __future__ import annotations
@@ -43,13 +47,36 @@ PREFILL_COMPONENT = "prefill"   # stage-metrics component tag
 log = logging.getLogger("dynamo_tpu_torch.prefill_worker")
 
 
+async def build_engine(args):
+    """The prefill worker's torch engine, built on an executor thread; a
+    caller that can builds it before connecting to the store, so no lease
+    exists while the import and bring-up hold the event loop
+    (``cli.worker.build_engine``)."""
+    from ..engine.engine import TorchEngine, TorchEngineConfig
+
+    if args.model_path:
+        card = ModelDeploymentCard.resolve(args.model_path, args.model_name)
+    else:
+        card = ModelDeploymentCard.synthetic(args.model_name or "prefill")
+    card.kv_block_size = args.kv_block_size
+    extra = json.loads(args.extra_engine_args) if args.extra_engine_args else {}
+    extra.setdefault("device", args.device)
+    cfg = TorchEngineConfig.from_card(card, **extra)
+    return await asyncio.get_running_loop().run_in_executor(
+        None, lambda: TorchEngine(cfg))
+
+
 async def run_prefill_worker(args, *,
                              ready_event: Optional[asyncio.Event] = None,
                              drt: Optional[DistributedRuntime] = None,
                              max_jobs: Optional[int] = None,
-                             token=None) -> None:
+                             token=None, engine=None) -> None:
+    """Pull jobs for ``engine`` (built here when None: before connecting
+    when this call connects ``drt`` itself)."""
     host, port = args.store.split(":")
     own_drt = drt is None
+    if engine is None and own_drt:
+        engine = await build_engine(args)
     if own_drt:
         drt = await DistributedRuntime(
             store_host=host, store_port=int(port),
@@ -61,21 +88,8 @@ async def run_prefill_worker(args, *,
             token.cancel()
         drt.store.on_lease_lost = _lease_lost
     ns = drt.namespace(args.namespace)
-
-    from ..engine.engine import TorchEngine, TorchEngineConfig
-
-    if args.model_path:
-        card = ModelDeploymentCard.resolve(args.model_path, args.model_name)
-    else:
-        card = ModelDeploymentCard.synthetic(args.model_name or "prefill")
-    card.kv_block_size = args.kv_block_size
-    extra = json.loads(args.extra_engine_args) if args.extra_engine_args else {}
-    extra.setdefault("device", args.device)
-    cfg = TorchEngineConfig.from_card(card, **extra)
-    # off-loop: engine bring-up (weights to the card, the kernels' build
-    # and probe) must not starve the lease keepalive
-    engine = await asyncio.get_running_loop().run_in_executor(
-        None, lambda: TorchEngine(cfg))
+    if engine is None:
+        engine = await build_engine(args)
 
     queue = PrefillQueue(drt.store, args.namespace)
     kv_client = await ns.component(args.decode_component) \
@@ -265,12 +279,15 @@ def main() -> None:
     shell = Worker()
 
     async def app(token):
+        # the engine first: no lease exists while its bring-up holds the
+        # process (ROADMAP Queue 3 item 8)
+        engine = await build_engine(args)
         host, port = args.store.split(":")
         drt = await DistributedRuntime(
             store_host=host, store_port=int(port),
             advertise_host=args.advertise_host).connect()
         shell.add_runtime(drt)
-        await run_prefill_worker(args, drt=drt, token=token)
+        await run_prefill_worker(args, drt=drt, token=token, engine=engine)
 
     try:
         shell.execute(app)

@@ -17,10 +17,21 @@ prefill queue (``cli/prefill_worker.py`` pulls it), their KV streams back
 on the ``kv_receive`` endpoint layer by layer into the engine's pool, and
 the request enters decode directly.
 
-Not ported yet, and refused at start instead of ignored: ``DYN_KV_CLUSTER``
-(ROADMAP Queue 1 item 8) and ``--num-nodes`` above 1 (item 11); a
-model-mobility swap or prefetch command (item 12) is refused in the log
-and left for another worker.
+With ``DYN_KV_CLUSTER=1`` the worker joins the cluster KV sharing plane, as
+the JAX worker does (``llm/kv_cluster``): its engine mirrors sealed blocks
+to the host tier, it serves ``kv_fetch`` over that tier and publishes a
+lease-bound registry record of it, and a request the router stamped with a
+donor fetches the prefix blocks it lacks from that donor before it enters
+the engine; the matched tier prefix then uploads on a side stream while
+the request waits at the slot gate.
+
+The engine is built before the worker connects to the store, so no
+liveness lease exists while the bring-up holds the process (see
+:func:`build_engine`).
+
+Not ported yet, and refused at start instead of ignored: ``--num-nodes``
+above 1 (ROADMAP Queue 1 item 11); a model-mobility swap or prefetch
+command (item 12) is refused in the log and left for another worker.
 """
 
 from __future__ import annotations
@@ -36,7 +47,6 @@ from ..llm.disagg import (DisaggConfig, DisaggRouter, PrefillQueue,
                           RemotePrefillRequest)
 from ..llm.kv_router.protocols import KV_EVENT_SUBJECT, ForwardPassMetrics
 from ..llm.kv_router.publisher import KvEventPublisher
-from ..llm.kv_router.router import check_kv_cluster_off
 from ..llm.kv_transfer import (KV_RECEIVE_ENDPOINT, KvReceiver,
                                RemotePrefillError, stream_enabled)
 from ..llm.metrics_aggregator import metrics_key
@@ -61,7 +71,6 @@ def check_ported(args) -> None:
         raise NotImplementedError(
             "--num-nodes above 1: multi-node serving (parallel/) is not "
             "ported to dynamo_tpu_torch yet (ROADMAP Queue 1 item 11)")
-    check_kv_cluster_off()
 
 
 def _build_card(args) -> ModelDeploymentCard:
@@ -79,7 +88,33 @@ def _engine_cfg(args, card: ModelDeploymentCard):
     extra = json.loads(args.extra_engine_args) if args.extra_engine_args \
         else {}
     extra.setdefault("device", args.device)
+    from ..llm import kv_cluster
+
+    if kv_cluster.enabled():
+        # cluster sharing needs sealed blocks mirrored to the host tier
+        # (write-through) so peers can fetch prefixes that never saw
+        # device eviction pressure; a no-op when host_cache_blocks=0
+        extra.setdefault("cluster_writethrough", True)
     return TorchEngineConfig.from_card(card, **extra)
+
+
+async def build_engine(args, card: Optional[ModelDeploymentCard] = None):
+    """The worker's engine: a :class:`TorchEngine` (``--engine torch``) or
+    the echo engine, built on an executor thread. A caller that can builds
+    it before it connects to the store: the engine module's import (the
+    process's first ``import torch``) runs on the event loop and holds it
+    for seconds on a busy host, and the bring-up competes with the loop
+    for the interpreter lock; with no lease granted yet there is no
+    keepalive to starve."""
+    if args.engine != "torch":
+        from ..llm.engines import EchoCoreEngine
+
+        return EchoCoreEngine()
+    from ..engine.engine import TorchEngine
+
+    cfg = _engine_cfg(args, card or _build_card(args))
+    return await asyncio.get_running_loop().run_in_executor(
+        None, lambda: TorchEngine(cfg))
 
 
 async def _connect_drt(args) -> DistributedRuntime:
@@ -110,7 +145,7 @@ async def _refuse_mobility(drt: DistributedRuntime, namespace: str,
 
 
 async def _disagg_handler(args, drt: DistributedRuntime, component,
-                          engine, gate):
+                          engine, gate, cluster=None):
     """The decode worker's ``generate`` handler with conditional remote
     prefill (SURVEY §3.2): long cold prompts go to the shared queue; KV
     comes back on the ``kv_receive`` endpoint (served here) and the
@@ -135,12 +170,18 @@ async def _disagg_handler(args, drt: DistributedRuntime, component,
 
     async def generate_handler(request, ctx):
         bi = BackendInput.from_dict(request)
-        # the JAX worker's cluster prefix fetch (DYN_KV_CLUSTER, refused
-        # at start) and tier prefetch (prefetch_tiers) hooks run here when
-        # the engine has them; the torch engine has neither yet
-        if hasattr(engine, "prefetch_tiers"):
-            from ..utils.aiotasks import spawn_blocking
-            spawn_blocking(engine.prefetch_tiers, bi, name="h2d-prefetch")
+        if cluster is not None:
+            # donor-stamped prefix fetch BEFORE the slot gate and the
+            # local probe: the peer fetch overlaps the queue wait instead
+            # of holding a slot through up to the fetch timeout, and the
+            # deposited blocks count as local prefix hits, so a
+            # cluster-warm prompt prefills locally instead of paying the
+            # remote-prefill queue for KV a peer already holds
+            await cluster.fetcher.ensure_prefix(bi, ctx)
+        # placement-driven h2d prefetch: the matched tier blocks upload on
+        # an executor thread WHILE this request waits at the slot gate
+        from ..utils.aiotasks import spawn_blocking
+        spawn_blocking(engine.prefetch_tiers, bi, name="h2d-prefetch")
         if gate is not None:
             await gate.acquire(ctx.priority, ctx.deadline)
             svc_started = time.monotonic()
@@ -259,9 +300,11 @@ def engine_counters(core, worker_id: int) -> dict:
     ``/metrics`` then shows, per worker, that its prefills and decode steps
     ran (``dyn_engine_dispatches_total{kind}``) and went through the
     hand-written kernels (``dyn_kernel_launches_total{kernel}``; these
-    count on the card only), and on the card its peak device memory
-    (``dyn_device_memory_peak_bytes``). Port-only series: the JAX worker
-    publishes none of them."""
+    count on the card only), on the card its peak device memory
+    (``dyn_device_memory_peak_bytes``), and with cluster write-through the
+    mirrors' blocks, bytes, seconds and host enqueue seconds
+    (``dyn_kv_writethrough_*_total``).
+    Port-only series: the JAX worker publishes none of them."""
     from ..ops import attention as att
     from ..utils.prometheus import Registry
 
@@ -278,6 +321,20 @@ def engine_counters(core, worker_id: int) -> dict:
                   "started", ("worker", "kernel"))
     k.inc(wid, "flash_attention", amount=att.flash_attention.launches)
     k.inc(wid, "paged_attention", amount=att.paged_attention.launches)
+    if core.cfg.cluster_writethrough:
+        r.counter("dyn_kv_writethrough_blocks_total",
+                  "Sealed blocks mirrored to the host tier (cluster "
+                  "write-through)", ("worker",)).inc(
+                      wid, amount=core.writethrough_blocks)
+        r.counter("dyn_kv_writethrough_bytes_total",
+                  "Bytes of those mirrors", ("worker",)).inc(
+                      wid, amount=core.writethrough_bytes)
+        r.counter("dyn_kv_writethrough_seconds_total",
+                  "The mirror copies' own time (device events on a card)",
+                  ("worker",)).inc(wid, amount=core.writethrough_seconds)
+        r.counter("dyn_kv_writethrough_enqueue_seconds_total",
+                  "Host time enqueueing those copies", ("worker",)).inc(
+                      wid, amount=core.writethrough_enqueue_seconds)
     if core.device.type == "cuda":
         import torch
 
@@ -290,9 +347,15 @@ def engine_counters(core, worker_id: int) -> dict:
 
 async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
                      drt: Optional[DistributedRuntime] = None,
-                     token=None) -> None:
+                     token=None, engine=None) -> None:
+    """Serve ``engine`` (built here by :func:`build_engine` when None) on
+    ``drt`` (connected here when None, after the engine is up)."""
     check_ported(args)
+    card = _build_card(args)
     own_drt = drt is None
+    if engine is None and own_drt:
+        # no lease exists yet: bring the engine up first
+        engine = await build_engine(args, card)
     if own_drt:
         drt = await _connect_drt(args)
     if token is not None:
@@ -328,22 +391,11 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
         span_sink=span_sink, install_signal=token is not None)
 
     # --- engine -------------------------------------------------------
-    card = _build_card(args)
-    core = None
-    if args.engine == "torch":
-        from ..engine.engine import TorchEngine
-
-        cfg = _engine_cfg(args, card)
-        # engine bring-up (weights to the card, the kernels' build and
-        # probe) takes far longer than the lease TTL: run it off the event
-        # loop so lease keepalives keep flowing
-        engine = await asyncio.get_running_loop().run_in_executor(
-            None, lambda: TorchEngine(cfg))
-        core = engine.core
-    else:
-        from ..llm.engines import EchoCoreEngine
-
-        engine = EchoCoreEngine()
+    if engine is None:
+        # a caller that connected first: off the loop, while its lease
+        # keepalives keep flowing as far as the bring-up lets them
+        engine = await build_engine(args, card)
+    core = getattr(engine, "core", None)
 
     # --- KV event publishing -----------------------------------------
     async def publish(subject, payload):
@@ -356,6 +408,17 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
         core.pool.on_block_sealed = pub.block_stored
         core.pool.on_blocks_removed = pub.blocks_removed
 
+    # --- cluster KV sharing (DYN_KV_CLUSTER=1) -----------------------
+    # serve the kv_fetch donor endpoint over the host tier, publish this
+    # worker's sealed-block registry record (lease-bound), and fetch
+    # donor-stamped prefixes before requests enter the engine
+    from ..llm import kv_cluster
+
+    cluster = None
+    if core is not None and kv_cluster.enabled():
+        cluster = await kv_cluster.KvClusterWorker.attach(
+            component, drt, args.namespace, core)
+
     # --- serve endpoint ----------------------------------------------
     # worker-ingress overload gate (DYN_WORKER_SLOTS / DYN_WORKER_QUEUE_
     # DEPTH, unset = off): excess load fails fast as a typed 429 naming
@@ -364,10 +427,16 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
     endpoint = component.endpoint("generate")
     if getattr(args, "enable_disagg", False) and core is not None:
         await endpoint.serve(await _disagg_handler(args, drt, component,
-                                                   engine, gate))
+                                                   engine, gate, cluster))
     else:
         served = engine if gate is None \
             else overload.SlotGatedEngine(engine, gate)
+        if cluster is not None:
+            # prefetch wraps OUTSIDE the slot gate: the peer fetch overlaps
+            # the queue wait instead of holding a slot while blocks
+            # stream, and the local-tier h2d prefetch uploads matched
+            # blocks to device staging during the same wait
+            served = cluster.wrap(served, prefetcher=engine.prefetch_tiers)
         await serve_core_engine(endpoint, served)
     if args.register_model:
         await register_model(drt.store, card, endpoint.path,
@@ -435,6 +504,11 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
 
         await clear_worker_keys(drt.store, args.namespace, args.component,
                                 drt.worker_id)
+        if cluster is not None:
+            try:
+                await cluster.stop()   # cancel publisher, drop registry key
+            except Exception:
+                log.warning("kv-cluster detach failed", exc_info=True)
         if core is not None:
             try:
                 engine.shutdown()   # joins the engine thread, clears gauges
@@ -494,9 +568,12 @@ def main() -> None:
     shell = Worker()
 
     async def app(token):
+        # the engine first: no lease exists while its bring-up holds the
+        # process (ROADMAP Queue 3 item 8)
+        engine = await build_engine(args)
         drt = await _connect_drt(args)
         shell.add_runtime(drt)
-        await run_worker(args, drt=drt, token=token)
+        await run_worker(args, drt=drt, token=token, engine=engine)
 
     try:
         shell.execute(app)

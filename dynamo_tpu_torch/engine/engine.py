@@ -49,9 +49,16 @@ Architecture:
   them, and :func:`~.sampling.spec_verify` samples acceptance on the device
   for one packed fetch. Rounds are synchronous: there is no in-flight
   window in this mode.
+- Cluster KV sharing (``llm/kv_cluster``), as in the JAX engine: with
+  ``cluster_writethrough`` every newly sealed block is mirrored to the host
+  tier once its KV is in the pool (``_advance_writethrough``: a pinned
+  copy under an event, taken by the tier at a later step boundary, so a
+  chained enqueue takes no host sync), and ``stage_prefetch`` uploads a
+  queued request's tier-resident prefix on a side stream while it waits
+  at the slot gate; admission scatters the staged blocks after waiting on
+  the upload's event (``_restore_prefix``).
 
-Not ported yet (the JAX engine has them): cluster write-through and
-placement prefetch of the KV tiers, the long-context paging lane,
+Not ported yet (the JAX engine has them): the long-context paging lane,
 multimodal input, MoE and tp/pp/sp.
 
 Reference capability: the role vLLM/TRT-LLM play behind the reference's
@@ -98,11 +105,15 @@ from .spec import SeqSpecState, build_proposer, resolve_spec
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
+#: blocks one write-through gather moves at most: its pinned staging
+#: buffer, allocated once at construction, holds this many
+WT_STAGE_BLOCKS = 16
+
 # JAX engine options this engine does not implement yet: asking for one
 # raises instead of silently serving a different engine
 _NOT_PORTED = frozenset({
     "tp", "sp", "ep", "pp", "prefill_lanes", "attn_impl",
-    "warmup", "cluster_writethrough", "kvpage_budget", "kvpage_seg_pages",
+    "warmup", "kvpage_budget", "kvpage_seg_pages",
     "kvpage_prefetch", "kvpage_max_context", "kvpage_batch"})
 
 
@@ -126,6 +137,11 @@ class TorchEngineConfig:
     host_cache_blocks: int = 0          # host-DRAM KV tier capacity (0 = off)
     disk_cache_blocks: int = 0          # mmap spill tier capacity (0 = off)
     disk_cache_path: Optional[str] = None
+    # cluster KV sharing (llm/kv_cluster/): mirror every newly sealed block
+    # to the host tier write-through, so peers can fetch hot prefixes that
+    # never saw device-pool eviction pressure. Requires host_cache_blocks
+    # > 0; the worker CLI turns it on with DYN_KV_CLUSTER=1
+    cluster_writethrough: bool = False
     # speculative decoding (engine/spec.py). None => consult the DYN_SPEC*
     # env knobs; "" / "off" force-disables regardless of env
     spec: Optional[str] = None          # "ngram" | "draft" | "off"/None
@@ -314,6 +330,47 @@ class EngineCore:
             self.tiered = TieredKvCache(host, disk)
         self._evict_buf: List[Tuple[int, int]] = []
         self.pool.on_block_evicted = self._offload_evicted
+        # cluster write-through: a block seals before the dispatch that
+        # writes its last slot (a sampled token's KV lands when a later
+        # step feeds it back), so the seal hook queues (hash, page, seq,
+        # end token) and each step boundary mirrors the entries whose
+        # sequence's kv_written reaches `end`: their writing dispatch is
+        # already enqueued on this stream, ahead of the gather. The gather
+        # lands in a pinned staging buffer under an event, one gather in
+        # flight at a time; the tier takes it at a later boundary once the
+        # event completed (no host sync, no pinned allocation a step)
+        self._wt_pending: List[Tuple[int, int, str, int]] = []
+        self._wt_copies: Deque[Dict[str, Any]] = collections.deque()
+        self._wt_stage: Optional[List[torch.Tensor]] = None
+        self.writethrough_blocks = 0
+        self.writethrough_bytes = 0
+        self.writethrough_seconds = 0.0  # the copies' own (device) time
+        self.writethrough_enqueue_seconds = 0.0     # host clock
+        if self.tiered is not None and cfg.cluster_writethrough:
+            self.pool.add_seal_hook(self._writethrough_sealed)
+            if self.device.type == "cuda":
+                self._wt_stage = [torch.empty(
+                    (WT_STAGE_BLOCKS, *self.k_pool[:, :, 0].shape),
+                    dtype=m.dtype, pin_memory=True) for _ in range(2)]
+                # the gather's first launch loads its kernels (a tenth of a
+                # second on the card): pay that at bring-up, not on a step
+                idx = torch.zeros(1, dtype=torch.long, device=self.device)
+                for pool, stage in zip((self.k_pool, self.v_pool),
+                                       self._wt_stage):
+                    stage[:1].copy_(pool.index_select(2, idx)
+                                    .permute(2, 0, 1, 3, 4))
+                torch.cuda.synchronize(self.device)
+        # placement-driven h2d prefetch: seq_hash -> (k, v, event) blocks
+        # uploaded by stage_prefetch (an executor thread) on a side stream
+        # while the request queues at the slot gate; admission waits on
+        # the event and scatters them device to device. Bounded FIFO
+        # (insertion-ordered dict) under _h2d_stage_lock (two threads)
+        self._h2d_stage: Dict[int, Tuple[Any, Any, Any]] = {}
+        self._h2d_stage_lock = threading.Lock()
+        # hashes a prefetch was REQUESTED for: admission counts a host
+        # upload of one of these as a prefetch stall (vs a plain miss)
+        self._h2d_requested: set = set()
+        self._h2d_stream = None         # the uploads' side stream (card)
         # prefix-cache accounting
         self.last_prefix_hit = 0
         self.prefix_hit_tokens = 0
@@ -759,6 +816,7 @@ class EngineCore:
         (``StepOutput.prefix_hit``)."""
         out = self._reap_cancelled()
         with torch.no_grad():
+            self._advance_writethrough()
             prefill_work = any(s is not None and s.prefill_done < len(s.prompt)
                                for s in self.slots)
             admit_possible = bool(self.waiting) and None in self.slots
@@ -852,30 +910,240 @@ class EngineCore:
         out right before any of those."""
         if self.tiered is None:
             return
+        # the page can be rewritten by the very next dispatch: a pending
+        # write-through entry for it would mirror the new owner's data
+        # under the old hash. Drop it; this eviction offloads the block
+        # with still-valid data (a copy already enqueued read it before)
+        self._wt_pending = [e for e in self._wt_pending
+                            if e[:2] != (seq_hash, page)]
         self._evict_buf.append((seq_hash, page))
 
     def _flush_evictions(self) -> None:
         """Copy the queued evicted pages to the host tier. The d2h is
         enqueued on the compute stream ahead of the dispatch that may
         overwrite them, and the tier reads the pinned buffers only after
-        the copy's event completed (``CopyStream.d2h_pages``)."""
+        the copy's event completed (``CopyStream.d2h_pages``). Write-through
+        entries that are ready ride the same copy, deduplicated."""
         if not self._evict_buf:
             return
-        buf = list(dict.fromkeys(self._evict_buf))
+        wt = self._take_ready_writethrough()
+        buf = list(dict.fromkeys(self._evict_buf + wt))
         self._evict_buf = []
+        t0 = time.perf_counter()
         k, v = self.copy_stream.d2h_pages(self.k_pool, self.v_pool,
                                           [p for _, p in buf])
         for i, (seq_hash, _) in enumerate(buf):
             self.tiered.offload(seq_hash, k[i], v[i])
+        if wt:
+            nbytes = len(wt) * (k[0].nbytes + v[0].nbytes)
+            secs = (time.perf_counter() - t0) * len(wt) / len(buf)
+            self._count_writethrough(len(wt), nbytes, secs)
+
+    # ------------------------------------------------------------------
+    # cluster write-through: mirror sealed blocks once their KV is written
+    # ------------------------------------------------------------------
+    def _writethrough_sealed(self, seq_id: str, block, page: int,
+                             lora_id: int) -> None:
+        """Seal hook (cluster sharing): queue the block for a host-tier
+        mirror, to be copied once its sequence's KV covers it. Host-tier
+        restores also seal (``fire_stored``); those blocks came FROM the
+        tier, so mirroring them back would be a wasted d2h exactly on the
+        cluster-warm path."""
+        if block.sequence_hash in self.tiered:
+            return
+        end = len(self.pool.seqs[seq_id].hashes.blocks) * self.page_size
+        self._wt_pending.append((block.sequence_hash, page, seq_id, end))
+
+    def _kv_written(self, seq_id: str) -> Optional[int]:
+        """Leading tokens of ``seq_id`` whose KV every enqueued dispatch
+        writes; None once the sequence left the pool (its release unsealed
+        every block past what was written)."""
+        slot = self.by_seq.get(seq_id)
+        if slot is not None:
+            return slot.kv_written
+        for s, written in self._deferred_release:
+            if s == seq_id:
+                return written
+        return None
+
+    def _take_ready_writethrough(self, limit: Optional[int] = None
+                                 ) -> List[Tuple[int, int]]:
+        """Pop the pending mirrors whose KV is written (at most ``limit``),
+        as (hash, page); drop those whose page no longer holds their
+        block."""
+        ready, keep = [], []
+        for e in self._wt_pending:
+            seq_hash, page, seq_id, end = e
+            if self.pool.blocks.sealed_hash(page) != seq_hash:
+                continue        # unsealed at release, or recycled
+            written = self._kv_written(seq_id)
+            if (written is None or written >= end) and (
+                    limit is None or len(ready) < limit):
+                ready.append((seq_hash, page))
+            else:
+                keep.append(e)
+        self._wt_pending = keep
+        return ready
+
+    def _advance_writethrough(self) -> int:
+        """Step boundary: hand a completed mirror copy to the tier, then,
+        with the staging buffer free, enqueue one gather of up to
+        ``WT_STAGE_BLOCKS`` pending mirrors whose KV is written, behind an
+        event. Never waits on the card. Returns the blocks enqueued."""
+        if self._wt_copies:
+            self._retire_writethrough()
+            if self._wt_copies:
+                return 0        # the staging buffer is still in flight
+        if not self._wt_pending:
+            return 0
+        ready = self._take_ready_writethrough(limit=WT_STAGE_BLOCKS)
+        if not ready:
+            return 0
+        t0 = time.perf_counter()
+        n = len(ready)
+        idx = to_device(np.asarray([p for _, p in ready], np.int64),
+                        self.device)
+        rec: Dict[str, Any] = {"entries": ready, "end": None}
+        pools = (self.k_pool, self.v_pool)
+        if self._wt_stage is not None:
+            rec["start"] = torch.cuda.Event(enable_timing=True)
+            rec["start"].record()
+            rec["host"] = [stage[:n] for stage in self._wt_stage]
+            for pool, dst in zip(pools, rec["host"]):
+                dst.copy_(pool.index_select(2, idx).permute(2, 0, 1, 3, 4),
+                          non_blocking=True)
+            rec["end"] = torch.cuda.Event(enable_timing=True)
+            rec["end"].record()
+        else:
+            rec["host"] = [pool.index_select(2, idx).permute(2, 0, 1, 3, 4)
+                           .contiguous() for pool in pools]
+            rec["seconds"] = time.perf_counter() - t0
+        self.writethrough_enqueue_seconds += time.perf_counter() - t0
+        self._wt_copies.append(rec)
+        self._retire_writethrough()
+        return n
+
+    def _retire_writethrough(self, wait: bool = False) -> None:
+        """Offload the mirror copy in flight into the tier once its event
+        has completed (waiting for it with ``wait``)."""
+        while self._wt_copies:
+            rec = self._wt_copies[0]
+            end = rec["end"]
+            if end is not None:
+                if wait:
+                    end.synchronize()
+                elif not end.query():
+                    return
+                secs = rec["start"].elapsed_time(end) / 1e3
+            else:
+                secs = rec["seconds"]
+            self._wt_copies.popleft()
+            k, v = (to_host_array(t) for t in rec["host"])
+            for i, (seq_hash, _) in enumerate(rec["entries"]):
+                self.tiered.offload(seq_hash, k[i], v[i])
+            self._count_writethrough(len(rec["entries"]),
+                                     k.nbytes + v.nbytes, secs)
+
+    def _count_writethrough(self, blocks: int, nbytes: int,
+                            seconds: float) -> None:
+        from ..obs.flows import record_flow
+
+        self.writethrough_blocks += blocks
+        self.writethrough_bytes += nbytes
+        self.writethrough_seconds += seconds
+        record_flow("d2h_writethrough", nbytes, seconds)
+
+    def flush_writethrough(self) -> int:
+        """Mirror every pending block whose KV is written and wait for the
+        copies (an idle engine, tests). Returns the blocks mirrored so far
+        in all."""
+        self._retire_writethrough(wait=True)
+        with torch.no_grad():
+            while self._advance_writethrough():
+                self._retire_writethrough(wait=True)
+        return self.writethrough_blocks
+
+    # ------------------------------------------------------------------
+    # placement-driven h2d prefetch (executor thread -> admission restore)
+    # ------------------------------------------------------------------
+    def stage_prefetch(self, token_ids, lora_id: int = 0) -> int:
+        """Upload matched host/disk-tier prefix blocks to device staging
+        while the request still queues at the slot gate (an executor
+        thread; the engine thread keeps dispatching). The copies run from
+        pinned memory on a side stream under one event; admission's restore
+        makes the compute stream wait on it before its device-to-device
+        scatter. Returns blocks staged.
+
+        Safe beside the engine thread: the tier is locked, the staged
+        tensors are fresh ones nothing else references, the stage dict is
+        lock-guarded, and the pool is only probed (``contains``)."""
+        from ..llm.tokens import compute_seq_hashes
+        from ..obs.flows import record_flow
+        from ..utils.knobs import env_float
+
+        cap = int(env_float("DYN_H2D_PREFETCH_BLOCKS", 32, minimum=0.0))
+        if cap <= 0 or self.tiered is None:
+            return 0
+        t0 = time.perf_counter()
+        got = []
+        for h in compute_seq_hashes(list(token_ids), self.page_size,
+                                    lora_id=lora_id):
+            if self.pool.blocks.contains(h):
+                continue            # device-resident: nothing to move
+            with self._h2d_stage_lock:
+                if h in self._h2d_stage:
+                    continue
+            kv = self.tiered.peek(h)   # copies; no LRU perturbation
+            if kv is None:
+                break               # consecutive-prefix property
+            got.append((h, kv))
+            if len(got) >= cap:
+                break
+        if not got:
+            return 0
+        cuda = self.device.type == "cuda"
+        shape = got[0][1][0].shape
+        # pinned sources: the side stream's copies run asynchronously
+        host = [torch.empty((len(got), *shape), dtype=self.k_pool.dtype,
+                            pin_memory=cuda) for _ in range(2)]
+        for part, dst in enumerate(host):
+            arr = to_host_array(dst)
+            for i, (_, kv) in enumerate(got):
+                arr[i] = kv[part]
+        ev = None
+        if cuda:
+            if self._h2d_stream is None:
+                self._h2d_stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._h2d_stream):
+                dev = [t.to(self.device, non_blocking=True) for t in host]
+                ev = torch.cuda.Event()
+                ev.record()
+        else:
+            dev = host
+        with self._h2d_stage_lock:
+            for i, (h, _) in enumerate(got):
+                while len(self._h2d_stage) >= cap:
+                    self._h2d_stage.pop(next(iter(self._h2d_stage)))
+                self._h2d_stage[h] = (dev[0][i], dev[1][i], ev)
+                self._h2d_requested.add(h)
+            if len(self._h2d_requested) > 4 * cap:
+                # cancelled/never-admitted requests must not grow the
+                # stall-attribution set forever
+                self._h2d_requested.clear()
+        record_flow("h2d_prefetch", host[0].nbytes + host[1].nbytes,
+                    time.perf_counter() - t0)
+        return len(got)
 
     def _restore_prefix(self, seq_id: str, prompt: List[int]) -> int:
-        """Prefix reuse at admission: claim matching device blocks and
-        upload matching host-tier blocks; returns tokens satisfied from
-        cache (always < len(prompt) so the last token still computes
-        logits)."""
+        """Prefix reuse at admission: claim matching device blocks, consume
+        prefetch-staged blocks (device to device, after their upload's
+        event), and upload the remaining matching host-tier blocks; returns
+        tokens satisfied from cache (always < len(prompt) so the last token
+        still computes logits)."""
         t0 = time.perf_counter()
         host_lookup = None
         staged: List[np.ndarray] = []       # (k, v) host blocks, once used
+        on_dev: Dict[int, Tuple[Any, Any, Any]] = {}   # prefetch-staged
         n_up = 0
         if self.tiered is not None:
             def host_lookup(h):
@@ -884,6 +1152,15 @@ class EngineCore:
                 # LRU-drops from — the very host tier we matched against.
                 # The copy goes straight into (pinned) upload buffers.
                 nonlocal n_up
+                with self._h2d_stage_lock:
+                    dev = self._h2d_stage.pop(h, None)
+                    if dev is not None:
+                        # a host upload of a requested hash stays in the
+                        # set: it is counted as a stall below
+                        self._h2d_requested.discard(h)
+                if dev is not None:
+                    on_dev[h] = dev
+                    return True
                 kv = self.tiered.lookup(h)
                 if kv is None:
                     return False
@@ -901,10 +1178,41 @@ class EngineCore:
             # the upload pages may have been evicted just now: their old
             # blocks go out before the h2d overwrites them
             self._flush_evictions()
-            n = len(uploads)
-            self.copy_stream.h2d_pages(self.k_pool, self.v_pool,
-                                       [p for _, p in uploads],
-                                       staged[0][:n], staged[1][:n])
+            host_up = [(h, p) for h, p in uploads if h not in on_dev]
+            dev_up = [(h, p) for h, p in uploads if h in on_dev]
+            if host_up:
+                from ..obs.flows import record_flow
+
+                n = len(host_up)
+                t1 = time.perf_counter()
+                self.copy_stream.h2d_pages(self.k_pool, self.v_pool,
+                                           [p for _, p in host_up],
+                                           staged[0][:n], staged[1][:n])
+                record_flow("h2d_prefetch",
+                            staged[0][:n].nbytes + staged[1][:n].nbytes,
+                            time.perf_counter() - t1, trace_id=seq_id)
+                with self._h2d_stage_lock:
+                    stalls = sum(h in self._h2d_requested
+                                 for h, _ in host_up)
+                    self._h2d_requested.difference_update(
+                        h for h, _ in host_up)
+                if stalls:
+                    self.stage.prefetch_h2d_stalls.inc(amount=float(stalls))
+            if dev_up:
+                ks = [on_dev[h][0] for h, _ in dev_up]
+                vs = [on_dev[h][1] for h, _ in dev_up]
+                if self.device.type == "cuda":
+                    # the side stream's uploads come first; the staged
+                    # tensors are then in use on this stream too
+                    cur = torch.cuda.current_stream(self.device)
+                    for ev in {id(on_dev[h][2]): on_dev[h][2]
+                               for h, _ in dev_up}.values():
+                        cur.wait_event(ev)
+                    for t in ks + vs:
+                        t.record_stream(cur)
+                self.copy_stream.scatter_blocks(
+                    self.k_pool, self.v_pool, [p for _, p in dev_up], ks, vs)
+                self.stage.prefetch_h2d_hits.inc(amount=float(len(dev_up)))
         self.restore_seconds += time.perf_counter() - t0
         return matched
 
@@ -1517,6 +1825,10 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
                 else:
                     self._run_kv_command(kind, seq_id, payload)
             if not self.core.has_work:
+                if self.core._wt_pending or self.core._wt_copies:
+                    # idle: the last request's mirrors go to the tier now
+                    # (nothing is in flight, so waiting on them is free)
+                    self.core.flush_writethrough()
                 # idle: keep the windowed goodput gauges honest (they decay
                 # to 0 as the last burst ages out of the window)
                 now = time.monotonic()
@@ -1787,6 +2099,41 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
             self._queues.pop(seq_id, None)
             self._inbox.put(("cancel", seq_id, None))
             self._wake.set()
+
+    # ------------------------------------------------------------------
+    # placement-driven prefetch (an executor thread)
+    # ------------------------------------------------------------------
+    def prefetch_tiers(self, request: BackendInput) -> int:
+        """Start the h2d upload of the request's matched host/disk-tier
+        prefix (and touch draft-model state when spec is on) while it
+        waits in the slot-gate queue: admission consumes the staged device
+        blocks instead of stalling first prefill on the upload.
+        Best-effort: any failure just means the synchronous restore."""
+        if getattr(request, "images", None) \
+                and not getattr(request, "kv_salt", 0):
+            # admission would salt this request's chain with an image
+            # digest: a prefetch under the unsalted chain would stage
+            # blocks admission never matches
+            return 0
+        try:
+            n = self.core.stage_prefetch(
+                request.token_ids,
+                lora_id=getattr(request, "kv_salt", 0)
+                or getattr(request, "lora_id", 0))
+        except Exception:  # noqa: BLE001 - prefetch must never fail a req
+            log.exception("h2d prefetch failed; admission restores "
+                          "synchronously")
+            return 0
+        prop = self.core.proposer
+        if prop is not None and hasattr(prop, "prefetch"):
+            # the draft-model weight prefetch hook (spec decode): today's
+            # proposers load at init, so this is the seam for lazily
+            # loaded drafts, not a transfer
+            try:
+                prop.prefetch()
+            except Exception:  # noqa: BLE001
+                log.debug("draft prefetch hook failed", exc_info=True)
+        return n
 
     # ------------------------------------------------------------------
     def shutdown(self) -> None:

@@ -72,21 +72,39 @@ WorkerSelector = Callable[
     Optional[int]]
 
 
+def _transfer_weight() -> float:
+    """``DYN_ROUTER_TRANSFER_WEIGHT``: logit penalty per expected
+    KV-transfer second of a placement (0 = term off)."""
+    from ...utils.knobs import env_float
+
+    return env_float("DYN_ROUTER_TRANSFER_WEIGHT", 1.0, minimum=0.0)
+
+
 def score_candidates(tokens: Sequence[int], block_size: int,
                      overlaps: OverlapScores,
-                     endpoints: ProcessedEndpoints) -> List[Dict[str, Any]]:
+                     endpoints: ProcessedEndpoints,
+                     cluster=None) -> List[Dict[str, Any]]:
     """The full per-candidate score breakdown of the default cost — one
     dict per live worker with every term the logit is built from, so a
     routing decision is auditable after the fact instead of being a bare
     worker id (the decision-audit ring and ``/v1/router/decisions`` expose
     exactly this).
 
-    The JAX scheduler also folds cluster-wide KV availability (a donor
-    election and its transfer cost) into the overlap term. Cluster KV
-    sharing is not ported yet (ROADMAP Queue 1 item 8), so those fields
-    carry their cluster-off values: the candidate's own overlap, no donor
-    and no transfer."""
+    ``cluster`` (a :class:`~..kv_cluster.registry.ClusterOverlap`, None
+    when cluster KV sharing is off) folds fleet-wide prefix availability
+    into the overlap term: a candidate's OWN host/disk-tier coverage
+    counts like a device hit (admission restores it locally), and the
+    best prefix some *other* worker holds counts at the transfer-cost
+    weight — so local hit > peer hit > miss, by construction.
+
+    With a pair-aware cost model armed (``cluster.pair_weight`` /
+    ``pair_seconds``), donor election prices the (donor → candidate)
+    network pair and every candidate's logit is additionally charged
+    ``transfer_weight x expected-transfer-seconds`` for the bytes its
+    election would move — a candidate behind a slow pair loses to one a
+    cheap fetch away even at equal prefix coverage (FlowKV/NetKV)."""
     isl_blocks = max(1, len(tokens) // block_size)
+    tw = _transfer_weight()
     out: List[Dict[str, Any]] = []
     for wid, m in endpoints.workers.items():
         saturated = bool(
@@ -94,7 +112,30 @@ def score_candidates(tokens: Sequence[int], block_size: int,
             and m.request_active_slots >= m.request_total_slots
             and m.num_requests_waiting > 0)
         overlap = overlaps.scores.get(wid, 0)
-        overlap_norm = min(overlap, isl_blocks) / isl_blocks
+        donor = None
+        donor_blocks = 0
+        local_eq = overlap
+        if cluster is not None:
+            # the worker's own tier residency is a local hit: restore is
+            # a host->device upload, no network
+            local_eq = max(overlap, cluster.owners.get(wid, 0))
+            donor, donor_blocks = cluster.donor_for(wid, local_eq)
+        extra = max(0, donor_blocks - local_eq) if donor is not None else 0
+        peer_w = (cluster.weight_for(donor, wid, extra)
+                  if cluster is not None and donor is not None else 0.0)
+        eff = min(local_eq + peer_w * extra, float(isl_blocks))
+        overlap_norm = eff / isl_blocks
+        # expected seconds the elected fetch would spend moving bytes
+        # onto THIS candidate (0 without a donor / without a cost model)
+        xfer_s = (cluster.seconds_for(donor, wid, extra)
+                  if cluster is not None and donor is not None and extra
+                  else 0.0)
+        # ledger provenance of the charged transfer term: which bandwidth
+        # estimate ("pair" EWMA fed by the byte-flow ledger, "into_dst"
+        # mean, "fleet" rate, optimistic "default") priced xfer_s
+        xfer_src = (cluster.source_for(donor, wid)
+                    if cluster is not None and donor is not None and extra
+                    else "")
         load = (m.request_active_slots / m.request_total_slots
                 if m.request_total_slots else 0.0)
         # bytes-resident dimension: the worker's total KV working set
@@ -109,17 +150,17 @@ def score_candidates(tokens: Sequence[int], block_size: int,
         out.append({
             "worker_id": wid,
             "overlap_blocks": overlap,
-            "cluster_local_blocks": overlap,
-            "kv_donor": None,
-            "kv_donor_blocks": 0,
+            "cluster_local_blocks": local_eq,
+            "kv_donor": donor,
+            "kv_donor_blocks": donor_blocks,
             "overlap_norm": overlap_norm,
             "cache_usage": m.cache_usage,
             "load": load,
             "kv_bytes_frac": bytes_frac,
-            "transfer_seconds": 0.0,
-            "transfer_src": "",
+            "transfer_seconds": xfer_s,
+            "transfer_src": xfer_src,
             "logit": 2.0 * overlap_norm - m.cache_usage - load
-            - bytes_frac,
+            - bytes_frac - tw * xfer_s,
             "saturated": saturated,
         })
     return out
@@ -187,8 +228,8 @@ class KvScheduler:
             maxlen=_audit_ring_size())
         self._seq = 0
         # the chosen candidate's full score breakdown from the most recent
-        # successful schedule(), so route() stamps exactly what was scored
-        # instead of re-deriving it. Only
+        # successful schedule() — incl. the kv_donor election, so route()
+        # stamps exactly what was scored instead of re-deriving it. Only
         # meaningful synchronously after schedule() returns (no await in
         # between); None when the last decision found no capacity.
         self.last_choice: Optional[Dict[str, Any]] = None
@@ -249,7 +290,7 @@ class KvScheduler:
 
     def schedule(self, tokens: Sequence[int],
                  overlaps: OverlapScores, salt: int = 0,
-                 exclude=None) -> Optional[int]:
+                 cluster=None, exclude=None) -> Optional[int]:
         endpoints = self.endpoints
         if exclude:
             # mid-stream failover re-election: score everyone EXCEPT the
@@ -263,7 +304,7 @@ class KvScheduler:
             if kept:
                 endpoints = ProcessedEndpoints(kept)
         candidates = score_candidates(tokens, self.block_size, overlaps,
-                                      endpoints)
+                                      endpoints, cluster=cluster)
         if self.selector is not None:
             wid = self.selector(tokens, self.block_size, overlaps, endpoints)
         else:
@@ -305,7 +346,7 @@ class KvScheduler:
                                timeout_s: float = 30.0,
                                salt: int = 0,
                                fast_fail: Optional[bool] = None,
-                               exclude=None) -> int:
+                               cluster=None, exclude=None) -> int:
         """Wait for capacity when all workers are saturated — unless
         ``fast_fail`` (param, or ``DYN_ROUTER_FAST_FAIL``, or a brownout
         level above normal at the router service) is active: then a fully
@@ -317,7 +358,7 @@ class KvScheduler:
         deadline = asyncio.get_event_loop().time() + timeout_s
         while True:
             wid = self.schedule(tokens, overlaps, salt=salt,
-                                exclude=exclude)
+                                cluster=cluster, exclude=exclude)
             if fast_fail:
                 why = self._all_unavailable(tokens, overlaps, wid)
                 if why is not None:

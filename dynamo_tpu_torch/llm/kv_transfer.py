@@ -73,10 +73,9 @@ _pair_lock = threading.Lock()
 def observe_pair_bw(src: str, dst: str, nbytes: int,
                     seconds: float) -> None:
     """Fold one observed transfer into the (src,dst) bandwidth EWMA and
-    export it as ``llm_kv_pair_bw_bytes_per_s`` — the series the JAX
-    router's transfer-cost model reads back out of the merged stage dumps
-    (the port's router gains that term with the KV cluster, ROADMAP Queue
-    1 item 8)."""
+    export it as ``llm_kv_pair_bw_bytes_per_s`` — the series the router's
+    transfer-cost model (``llm/kv_cluster/registry.TransferCostModel``)
+    reads back out of the merged stage dumps."""
     if nbytes <= 0 or seconds <= 0:
         return
     alpha = env_float("DYN_KV_BW_ALPHA", 0.3, minimum=0.0)

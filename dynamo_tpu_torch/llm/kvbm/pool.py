@@ -153,6 +153,12 @@ class DeviceBlockPool:
         self._unregister(b)
         return h
 
+    def sealed_hash(self, page: int) -> Optional[int]:
+        """The hash ``page`` holds registered, else None (never sealed,
+        unsealed, recycled, or a duplicate of another page's block)."""
+        b = self._blocks.get(page)
+        return b.seq_hash if b is not None and b.registered else None
+
     def contains(self, seq_hash: int) -> bool:
         """Non-claiming membership probe (disagg router's prefix-hit input)."""
         return seq_hash in self._by_hash

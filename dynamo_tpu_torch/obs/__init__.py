@@ -56,7 +56,8 @@ async def start_process(component: str, *, store=None,
     process's dump inside incident bundles (default ``component:pid``);
     pass the worker id when several components share a pid (tests)."""
     rec = install(component=component, tracer=tracer)
-    wd = await Watchdog(recorder=rec, tracer=tracer).start()
+    wd = await Watchdog(recorder=rec, tracer=tracer,
+                        stack_dump=install_signal).start()
     mgr = None
     if store is not None:
         mgr = IncidentManager(store, namespace, component, recorder=rec,

@@ -12,6 +12,10 @@ nothing has moved for too long:
 - a drain that outlives its grace budget (armed by the worker shell);
 - an event-loop stall: the watchdog's own tick waking more than
   ``DYN_WATCHDOG_LOOP_STALL`` seconds late means something held the loop.
+  With ``stack_dump`` (a worker binary's own process), every tick also
+  re-arms ``faulthandler.dump_traceback_later``: a loop held for twice
+  that long gets every thread's Python stack written to stderr by
+  faulthandler's C thread, which needs no GIL, while the loop is held.
 
 Each detection emits ONE ``stall:<kind>`` span per wedged period
 (re-armed the moment the activity moves again) carrying
@@ -23,6 +27,7 @@ every involved process dumps its rings (obs/incidents.py).
 from __future__ import annotations
 
 import asyncio
+import faulthandler
 import logging
 import os
 import time
@@ -41,7 +46,8 @@ class Watchdog:
                  mult: Optional[float] = None,
                  floor: Optional[float] = None,
                  loop_stall: Optional[float] = None,
-                 enabled: Optional[bool] = None):
+                 enabled: Optional[bool] = None,
+                 stack_dump: bool = False):
         self.recorder = recorder if recorder is not None \
             else flight_recorder()
         self._tracer = tracer
@@ -59,6 +65,7 @@ class Watchdog:
             enabled = os.environ.get("DYN_WATCHDOG", "1") \
                 not in ("0", "false")
         self.enabled = enabled
+        self.stack_dump = stack_dump
         self.stalls = 0
         self._task: Optional[asyncio.Task] = None
 
@@ -83,6 +90,8 @@ class Watchdog:
             except asyncio.CancelledError:
                 pass
             self._task = None
+        if self.stack_dump:
+            faulthandler.cancel_dump_traceback_later()
 
     # -- detection (pure against the heartbeat table; unit-testable) --------
     def check(self, now: Optional[float] = None) -> List[Dict[str, Any]]:
@@ -141,6 +150,9 @@ class Watchdog:
     async def _loop(self) -> None:
         last = time.monotonic()
         while True:
+            if self.stack_dump:
+                faulthandler.dump_traceback_later(
+                    self.interval + 2.0 * self.loop_stall)
             await asyncio.sleep(self.interval)
             now = time.monotonic()
             lag = now - last - self.interval

@@ -284,6 +284,26 @@ _ALL: List[Knob] = [
        'cluster-wide KV sharing: workers publish sealed-block '
        'registry records + serve/consume kv_fetch, routers stamp '
        'donors'),
+    _k("DYN_KV_CLUSTER_PUBLISH_INTERVAL", "float", "1.0", "router",
+       "min seconds between a worker's registry record writes "
+       "(seal/evict-driven, write-coalesced)"),
+    _k("DYN_KV_CLUSTER_FETCH_TIMEOUT", "float", "5.0", "router",
+       "peer prefix fetch budget, seconds; expiry falls back to local "
+       "prefill recompute"),
+    _k("DYN_KV_CLUSTER_MAX_BLOCKS", "int", "0", "router",
+       "cap on KV blocks per peer fetch, donor and receiver side "
+       "(0 = unlimited)"),
+    _k("DYN_KV_CLUSTER_PEER_WEIGHT", "float", "0.5", "router",
+       "score value of a free peer-held block relative to a local block "
+       "(discounted further by estimated transfer time)"),
+    _k("DYN_ROUTER_TRANSFER_WEIGHT", "float", "1.0", "router",
+       "logit penalty per expected KV-transfer second of a placement "
+       "(bytes-to-move x measured per-pair bandwidth; 0 = transfer-cost "
+       "term off)"),
+    _k("DYN_H2D_PREFETCH_BLOCKS", "int", "32", "router",
+       "device staging blocks for placement-driven h2d prefetch of "
+       "matched tier prefixes while a request queues at the slot gate "
+       "(0 = prefetch off, admission uploads synchronously as before)"),
     # ---------------------------------------------------------------- spec
     _k("DYN_SPEC", "str", "", "spec",
        "speculative decoding mode: '' (off) | ngram | draft"),

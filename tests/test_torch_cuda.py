@@ -668,3 +668,93 @@ def test_from_card_sizes_a_gguf_and_loads_it(tmp_path):
         tensors["blk.1.attn_q.weight"].to(bf).T.reshape(D, Hq, Dh)))
     assert torch.equal(_bits(p["layers"]["ln2"][0]),
                        _bits(tensors["blk.0.ffn_norm.weight"]))
+
+
+def _ready_mirrors(core):
+    """Pending write-through entries whose KV is written (not popped)."""
+    return [e for e in core._wt_pending
+            if core.pool.blocks.sealed_hash(e[1]) == e[0]
+            and (core._kv_written(e[2]) is None
+                 or core._kv_written(e[2]) >= e[3])]
+
+
+def _page_bits(core, seq_hash):
+    page = core.pool.blocks._by_hash[seq_hash]
+    return [p[:, :, page].view(torch.int16).cpu()
+            for p in (core.k_pool, core.v_pool)]
+
+
+@pytest.mark.cuda
+def test_writethrough_mirror_is_bitwise_and_takes_no_sync_when_chained():
+    """Cluster write-through on a chained window: the step boundary's
+    mirror gather and the chained decode enqueue run under sync debug
+    mode "error" (pinned copy, event; no host sync), and every block the
+    tier received equals its device pages bit for bit."""
+    _card()
+    core = _tiny_core(page_size=16, decode_steps=4, host_cache_blocks=32,
+                      cluster_writethrough=True)
+    _submit(core, "a", list(range(1, 30)), 48)
+    _submit(core, "b", [7] * 20, 48)
+    for _ in range(60):
+        core.step()
+        if (len(core._inflight) == 1 and core._can_chain()
+                and _ready_mirrors(core)):
+            break
+    else:
+        raise AssertionError("no chainable step with a mirror ready")
+    n, ready = core.decode_dispatches, {e[0] for e in _ready_mirrors(core)}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        core._advance_writethrough()
+        core._dispatch_decode()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert core.decode_dispatches == n + 1 and core._inflight[-1]["chained"]
+    # the ready mirrors left in that gather (in flight, or already taken)
+    moving = {h for r in core._wt_copies for h, _ in r["entries"]}
+    assert ready and ready <= moving | set(core.tiered.hashes()[0])
+    while core.has_work:
+        core.step()
+    core.flush_writethrough()
+    host, _ = core.tiered.hashes()
+    assert len(host) == core.writethrough_blocks >= 3
+    for h in host:
+        k, v = core.tiered.peek(h)
+        dk, dv = _page_bits(core, h)
+        assert np.array_equal(k.view(np.int16), dk.numpy())
+        assert np.array_equal(v.view(np.int16), dv.numpy())
+
+
+@pytest.mark.cuda
+def test_staged_prefetch_on_a_side_stream_is_consumed_bitwise():
+    """A prompt's blocks sit only in the host tier; ``stage_prefetch``
+    uploads them on a side stream, and admission waits on its event and
+    scatters them: the pages equal the tier's bits, and the tokens equal
+    the synchronous restore's."""
+    from dynamo_tpu_torch.llm.tokens import compute_seq_hashes
+
+    _card()
+    core = _tiny_core(page_size=16, host_cache_blocks=32)
+    prompt = list(range(3, 103))
+    hashes = compute_seq_hashes(prompt, 16)
+    got = {}
+    for mode in ("cold", "sync", "staged"):
+        if mode != "cold":
+            assert core.flush_reusable() >= len(hashes)
+        if mode == "staged":
+            assert core.stage_prefetch(prompt) == len(hashes)
+        _submit(core, mode, prompt, 12)
+        toks = []
+        while core.has_work:
+            toks += [so.token for so in core.step()]
+        got[mode] = toks
+        if mode != "cold":
+            assert core.last_prefix_hit == 96
+    assert got["staged"] == got["sync"]
+    assert not core._h2d_stage
+    for h in hashes:
+        k, v = core.tiered.peek(h)
+        dk, dv = _page_bits(core, h)
+        assert np.array_equal(k.view(np.int16), dk.numpy())
+        assert np.array_equal(v.view(np.int16), dv.numpy())

@@ -278,9 +278,13 @@ def test_config_accepts_kv_block_manager_args():
     cfg = TorchEngineConfig.from_card(card, enable_prefix_reuse=False,
                                       host_cache_blocks=4)
     assert not cfg.enable_prefix_reuse and cfg.host_cache_blocks == 4
-    with pytest.raises(NotImplementedError, match="cluster_writethrough"):
+    # cluster write-through is ported; the paging lane's args are not
+    assert TorchEngineConfig.from_card(
+        card, host_cache_blocks=4, cluster_writethrough=True
+    ).cluster_writethrough
+    with pytest.raises(NotImplementedError, match="kvpage_budget"):
         TorchEngineConfig.from_card(card, host_cache_blocks=4,
-                                    cluster_writethrough=True)
+                                    kvpage_budget=16)
 
 
 def test_cuda_request_without_a_card_raises():

@@ -576,9 +576,9 @@ def test_worker_refuses_what_is_not_ported(monkeypatch):
     # options of slices not ported at all are not defined: argparse refuses
     with pytest.raises(SystemExit):
         worker.parse_args(["--tp", "2"])
+    # cluster KV sharing is ported: a worker starts with it
     monkeypatch.setenv("DYN_KV_CLUSTER", "1")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        worker.check_ported(worker.parse_args([]))
+    worker.check_ported(worker.parse_args([]))
     monkeypatch.delenv("DYN_KV_CLUSTER")
     worker.check_ported(worker.parse_args([]))
     with pytest.raises(SystemExit):
