@@ -12,8 +12,8 @@ with a traceback and prints no result:
 2. build     — builds the CUDA kernels from ``dynamo_tpu_torch/ops/csrc``;
                ptxas's registers and spills for each kernel instance.
 3. kernels   — every kernel of the serving path against its plain torch
-               version on the card, in bf16, at Llama-3-8B (and Gemma2-9B)
-               head shapes, the flash kernel also on a ragged dispatch in
+               version on the card, in bf16, at Llama-3-8B (Gemma2-9B and
+               Gemma3-4B) head shapes, the flash kernel also on a ragged dispatch in
                the serve path's strided gather layout, the paged kernel
                also on one 2048-token stream and on the serve burst's own
                decode shape (``paged_probe.PAGED_CASES``), and both at the
@@ -137,6 +137,39 @@ with a traceback and prints no result:
                counters on ``/metrics`` must equal the engine's: the HTTP
                service in front of the draft engine (which drafts every
                round), then ``cli.run`` serving ``{"spec": "ngram"}``.
+
+13. vlm      — Gemma3-4B-it vision-language serving over HTTP: the
+               published config (nested text and vision configs) mapped by
+               ``LlamaConfig.from_hf_config``, full width and depth, random
+               bf16 weights from the seed and the SigLIP tower (27 layers,
+               896-pixel images, 256 soft tokens) from seed + 1. Chat
+               requests with PNG data URLs written by ``llm/_png.encode``
+               (Paeth on every row; a 1200x900 image downscaled, a 640x480
+               one upscaled, both in one request, beside a text-only
+               request): all 200 with tokens; the 1200x900 PNG decodes to
+               its pixels bit for bit (its decode time reported); no
+               prefill chunk splits an image span; every dispatch with an
+               image span runs the dense path (``image_waves``) and every
+               other one the flash kernel (34 launches a text wave),
+               decode the paged kernel (34 a step); a greedy image request
+               repeats after the cache is flushed, hits its salted prefix
+               when sent again (its warm tokens equal the cold ones) and
+               misses it with another image; the tower's bf16 soft tokens
+               against the same tower in f32: at a trained tower's scale
+               at or above ``VLM_COS_MIN``, which the same tower with its
+               attention probabilities in float8_e4m3 falls below; the
+               served (seeded) tower's finite, its cosine only reported.
+               Tower ms an image, image and text TTFT, peak memory.
+14. moe      — Mixtral-8x7B's published widths (E=8, top-2), depth cut to
+               4 of 32 layers, through the engine: sorted and dense
+               dispatch agree on a 512-token chunk (2e-2 of the output's
+               largest value); four concurrent requests prefill through
+               sorted dispatch (one host read of the expert counts a layer)
+               and decode through dense dispatch (``moe_ffn.dispatches``),
+               the kernels launched 4 a prefill dispatch and decode step;
+               a chained decode enqueue of 16 lanes (dense: a one-token
+               step never reads the expert counts) under sync debug mode
+               "error".
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2.
@@ -1133,24 +1166,31 @@ def reference_phase(torch, core):
 # ---------------------------------------------------------------------------
 
 def _generate(engine, loop, prompt):
-    """One greedy request straight through the engine's AsyncEngine entry
-    point on the server's loop: (tokens, kv_prefix_hit_tokens, TTFT s,
-    total s)."""
+    """One greedy request of ``prompt`` through :func:`_generate_request`:
+    (tokens, kv_prefix_hit_tokens, TTFT s, total s)."""
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+
+    return _generate_request(engine, loop, BackendInput(
+        token_ids=prompt, stop=StopConditions(max_tokens=REUSE_TOKENS,
+                                              ignore_eos=True)))
+
+
+def _generate_request(engine, loop, bi):
+    """One request straight through the engine's AsyncEngine entry point
+    on the server's loop: (tokens, kv_prefix_hit_tokens, TTFT s, total
+    s)."""
     import asyncio
 
-    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
-                                                       FinishReason,
-                                                       StopConditions)
+    from dynamo_tpu_torch.llm.protocols.common import FinishReason
     from dynamo_tpu_torch.runtime.engine import Context
 
     async def go():
         toks, hit, ttft = [], None, None
         t0 = time.perf_counter()
-        async for o in engine.generate(BackendInput(
-                token_ids=prompt, stop=StopConditions(
-                    max_tokens=REUSE_TOKENS, ignore_eos=True)), Context()):
+        async for o in engine.generate(bi, Context()):
             if o.finish_reason == FinishReason.ERROR:
-                raise AssertionError(f"reuse request failed: {o.error}")
+                raise AssertionError(f"request failed: {o.error}")
             if ttft is None:
                 ttft = time.perf_counter() - t0
                 hit = o.kv_prefix_hit_tokens
@@ -1463,12 +1503,13 @@ def _ready_mirrors(core) -> list:
     return out
 
 
-def chain_sync_phase(torch, served, writethrough: bool = False) -> dict:
+def chain_sync_phase(torch, served, writethrough: bool = False,
+                     lanes: int = 2) -> dict:
     """On a second engine core that shares the served weights (the serving
-    core belongs to its engine thread), two requests decode until the next
-    dispatch can chain off the one in flight; that enqueue then runs under
-    ``torch.cuda.set_sync_debug_mode("error")``, where any host sync (a
-    pageable copy, ``.item()``, a stream sync) raises.
+    core belongs to its engine thread), ``lanes`` requests decode until the
+    next dispatch can chain off the one in flight; that enqueue then runs
+    under ``torch.cuda.set_sync_debug_mode("error")``, where any host sync
+    (a pageable copy, ``.item()``, a stream sync) raises.
 
     With ``writethrough`` the core has a host tier and cluster
     write-through, the requests run until a sealed block's mirror is ready
@@ -1483,7 +1524,7 @@ def chain_sync_phase(torch, served, writethrough: bool = False) -> dict:
     from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
                                                        StopConditions)
 
-    cfg = dataclasses.replace(served.cfg, max_batch=2, num_pages=None,
+    cfg = dataclasses.replace(served.cfg, max_batch=lanes, num_pages=None,
                               host_cache_blocks=32 if writethrough else 0,
                               cluster_writethrough=writethrough)
     core = EngineCore(cfg, served.params)
@@ -1491,12 +1532,14 @@ def chain_sync_phase(torch, served, writethrough: bool = False) -> dict:
     # fourth decoded token: that block seals inside the chained window
     prompts = {"a": list(range(1, 61 if writethrough else 65)),
                "b": [7] * 40}
+    prompts.update({f"l{k}": [k + 9] * (24 + k) for k in range(2, lanes)})
     for sid, prompt in prompts.items():
         core.submit(sid, BackendInput(token_ids=prompt, stop=StopConditions(
             max_tokens=48, ignore_eos=True)))
     for _ in range(20):
         core.step()
-        if len(core._inflight) == 1 and core._can_chain() and (
+        if len(core._inflight) == 1 and core._can_chain() and len(
+                core._inflight[0]["active"]) == lanes and (
                 not writethrough or _ready_mirrors(core)):
             break
     else:
@@ -1518,6 +1561,7 @@ def chain_sync_phase(torch, served, writethrough: bool = False) -> dict:
     enqueue_s = time.perf_counter() - t1
     mirror_enqueue_s = t1 - t0
     chained = core.decode_dispatches == n + 1 and core._inflight[-1]["chained"]
+    window_lanes = len(core._inflight[-1]["active"])
     moving = {h for r in core._wt_copies for h, _ in r["entries"]}
     tokens = 0
     for _ in range(40):
@@ -1525,13 +1569,14 @@ def chain_sync_phase(torch, served, writethrough: bool = False) -> dict:
         if not core.has_work:
             break
     row = dict(phase="chain", sync_debug_mode="error", chained=chained,
-               writethrough=writethrough,
+               writethrough=writethrough, lanes=window_lanes,
                enqueue_s=enqueue_s, decode_steps=core.cfg.decode_steps,
                decode_step_ms=1e3 * core.decode_seconds
                / core.decode_steps_run,
                tokens_after=tokens, drained=not core.has_work,
                pages_free=core.pool.free_pages == core.pool.num_pages - 1)
-    ok = chained and row["drained"] and row["pages_free"]
+    ok = (chained and window_lanes == lanes and row["drained"]
+          and row["pages_free"])
     if writethrough:
         core.flush_writethrough()
         host, _ = core.tiered.hashes()
@@ -3672,6 +3717,483 @@ def spec_http_phase(torch, smi: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 13: Gemma3-4B-it vision-language serving over HTTP
+# ---------------------------------------------------------------------------
+
+# google/gemma-3-4b-it's config.json (Gemma3ForConditionalGeneration), as
+# the hub ships it: the text_config is sparse and leans on
+# Gemma3TextConfig's class defaults, which from_hf_config applies
+GEMMA3_4B_HF = {
+    "architectures": ["Gemma3ForConditionalGeneration"],
+    "model_type": "gemma3", "boi_token_index": 255999,
+    "eoi_token_index": 256000, "image_token_index": 262144,
+    "mm_tokens_per_image": 256,
+    "text_config": {
+        "model_type": "gemma3_text", "hidden_size": 2560,
+        "intermediate_size": 10240, "num_hidden_layers": 34,
+        "rope_scaling": {"factor": 8.0, "rope_type": "linear"},
+        "sliding_window": 1024},
+    "vision_config": {
+        "model_type": "siglip_vision_model", "hidden_size": 1152,
+        "intermediate_size": 4304, "num_hidden_layers": 27,
+        "num_attention_heads": 16, "image_size": 896, "patch_size": 14,
+        "vision_use_head": False},
+}
+VLM_PRESET = "gemma3-4b"        # the text model GEMMA3_4B_HF must map to
+VLM_ENGINE = dict(max_batch=8, max_context=2048, page_size=64,
+                  prefill_chunk=512, decode_steps=8)
+VLM_TOKENS = 24
+# the trained-scale tower's bf16 soft tokens against f32 (per-token
+# cosine, the least over the image), from the card's readings: 0.9999902
+# sound in every run, 0.9999834 with the attention probabilities rounded
+# through float8_e5m2, 0.33 through float8_e4m3. The served tower is held
+# to finite soft tokens only: at its seeded scale the sound 0.957 lies
+# inside its controls' 0.946-0.958, so no limit tells a defect there
+VLM_COS_MIN = 0.99998
+VLM_TOWER_SEED = 31
+
+
+def fan_in_tower(torch, siglip, cfg, seed: int, device) -> dict:
+    """A tower at a trained tower's scale: matrices normal / sqrt(fan-in),
+    biases 0, layer norms 1 (the seeded init's normal / sqrt(layers) on
+    stacked leaves saturates the attention, where bf16 rounding alone
+    decides which patch a query attends to)."""
+    import math
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def leaf(name, shape):
+        if name in ("patch_w", "pos_embed", "wq", "wk", "wv", "wo", "fc1",
+                    "fc2"):
+            fan = shape[-2] if len(shape) == 3 else shape[0]
+            return (torch.randn(shape, generator=g, device=device)
+                    / math.sqrt(fan)).to(cfg.dtype)
+        if name.endswith("_w"):
+            return torch.ones(shape, device=device)
+        return torch.zeros(shape, device=device,
+                           dtype=torch.float32 if name.startswith(
+                               ("ln", "post")) else cfg.dtype)
+
+    shapes = siglip.param_shapes(cfg)
+    out = {k: leaf(k, v) for k, v in shapes.items() if k != "layers"}
+    out["layers"] = {k: leaf(k, v) for k, v in shapes["layers"].items()}
+    return out
+
+
+def test_image(seed: int, h: int, w: int):
+    """A seeded photo-like uint8 [h, w, 3]: smooth gradients and noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = np.stack([128 + 100 * np.sin(x / (17 + 9 * c) + y / (23 + 5 * c)
+                                        + seed) for c in range(3)], -1)
+    return np.clip(base + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(
+        np.uint8)
+
+
+def vlm_phase(torch, att, smi: str) -> dict:
+    """Gemma3-4B-it (full width and depth, random bf16 weights from the
+    seed, the SigLIP tower from seed + 1) served over HTTP: image chat
+    requests as PNG data URLs through admission (the tower), span-aligned
+    chunking, dense image waves and flash text waves, and paged decode."""
+    import base64
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.device import to_device
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.engine.multimodal import normalize_image
+    from dynamo_tpu_torch.llm import _png
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.preprocessor import Preprocessor
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.models import llama, siglip
+
+    t_phase = time.perf_counter()
+    # an earlier phase's engine may sit in reference cycles (its HTTP
+    # service, loop and pipeline) that only a collection frees
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_start = torch.cuda.memory_allocated()
+    big, small = test_image(1200, 900, 1200), test_image(640, 480, 640)
+    other = test_image(7, 900, 1200)
+    # Paeth on every row (what an encoder mostly picks on photos): the
+    # decoder's slowest filter, undone along anti-diagonals
+    pngs = {k: _png.encode(v) for k, v in
+            (("big", big), ("small", small), ("other", other))}
+    t0 = time.perf_counter()
+    decoded = _png.decode(pngs["big"])
+    png_decode_s = time.perf_counter() - t0
+    decoded_bitwise = bool(np.array_equal(decoded, big))
+    urls = {k: "data:image/png;base64," + base64.b64encode(v).decode()
+            for k, v in pngs.items()}
+    card = ModelDeploymentCard.synthetic("gemma3-4b-it",
+                                         model_config=GEMMA3_4B_HF)
+    cfg = TorchEngineConfig.from_card(card, device=DEVICE, **VLM_ENGINE)
+    m = cfg.model
+    want = llama.preset(VLM_PRESET)
+    mapped_ok = all(getattr(m, f.name) == getattr(want, f.name)
+                    for f in dataclasses.fields(want)
+                    if f.name not in ("vision", "mm_tokens_per_image",
+                                      "image_token_id"))
+    n_soft = GEMMA3_4B_HF["mm_tokens_per_image"]
+    if not (mapped_ok and m.image_token_id
+            == GEMMA3_4B_HF["image_token_index"]
+            and m.mm_tokens_per_image == n_soft):
+        raise AssertionError(f"the HF config did not map to {VLM_PRESET}: "
+                             f"{m}")
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    c = engine.core
+    L = m.num_layers
+    # every prefill dispatch's attention path and query spans, read after
+    # the phase (a copy on the card: no sync inside the dispatch)
+    waves: list = []
+    forward = llama.forward
+
+    def recorded(*args, **kw):
+        spans = kw.get("attn_spans")
+        waves.append((kw["attn_impl"],
+                      None if spans is None else spans[0].clone()))
+        return forward(*args, **kw)
+
+    def text(s):
+        return {"type": "text", "text": s}
+
+    def image(k):
+        return {"type": "image_url", "image_url": {"url": urls[k]}}
+
+    def chat(content, **kw):
+        return ("/v1/chat/completions", {
+            "model": card.name, "max_tokens": VLM_TOKENS, "min_tokens": 4,
+            "stream": True, "logprobs": 1,
+            "messages": [{"role": "user", "content": content}], **kw})
+
+    reqs = {"img_down": chat([text("Describe this picture."), image("big")]),
+            "img_up": chat([text("What is in this image?"), image("small")]),
+            "both": chat([text("Compare"), image("big"), text("with"),
+                          image("small")]),
+            "text": chat("Say hello in three words.")}
+    llama.forward = recorded
+    try:
+        with http_front(card, engine) as (loop, port, _):
+            att.flash_attention.launches = 0
+            att.paged_attention.launches = 0
+            base = (c.prefill_dispatches, c.decode_steps_run, c.image_waves,
+                    c.images_encoded, c.vision_seconds,
+                    att.flash_attention.launches_by_head_dim[m.head_dim])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            results: dict = {}
+            threads = [threading.Thread(target=http_post,
+                                        args=(port, p, b, results, k))
+                       for k, (p, b) in reqs.items()]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            for k in reqs:
+                r = results.get(k)
+                if r is None or r["status"] != 200 or not r["usage"] \
+                        or r["usage"]["completion_tokens"] < 1 \
+                        or not r["done"]:
+                    raise AssertionError(f"vlm request {k} failed: {r}")
+            burst_images = c.images_encoded - base[3]
+            # the same requests straight through the engine, greedy
+            pre = Preprocessor(card)
+
+            def request(content):
+                body = dict(chat(content, temperature=0.0)[1],
+                            max_tokens=16, stream=False)
+                bi = pre.preprocess_chat(
+                    ChatCompletionRequest.from_dict(body)).backend_input
+                bi.stop.ignore_eos = True
+                return bi
+
+            img_req = [text("Describe this picture."), image("big")]
+            other_req = [text("Describe this picture."), image("other")]
+            c.flush_reusable()
+            g1 = _generate_request(engine, loop, request(img_req))
+            c.flush_reusable()
+            g2 = _generate_request(engine, loop, request(img_req))
+            # the warm repeat's chunk starts inside the span whose head it
+            # restored (as the JAX engine's does): its waves are not whole
+            warm = len(waves)
+            rep = _generate_request(engine, loop, request(img_req))
+            warm = range(warm, len(waves))
+            oth = _generate_request(engine, loop, request(other_req))
+            c.flush_reusable()
+            txt = _generate_request(engine, loop,
+                                    request("Say hello in three words."))
+            peak = torch.cuda.max_memory_allocated()
+            flash_n = att.flash_attention.launches
+            paged_n = att.paged_attention.launches
+            flash_dh = (att.flash_attention.launches_by_head_dim[m.head_dim]
+                        - base[5])
+            counts = dict(
+                prefill_dispatches=c.prefill_dispatches - base[0],
+                decode_steps=c.decode_steps_run - base[1],
+                image_waves=c.image_waves - base[2],
+                images_encoded=c.images_encoded - base[3],
+                vision_s=c.vision_seconds - base[4])
+    finally:
+        llama.forward = forward
+        engine.shutdown()
+    # the tower in bf16 against the same tower in f32, on the card: the
+    # served (seeded) tower, and one at a trained tower's scale. Three
+    # controls change only the attention probabilities: a softmax taken in
+    # bf16 (its output is rounded to bf16 for the PV product either way),
+    # and probabilities rounded through float8_e5m2 and float8_e4m3; the
+    # limit must catch the last
+    t0 = time.perf_counter()
+    px = normalize_image(big, c.vision_cfg.image_size)[None]
+    normalize_s = time.perf_counter() - t0
+    vcfg = c.vision_cfg
+    vc32 = dataclasses.replace(vcfg, dtype=torch.float32)
+    softmax = torch.softmax
+    controls = {
+        "bf16_softmax": lambda s, dim: softmax(s.to(torch.bfloat16), dim=dim),
+        "e5m2_probs": lambda s, dim: softmax(s, dim=dim).to(
+            torch.float8_e5m2).float(),
+        "e4m3_probs": lambda s, dim: softmax(s, dim=dim).to(
+            torch.float8_e4m3fn).float()}
+
+    def f32(tree):
+        return {k: f32(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+
+    def encode(vp, pp, vc):
+        return siglip.project(pp, vc, siglip.forward(vp, vc, xd), n_soft)
+
+    def cos_mins(name, vp, pp):
+        soft32 = encode(f32(vp), f32(pp), vc32)[0]
+        out = {}
+        for ctl in (None, *controls):
+            # the engine has stopped: nothing else calls torch.softmax
+            torch.softmax = controls.get(ctl, softmax)
+            try:
+                soft16 = encode(vp, pp, vcfg)[0]
+            finally:
+                torch.softmax = softmax
+            if ctl is None:
+                finite[name] = bool(torch.isfinite(soft16).all())
+            out[name + ("_" + ctl if ctl else "")] = float(
+                F.cosine_similarity(soft16.float(), soft32, dim=-1).min())
+        return out
+
+    finite: dict = {}
+
+    with torch.no_grad():
+        xd = to_device(px, c.device)
+        scaled = fan_in_tower(torch, siglip, vcfg, VLM_TOWER_SEED, c.device)
+        cos = {**cos_mins("served", c.vision_params, c.proj_params),
+               **cos_mins("scaled", scaled, c.proj_params)}
+        del scaled
+        tower_ms = time_ms(torch, lambda: encode(
+            c.vision_params, c.proj_params, vcfg), 3)
+    wave_paths = [(impl, spans is not None) for impl, spans in waves]
+    text_waves = sum(1 for _, mm in wave_paths if not mm)
+    image_waves = sum(1 for _, mm in wave_paths if mm)
+    spans = []
+    for i, (_, q_span) in enumerate(waves):
+        if q_span is not None and i not in warm:
+            for row in q_span.cpu():
+                spans += torch.unique(row[row > 0],
+                                      return_counts=True)[1].tolist()
+    r = results
+    row = dict(
+        phase="vlm", model="gemma3-4b-it", engine=VLM_ENGINE, init_s=init_s,
+        weight_bytes=_nbytes(c.params),
+        tower_bytes=_nbytes([c.vision_params, c.proj_params]),
+        png_bytes={k: len(v) for k, v in pngs.items()},
+        png_decode_bitwise=decoded_bitwise,
+        png_decode_1200x900_paeth_s=png_decode_s, **counts,
+        text_waves=text_waves, image_waves_recorded=image_waves,
+        waves_on_their_paths=all(impl == ("dense" if mm else "flash")
+                                 for impl, mm in wave_paths),
+        flash_launches=flash_n, paged_launches=paged_n,
+        flash_launches_at_head_dim=flash_dh, span_tokens=sorted(set(spans)),
+        spans_whole=all(n == n_soft for n in spans) and bool(spans),
+        burst_images=burst_images,
+        prompt_tokens={k: v["usage"]["prompt_tokens"] for k, v in r.items()},
+        burst_ttft_s={k: v["ttft_s"] for k, v in r.items()},
+        alone_ttft_s={"image": g1[2], "image_again": g2[2],
+                      "image_warm": rep[2], "text": txt[2]},
+        greedy_repeats=g1[0] == g2[0], greedy_tokens=len(g1[0]),
+        hits={"cold": g1[1], "cold_again": g2[1], "repeat": rep[1],
+              "other_image": oth[1]},
+        repeat_tokens_equal=rep[0] == g1[0],
+        tower_ms_per_image=tower_ms, normalize_1200x900_s=normalize_s,
+        engine_tower_ms_per_image=1e3 * counts["vision_s"]
+        / max(1, counts["images_encoded"]),
+        soft_token_cos_min=cos, soft_token_cos_limit_scaled=VLM_COS_MIN,
+        soft_tokens_finite=finite,
+        peak_mem_bytes=peak, mem_at_start_bytes=mem_start,
+        phase_s=time.perf_counter() - t_phase, card=smi)
+    emit(row)
+    ok = (decoded_bitwise and row["spans_whole"]
+          and row["waves_on_their_paths"]
+          and image_waves == counts["image_waves"] > 0 and text_waves > 0
+          and counts["prefill_dispatches"] == text_waves + image_waves
+          and flash_n == flash_dh == L * text_waves
+          and paged_n == L * counts["decode_steps"] > 0
+          and burst_images == 4 and row["greedy_repeats"]
+          and row["repeat_tokens_equal"]
+          and g1[1] == g2[1] == 0 and rep[1] > 0 and oth[1] == 0
+          and all(finite.values())
+          and cos["scaled"] >= VLM_COS_MIN > cos["scaled_e4m3_probs"])
+    if not ok:
+        raise AssertionError(f"vlm phase failed: {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 14: Mixtral-8x7B widths through the engine
+# ---------------------------------------------------------------------------
+
+# mistralai/Mixtral-8x7B-v0.1's config.json at its published widths; depth
+# cut to 4 of 32 layers (all 32 are about 93 GB in bf16)
+MIXTRAL = dict(vocab_size=32000, hidden_size=4096, num_layers=4,
+               num_heads=32, num_kv_heads=8, head_dim=128,
+               intermediate_size=14336, rope_theta=1e6, max_position=32768,
+               rms_eps=1e-5, num_experts=8, experts_per_token=2)
+MOE_ENGINE = dict(max_batch=8, max_context=2048, page_size=64,
+                  prefill_chunk=512, decode_steps=8)
+MOE_PROMPTS = (700, 300, 100, 20)
+MOE_TOKENS = 32
+MOE_TOL = 2e-2                  # sorted vs dense, relative to the output
+MOE_CHAIN_LANES = 16            # B*T of a decode step at JAX's sorted cut
+
+
+def moe_phase(torch, att, smi: str) -> dict:
+    import asyncio
+    import gc
+
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       FinishReason,
+                                                       StopConditions)
+    from dynamo_tpu_torch.models import llama, moe
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    t_phase = time.perf_counter()
+    # an earlier phase's engine may sit in reference cycles (its HTTP
+    # service, loop and pipeline) that only a collection frees
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_start = torch.cuda.memory_allocated()
+    cfg = TorchEngineConfig(model=llama.LlamaConfig(**MIXTRAL),
+                            device=DEVICE, **MOE_ENGINE)
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    c = engine.core
+    m, L = cfg.model, cfg.model.num_layers
+    try:
+        # sorted against dense dispatch on one 512-token chunk of layer 0
+        lp = c.params["layers"]
+        g = torch.Generator(device=DEVICE).manual_seed(14)
+        x = torch.randn((1, 512, m.hidden_size), generator=g,
+                        device=DEVICE).to(m.dtype)
+        with torch.no_grad():
+            vals, idx = moe.route_topk(x, lp["wr"][0], m.experts_per_token)
+            w = (lp["wg"][0], lp["wu"][0], lp["wd"][0])
+            ys = moe._sorted_dispatch(x, *w, vals, idx).float()
+            yd = moe.expert_ffn(x, *w, moe.dense_gates(
+                vals, idx, m.num_experts)).float()
+            rel = float((ys - yd).abs().max() / yd.abs().max())
+            sorted_ms = time_ms(torch, lambda: moe._sorted_dispatch(
+                x, *w, vals, idx), 5)
+            dense_ms = time_ms(torch, lambda: moe.expert_ffn(
+                x, *w, moe.dense_gates(vals, idx, m.num_experts)), 5)
+        experts_hit = int(torch.bincount(idx.reshape(-1),
+                                         minlength=m.num_experts).gt(0).sum())
+        rng = np.random.default_rng(1414)
+        prompts = [[int(t) for t in rng.integers(1, m.vocab_size, n)]
+                   for n in MOE_PROMPTS]
+
+        async def one(p):
+            toks, ttft = [], None
+            t0 = time.perf_counter()
+            async for o in engine.generate(BackendInput(
+                    token_ids=p, stop=StopConditions(
+                        max_tokens=MOE_TOKENS, ignore_eos=True)), Context()):
+                if o.finish_reason == FinishReason.ERROR:
+                    raise AssertionError(f"moe request failed: {o.error}")
+                ttft = ttft or time.perf_counter() - t0
+                toks.extend(o.token_ids)
+            return toks, ttft
+
+        async def all4():
+            return await asyncio.gather(*(one(p) for p in prompts))
+
+        att.flash_attention.launches = 0
+        att.paged_attention.launches = 0
+        moe.moe_ffn.dispatches.clear()
+        base = (c.prefill_dispatches, c.decode_steps_run, c.decode_seconds,
+                c.prefill_seconds)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs = asyncio.run(all4())
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        pre_n = c.prefill_dispatches - base[0]
+        steps = c.decode_steps_run - base[1]
+        disp = dict(moe.moe_ffn.dispatches)
+        flash_n = att.flash_attention.launches
+        paged_n = att.paged_attention.launches
+        # a chained decode window of MOE_CHAIN_LANES lanes: one token a
+        # lane, so dense dispatch (sorted would read the expert counts on
+        # the host, which sync debug "error" refuses)
+        moe.moe_ffn.dispatches.clear()
+        chain = chain_sync_phase(torch, c, lanes=MOE_CHAIN_LANES)
+        chain_disp = dict(moe.moe_ffn.dispatches)
+    finally:
+        engine.shutdown()
+    tokens = sum(len(t) for t, _ in outs)
+    row = dict(phase="moe", model="mixtral-8x7b", layers=L,
+               reduced="depth 4 of 32 layers", engine=MOE_ENGINE,
+               init_s=init_s, weight_bytes=_nbytes(c.params),
+               sorted_vs_dense_rel_err=rel, tol=MOE_TOL,
+               experts_hit_in_chunk=experts_hit,
+               chunk512_sorted_ms=sorted_ms, chunk512_dense_ms=dense_ms,
+               prompts=list(MOE_PROMPTS), prefill_dispatches=pre_n,
+               decode_steps=steps, moe_dispatches=disp,
+               flash_launches=flash_n, paged_launches=paged_n,
+               ttft_s=[t for _, t in outs], completion_tokens=tokens,
+               wall_s=wall, decode_tok_s=tokens / wall,
+               prefill_ms_per_dispatch=1e3 * (c.prefill_seconds - base[3])
+               / max(1, pre_n),
+               decode_step_ms=1e3 * (c.decode_seconds - base[2])
+               / max(1, steps),
+               chain_sync_error_mode=chain["sync_debug_mode"],
+               chain_chained=chain["chained"], chain_lanes=chain["lanes"],
+               chain_moe_dispatches=chain_disp, peak_mem_bytes=peak,
+               mem_at_start_bytes=mem_start,
+               phase_s=time.perf_counter() - t_phase, card=smi)
+    emit(row)
+    ok = (rel <= MOE_TOL and tokens == MOE_TOKENS * len(MOE_PROMPTS)
+          and pre_n > 0 and steps > 0
+          and flash_n == L * pre_n and paged_n == L * steps
+          and disp.get("sorted") == L * pre_n
+          and disp.get("dense") == L * steps and chain["chained"]
+          and chain["lanes"] == MOE_CHAIN_LANES)
+    if not ok:
+        raise AssertionError(f"moe phase failed: {row}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -3725,12 +4247,18 @@ def main() -> int:
     flash64 = flash_case(torch, att, "llama-3.2-1b",
                          *flash_inputs(torch, 1, 512, 1024, 32, 8, 64,
                                        ragged=False))
+    # Gemma3-4B's text chunks (the vlm phase): 8 q / 4 kv heads at Dh 256,
+    # the sliding layers' 1024-token window, scale 1/sqrt(256)
+    flash256 = flash_case(torch, att, "gemma3-4b-window",
+                          *flash_inputs(torch, 2, 512, 2048, 8, 4, 256),
+                          scale=1 / 16.0, window=1024)
     from dynamo_tpu_torch.ops.paged_probe import PAGED_CASES
 
     paged_rows = {name: paged_case(torch, att, name, **kw)
                   for name, kw in PAGED_CASES.items()}
     paged, paged16 = paged_rows["llama3-8b"], paged_rows["tiny-byte"]
     paged64 = paged_rows["llama-3.2-1b-draft"]
+    paged256 = paged_rows["gemma3-4b"]
 
     serve, _, params = serve_phase(torch, att, smi)
     default = serve_default_phase(torch, att, smi)
@@ -3744,6 +4272,8 @@ def main() -> int:
     spec["http"] = spec_http_phase(torch, smi)
     emit({"phase": "spec", "mode": "summary", "phase_s": spec["phase_s"]})
     ngram, draft = spec["ngram"], spec["draft"]
+    vlm = vlm_phase(torch, att, smi)
+    moe = moe_phase(torch, att, smi)
 
     src = "dynamo_tpu_torch/ops/csrc/"
     kernels = [
@@ -3759,6 +4289,7 @@ def main() -> int:
              cluster_launches=cluster["flash_launches"],
              spec_launches=ngram["spec_flash_launches"],
              draft_launches=draft["spec_flash_launches"],
+             moe_launches=moe["flash_launches"],
              verify_ms={"t5": verify5["ms"], "t2": verify2["ms"]},
              verify_bound_frac={"t5": verify5["bound_frac"],
                                 "t2": verify2["bound_frac"]},
@@ -3779,6 +4310,7 @@ def main() -> int:
              cluster_launches=cluster["paged_launches"],
              spec_launches=ngram["spec_paged_launches"],
              draft_launches=draft["spec_paged_launches"],
+             moe_launches=moe["paged_launches"],
              max_abs_err=paged["max_abs_err"], ms=paged["ms"],
              plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
              bound_by=paged["bound_by"], bound_frac=paged["bound_frac"],
@@ -3819,6 +4351,31 @@ def main() -> int:
              plain_ms=paged64["plain_ms"], bound_ms=paged64["bound_ms"],
              bound_by=paged64["bound_by"], bound_frac=paged64["bound_frac"],
              library_ms=None),
+        # the Dh=256 instances, on Gemma3-4B's path (the vlm phase: text
+        # waves and decode; image waves take the dense path)
+        dict(name="flash_attention_dh256", route="cuda",
+             source=src + "flash_attention.cu",
+             replaces="dynamo_tpu/ops/attention.py:166",
+             launches=vlm["flash_launches"],
+             vlm_launches=vlm["flash_launches"],
+             vlm_text_waves=vlm["text_waves"],
+             vlm_image_waves=vlm["image_waves"],
+             max_abs_err=flash256["max_abs_err"], ms=flash256["ms"],
+             plain_ms=flash256["plain_ms"], bound_ms=flash256["bound_ms"],
+             bound_by=flash256["bound_by"],
+             bound_frac=flash256["bound_frac"],
+             library_ms=flash256["library_ms"]),
+        dict(name="paged_attention_dh256", route="cuda",
+             source=src + "paged_attention.cu",
+             replaces="dynamo_tpu/ops/attention.py:400",
+             also_replaces="dynamo_tpu/ops/attention.py:552",
+             launches=vlm["paged_launches"],
+             vlm_launches=vlm["paged_launches"],
+             splits=paged256["splits"],
+             max_abs_err=paged256["max_abs_err"], ms=paged256["ms"],
+             plain_ms=paged256["plain_ms"], bound_ms=paged256["bound_ms"],
+             bound_by=paged256["bound_by"],
+             bound_frac=paged256["bound_frac"], library_ms=None),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

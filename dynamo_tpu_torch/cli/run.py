@@ -9,7 +9,8 @@ config as JSON (inline, or a file path), e.g. ``{"preset": "llama-3-8b"}``.
 ``--model-path`` names a HF-style directory (``config.json``,
 ``*.safetensors``, ``tokenizer.json``), a ``.gguf`` file, or an ``org/name``
 repo id already in the local HF cache; without a checkpoint the weights
-are random, made from the engine seed. ``out=dyn://ns.component.endpoint``
+are random, made from the engine seed. A VLM preset (``tiny-gemma3-vlm``)
+takes ``image_url`` chat parts as PNG data URLs. ``out=dyn://ns.component.endpoint``
 drives a remote worker's core engine (``cli.worker``, torch or JAX) over
 the runtime's data plane, found through the store at ``--store``.
 
@@ -82,6 +83,20 @@ def make_card(args) -> ModelDeploymentCard:
     return card
 
 
+def vlm_card_wiring(card: ModelDeploymentCard, model) -> None:
+    """A VLM preset served without a model directory: give the card the
+    image token and the soft-token count, so the preprocessor splices an
+    ``image_url`` part's placeholders (a checkpoint's config.json carries
+    them already)."""
+    mc = dict(card.model_config or {})
+    if model.image_token_id is None or "image_token_id" in mc \
+            or "image_token_index" in mc:
+        return
+    mc.update(image_token_id=model.image_token_id,
+              mm_tokens_per_image=model.mm_tokens_per_image)
+    card.model_config = mc
+
+
 def make_engines(args, card: ModelDeploymentCard):
     """Returns (chat_engine, completion_engine, core) at the OpenAI level;
     ``core`` is the torch engine (None for echo)."""
@@ -100,7 +115,9 @@ def make_engines(args, card: ModelDeploymentCard):
                 with open(args.extra_engine_args) as f:
                     extra = json.load(f)
         extra.setdefault("device", args.device)
-        core = TorchEngine(TorchEngineConfig.from_card(card, **extra))
+        cfg = TorchEngineConfig.from_card(card, **extra)
+        vlm_card_wiring(card, cfg.model)
+        core = TorchEngine(cfg)
         return (build_chat_engine(card, "core", core),
                 build_completion_engine(card, "core", core), core)
     if out.startswith("dyn://"):

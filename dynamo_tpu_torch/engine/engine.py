@@ -58,8 +58,21 @@ Architecture:
   at the slot gate; admission scatters the staged blocks after waiting on
   the upload's event (``_restore_prefix``).
 
+- Gemma3 VLM image requests, as in the JAX engine: admission validates
+  the prompt's image spans, runs the SigLIP tower and projector once per
+  request (``_encode_images``; the soft tokens stay on the device) and
+  salts the block-hash chain with the frontend's ``kv_salt`` (else a
+  digest of the normalized pixels); the chunker never splits an image
+  span (``multimodal.chunk_end``); a prefill dispatch whose chunks carry
+  an image span runs ``attn_impl="dense"`` with the soft tokens as an
+  embedding override and the same-image or-mask (``image_waves`` counts
+  them), while text waves keep the flash kernel and decode the paged one.
+- Mixture-of-Experts models (Mixtral) through ``models/moe.py``: sorted
+  dispatch on prefill chunks, dense (sync-free) dispatch on decode.
+
 Not ported yet (the JAX engine has them): the long-context paging lane,
-multimodal input, MoE and tp/pp/sp.
+MoE checkpoints (neither package's loader maps expert tensors) and
+tp/pp/sp/ep.
 
 Reference capability: the role vLLM/TRT-LLM play behind the reference's
 adapters (continuous batching, paged KV, streaming detached tokens), per
@@ -97,7 +110,9 @@ from ..ops.attention import (check_kernel_support, flash_attention,
 from ..runtime.engine import AsyncEngine, Context, EngineError
 from ..utils import roofline
 from ..utils.prometheus import stage_metrics
+from . import multimodal as mm
 from .cache import OutOfPages, PagePool
+from .loader import MOE_CHECKPOINT_GAP
 from .sampling import (STATIC_K, apply_penalties, draw_uniforms,
                        lane_generator, resume_seed, sample, spec_accept,
                        spec_uniforms, spec_unpack, spec_verify)
@@ -157,9 +172,8 @@ class TorchEngineConfig:
                    if card.model_config.get(k)]
             if moe:
                 raise NotImplementedError(
-                    f"{card.path}: MoE model ({moe[0]}="
-                    f"{card.model_config[moe[0]]}); MoE is not ported to "
-                    f"torch yet")
+                    f"{card.path}: MoE checkpoint ({moe[0]}="
+                    f"{card.model_config[moe[0]]}); {MOE_CHECKPOINT_GAP}")
             mcfg = llama.LlamaConfig.from_hf_config(card.model_config)
         elif extra.get("preset"):
             mcfg = llama.preset(extra["preset"])
@@ -173,7 +187,7 @@ class TorchEngineConfig:
             try:
                 if g.metadata.get(f"{g.architecture()}.expert_count"):
                     raise NotImplementedError(
-                        f"{gguf}: MoE model; MoE is not ported to torch yet")
+                        f"{gguf}: MoE checkpoint; {MOE_CHECKPOINT_GAP}")
                 mcfg = g.llama_config()
             finally:
                 g.close()
@@ -226,6 +240,10 @@ class _Slot:
     # physical tokens written after every ENQUEUED decode dispatch executes
     # (runs ahead of `generated`, which advances when results are fetched)
     sched_len: int = 0
+    # VLM requests: per-position image-group ids and the projected soft
+    # tokens on the device, flattened to [n_images * mm_tokens, D]
+    mm_spans: Optional[np.ndarray] = None
+    mm_soft: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -255,10 +273,16 @@ class EngineCore:
     weights come from ``cfg.params_path`` when that holds a checkpoint (a
     directory of ``*.safetensors``, or a GGUF file), placed leaf by leaf
     through pinned staging (``engine/loader.py``), else from the seed.
+    A VLM config's tower and projector likewise come from
+    ``vision_params`` (the (tower, projector) trees of ``models/siglip``),
+    else from the checkpoint's vision tensors, else from a generator seeded
+    ``seed + 1``.
     """
 
     def __init__(self, cfg: TorchEngineConfig,
-                 params: Optional[Dict[str, Any]] = None):
+                 params: Optional[Dict[str, Any]] = None,
+                 vision_params: Optional[Tuple[Dict[str, Any],
+                                               Dict[str, Any]]] = None):
         self.cfg = cfg
         m = cfg.model
         self.device = resolve_device(cfg.device)
@@ -296,6 +320,7 @@ class EngineCore:
                 gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
                 params = llama.init_params(m, gen, self.device)
             self.params = params
+            self._build_vision_tower(vision_params)
             # head-major [L, Hkv, n_pages, page, Dh]: pool[l] is directly
             # the paged kernel's layout; page 0 is the scratch page
             pool_shape = (m.num_layers, m.num_kv_heads, num_pages,
@@ -436,6 +461,104 @@ class EngineCore:
         self.spec_k_rounds: Dict[int, int] = collections.Counter()  # by K
         self.spec_lane_rounds = 0       # (lane, round) pairs that drafted
         self.spec_seconds = 0.0         # host clock of whole rounds
+
+    def _build_vision_tower(self, given) -> None:
+        """The Gemma3 VLM tower and projector (``self.vision_cfg`` None for
+        a text model), as the JAX engine builds them: a checkpoint whose
+        config declares a tower must hold its tensors."""
+        from ..models import siglip
+
+        m = self.cfg.model
+        self.vision_cfg = None
+        self.images_encoded = 0
+        self.image_waves = 0            # prefill dispatches on the dense path
+        self.vision_seconds = 0.0       # the tower's own time (device events)
+        self._vision_events: List[Tuple[Any, Any]] = []
+        if m.vision is None:
+            return
+        vcfg = siglip.SiglipVisionConfig.from_hf_config(m.vision,
+                                                        dtype=m.dtype)
+        self.vision_cfg = vcfg
+        path = self.cfg.params_path
+        if given is not None:
+            self.vision_params, self.proj_params = given
+        elif path and _has_safetensors(path):
+            from .loader import load_vision_tensors
+
+            vt = load_vision_tensors(path)
+            if vt is None:
+                # random tower weights would give images confidently
+                # wrong completions
+                raise ValueError(
+                    f"model config declares a vision tower but {path} has "
+                    f"no vision_tower/multi_modal_projector tensors; serve "
+                    f"the text-only config instead")
+            self.vision_params = siglip.params_from_hf(vt, vcfg, self.device)
+            self.proj_params = siglip.projector_from_hf(vt, vcfg,
+                                                        self.device)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(
+                self.cfg.seed + 1)
+            self.vision_params = siglip.init_params(vcfg, gen, self.device)
+            self.proj_params = siglip.init_projector_params(
+                vcfg, m.hidden_size, gen, self.device)
+
+    def _encode_images(self, px: np.ndarray) -> torch.Tensor:
+        """Normalized pixels [N, C, H, W] -> soft tokens [N, mm_tokens, D]
+        on the device (one tower pass a request, at admission)."""
+        from ..models import siglip
+
+        d = self.device
+        ev = None
+        if d.type == "cuda":
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            feats = siglip.forward(self.vision_params, self.vision_cfg,
+                                   to_device(px, d))
+            soft = siglip.project(self.proj_params, self.vision_cfg, feats,
+                                  self.cfg.model.mm_tokens_per_image)
+        if ev is not None:
+            ev[1].record()
+            # read once the next prefill fetch has synced the stream
+            self._vision_events.append(ev)
+        else:
+            self.vision_seconds += time.perf_counter() - t0
+        self.images_encoded += px.shape[0]
+        return soft
+
+    def _prepare_mm(self, req: BackendInput, prompt: List[int]):
+        """Validate and encode a VLM request: (spans, soft, digest), or an
+        error string (the JAX engine's messages)."""
+        import hashlib
+
+        m = self.cfg.model
+        if self.vision_cfg is None:
+            return ("this model has no vision tower; images are not "
+                    "servable (text-only deployment)")
+        if m.image_token_id is None:
+            return "model config has no image_token_id"
+        spans = mm.image_spans(prompt, m.image_token_id)
+        err = mm.validate_mm_prompt(spans, len(req.images),
+                                    m.mm_tokens_per_image,
+                                    self.cfg.prefill_chunk)
+        if err:
+            return err
+        try:
+            px = np.stack([mm.normalize_image(im, self.vision_cfg.image_size)
+                           for im in req.images])
+        except ValueError as e:
+            return str(e)
+        digest = 0
+        if not getattr(req, "kv_salt", 0):
+            # only when the frontend did not salt the request already
+            digest = int.from_bytes(
+                hashlib.blake2b(px.tobytes(), digest_size=8).digest(),
+                "little")
+        soft = self._encode_images(px)
+        return spans, soft.reshape(-1, soft.shape[-1]), digest
 
     def _probe_kernels(self) -> None:
         """Build both CUDA kernels and launch each once at this engine's
@@ -1239,22 +1362,32 @@ class EngineCore:
                 error_code=400, error_stage="engine_admission",
                 error_reason="context_exceeded"))
             return "rejected"
-        if req.images:
-            self.waiting.popleft()
-            out.append(StepOutput(
-                seq_id, 0, 0.0, FinishReason.ERROR, error_code=400,
-                error="image input is not supported by the torch engine yet"))
-            return "rejected"
         if not self.pool.can_admit(len(prompt) + 1):
             return "blocked"  # decode will free KV space eventually
-        self.waiting.popleft()
-        slot_idx = self.slots.index(None)
-        slot = _Slot(seq_id, req, prompt)
-        self.slots[slot_idx] = slot
-        self.by_seq[seq_id] = slot
+        mm_spans = mm_soft = None
         # lora_id salts the block-hash chain: blocks computed under
         # different adapters never alias in reuse or in the router index
-        self.pool.create(seq_id, lora_id=getattr(req, "lora_id", 0))
+        chain_salt = getattr(req, "lora_id", 0)
+        if req.images:
+            got = self._prepare_mm(req, prompt)
+            if isinstance(got, str):
+                self.waiting.popleft()
+                out.append(StepOutput(seq_id, 0, 0.0, FinishReason.ERROR,
+                                      error=got, error_code=400,
+                                      error_stage="engine_admission"))
+                return "rejected"
+            mm_spans, mm_soft, img_digest = got
+            # the same placeholder ids with different images never alias;
+            # the frontend's salt, when set, is used verbatim so that the
+            # router's overlap scoring hashes under the same salt
+            chain_salt = (getattr(req, "kv_salt", 0)
+                          or (chain_salt ^ img_digest) & ((1 << 63) - 1))
+        self.waiting.popleft()
+        slot_idx = self.slots.index(None)
+        slot = _Slot(seq_id, req, prompt, mm_spans=mm_spans, mm_soft=mm_soft)
+        self.slots[slot_idx] = slot
+        self.by_seq[seq_id] = slot
+        self.pool.create(seq_id, lora_id=chain_salt)
         matched = 0
         if self.cfg.enable_prefix_reuse:
             matched = self._restore_prefix(seq_id, prompt)
@@ -1312,7 +1445,12 @@ class EngineCore:
         work = []  # (slot_idx, slot, start, count, is_last)
         for i, slot in chunks:
             start = slot.prefill_done
-            count = min(len(slot.prompt) - start, cfg.prefill_chunk)
+            if slot.mm_spans is not None:
+                # never split an image span across chunks: its queries
+                # need every span key written in the same dispatch
+                count = mm.chunk_end(slot.mm_spans, start, cfg.prefill_chunk)
+            else:
+                count = min(len(slot.prompt) - start, cfg.prefill_chunk)
             try:
                 self.pool.extend(slot.seq_id,
                                  slot.prompt[start:start + count])
@@ -1337,6 +1475,15 @@ class EngineCore:
         read_valid = np.zeros((Bp, S), bool)
         last_i = np.zeros(Bp, np.int64)
         uniforms = np.zeros(Bp, np.float32)
+        # an image wave: some lane's chunk holds image positions
+        image_wave = any(
+            w[1].mm_spans is not None
+            and w[1].mm_spans[w[2]:w[2] + w[3]].any() for w in work)
+        if image_wave:
+            q_span = np.zeros((Bp, C), np.int32)
+            read_span = np.zeros((Bp, S), np.int32)
+            ov_rows = np.zeros((Bp, C), np.int64)  # row of the lane's soft
+            ov_mask = np.zeros((Bp, C), bool)
         for lane, (i, slot, start, count, is_last) in enumerate(work):
             tokens[lane, :count] = slot.prompt[start:start + count]
             positions[lane, :count] = np.arange(start, start + count)
@@ -1350,20 +1497,55 @@ class EngineCore:
                 # only lanes that really sample consume a draw
                 uniforms[lane] = float(torch.rand(
                     1, generator=self.generators[i]))
+            if image_wave and slot.mm_spans is not None:
+                spans = slot.mm_spans
+                # soft_token_rows over a table of row numbers: each image
+                # position's row of the flattened soft tokens
+                table = np.arange(len(slot.mm_soft), dtype=np.int64)
+                rows, maskv = mm.soft_token_rows(
+                    spans, table.reshape(int(spans.max()), -1, 1),
+                    start, count)
+                ov_rows[lane, :count] = rows[:, 0]
+                ov_mask[lane, :count] = maskv
+                q_span[lane, :count] = spans[start:start + count]
+                # context slots map position -> image group (0 past prompt)
+                sp = np.zeros(S, np.int32)
+                n = min(len(spans), S)
+                sp[:n] = spans[:n]
+                read_span[lane] = np.where(r_v, sp[np.minimum(r_p, S - 1)],
+                                           0)
         t0 = time.perf_counter()
         d = self.device
         idx = [w[0] for w in work]
         temp, top_p, top_k = self._lane_tensors(idx)
+        mm_kw: Dict[str, Any] = {}
+        if image_wave:
+            ov_vals = torch.zeros((Bp, C, cfg.model.hidden_size),
+                                  dtype=cfg.model.dtype, device=d)
+            for lane, w in enumerate(work):
+                if w[1].mm_spans is not None:
+                    ov_vals[lane] = w[1].mm_soft[to_device(ov_rows[lane], d)]
+            mask_d = to_device(ov_mask, d)
+            mm_kw = dict(embed_override=(ov_vals, mask_d),
+                         attn_spans=(to_device(q_span, d),
+                                     to_device(read_span, d)))
+            self.image_waves += 1
         logits, _, _ = llama.forward(
             self.params, cfg.model, to_device(tokens, d),
             to_device(positions, d), self.k_pool, self.v_pool,
             to_device(write_idx, d), to_device(read_idx, d),
             to_device(read_pos, d), to_device(read_valid, d),
-            attn_impl="flash", logits_idx=to_device(last_i, d))
+            # image waves take the dense path (the span or-mask has no
+            # kernel input); text waves keep the flash kernel
+            attn_impl="dense" if image_wave else "flash",
+            logits_idx=to_device(last_i, d), **mm_kw)
         tok, logp = sample(logits[:, 0], temp, top_p, top_k,
                            to_device(uniforms, d))
         packed = torch.stack([tok.float(), logp], -1).cpu().numpy()  # 1 fetch
         elapsed = time.perf_counter() - t0
+        for ev in self._vision_events:    # complete: the fetch synced
+            self.vision_seconds += ev[0].elapsed_time(ev[1]) / 1e3
+        self._vision_events.clear()
         self.prefill_dispatches += 1
         self.prefill_seconds += elapsed
         fl, by, tk = roofline.prefill_cost(

@@ -41,6 +41,13 @@ STAGE_BYTES = 64 << 20
 # what a leaf is filled from: a host tensor, or a tensor's bytes in a file
 Source = Union[torch.Tensor, RawTensor]
 
+#: why MoE checkpoints are refused: the port serves MoE models (random or
+#: converted weights), but neither package's loader maps expert tensors
+MOE_CHECKPOINT_GAP = ("the expert tensor mapping (HF block_sparse_moe / "
+                      "GGUF ffn_*_exps onto wr/wg/wu/wd) is missing in both "
+                      "the JAX package's loader and the port's; serve MoE "
+                      "models from random or converted weights")
+
 # leaves stored transposed: HF Linear is [out, in], the tree [in, ...out]
 _TRANSPOSED = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "lm_head")
 _F32 = ("ln1", "ln2", "ln1_post", "ln2_post", "ln_q", "ln_k", "final_norm")
@@ -71,8 +78,7 @@ def hf_names(cfg: LlamaConfig, keys) -> Dict[str, str]:
            or ".mlp.experts." in k]
     if moe:
         raise NotImplementedError(
-            f"MoE checkpoint ({moe[0]}): MoE models are not ported to torch "
-            f"yet")
+            f"MoE checkpoint ({moe[0]}): {MOE_CHECKPOINT_GAP}")
     # Gemma3 VLM checkpoints nest the text model under language_model; the
     # hub's actual naming is "language_model.model." (transformers <4.52
     # export), newer exports flatten to "model.language_model."
@@ -204,7 +210,8 @@ def place_llama_params(cfg: LlamaConfig,
     :class:`RawTensor` read from its file). ``names`` maps each leaf to its
     source name (``{}`` = layer index); ``dtype`` (default ``cfg.dtype``)
     is the matrices', norms are f32."""
-    llama._require_servable(cfg)
+    if cfg.num_experts:
+        raise NotImplementedError(f"MoE model: {MOE_CHECKPOINT_GAP}")
     device = torch.device(device) if isinstance(device, str) else device
     dt = cfg.dtype if dtype is None else dtype
     shapes = llama.param_shapes(cfg)
@@ -251,6 +258,25 @@ def _load(path: str, cfg: LlamaConfig, device: torch.device
                                   device, has=keys.__contains__)
     finally:
         shards.close()
+
+
+def load_vision_tensors(path: str) -> Optional[Dict[str, torch.Tensor]]:
+    """The Gemma3 vision tower and projector tensors of a safetensors dir
+    (CPU tensors, names with the leading ``model.`` stripped when the
+    checkpoint nests them as ``model.vision_tower...``, as the JAX engine
+    strips them), or None when it holds none."""
+    shards = ShardSet(path)
+    vnames = [k for k in shards.keys()
+              if "vision_tower" in k or "multi_modal_projector" in k]
+    if not vnames:
+        shards.close()
+        return None
+    strip = ("model." if any(k.startswith("model.vision_tower")
+                             for k in vnames) else "")
+    out = {k[len(strip):] if k.startswith(strip) else k:
+           shards.get_tensor(k) for k in vnames}
+    shards.close()
+    return out
 
 
 def _tree_nbytes(tree) -> int:

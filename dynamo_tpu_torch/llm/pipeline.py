@@ -8,6 +8,8 @@ ServiceFrontend → OpenAIPreprocessor → Backend → ServiceBackend(engine)
 
 from __future__ import annotations
 
+import asyncio
+import concurrent.futures
 import contextlib
 from typing import Any, AsyncIterator, Dict, List, Optional
 
@@ -16,7 +18,7 @@ from ..utils.tracing import get_tracer
 from .backend import Backend
 from .engines import EchoCoreEngine, EchoFullEngine
 from .model_card import ModelDeploymentCard
-from .preprocessor import Preprocessor
+from .preprocessor import Preprocessor, has_images
 from .protocols.common import BackendInput, EngineOutput, FinishReason
 from .protocols.openai import (
     ChatCompletionRequest,
@@ -26,6 +28,14 @@ from .protocols.openai import (
     ProtocolError,
     usage_dict,
 )
+
+
+# Image requests are preprocessed here, one at a time: the PNG decode is
+# host work of up to seconds, kept off the event loop; decodes in parallel
+# threads contend for the GIL with each other and with the engine thread
+# (``scripts/vlm_preprocess_probe.py`` times the choices)
+_IMAGE_PREPROCESS = concurrent.futures.ThreadPoolExecutor(
+    1, thread_name_prefix="image-preprocess")
 
 
 class OpenAIChatEngine(AsyncEngine[ChatCompletionRequest, Dict[str, Any]]):
@@ -42,7 +52,12 @@ class OpenAIChatEngine(AsyncEngine[ChatCompletionRequest, Dict[str, Any]]):
         from .tools import ToolCallingMatcher, normalize_tool_choice
 
         with get_tracer().span("preprocess", trace_id=context.id) as psp:
-            pre = self.preprocessor.preprocess_chat(request)
+            if has_images(request.messages):
+                pre = await asyncio.get_running_loop().run_in_executor(
+                    _IMAGE_PREPROCESS, self.preprocessor.preprocess_chat,
+                    request)
+            else:
+                pre = self.preprocessor.preprocess_chat(request)
             if psp is not None:
                 psp.attrs["prompt_tokens"] = len(pre.backend_input.token_ids)
         gen = ChatDeltaGenerator(request.model, request_id=f"chatcmpl-{context.id[:24]}")

@@ -56,11 +56,12 @@ _IMG_SPLIT = re.compile("\x00<dynimg:(\\d+)>\x00")
 
 
 def _decode_data_url(url: str):
-    """data:image/...;base64,... -> uint8 HWC numpy array."""
+    """data:image/png;base64,... -> uint8 HWC RGB numpy array, decoded by
+    the port's own PNG reader (``_png``: PIL's ``convert("RGB")`` pixels
+    bit for bit); any other format is a ProtocolError naming it."""
     import base64
-    import io
 
-    import numpy as np
+    from . import _png
 
     if not url.startswith("data:"):
         raise ProtocolError(
@@ -69,10 +70,7 @@ def _decode_data_url(url: str):
     try:
         payload = url.split(",", 1)[1]
         raw = base64.b64decode(payload)
-        from PIL import Image
-
-        img = Image.open(io.BytesIO(raw)).convert("RGB")
-        return np.asarray(img, np.uint8)
+        return _png.decode(raw)
     except ProtocolError:
         raise
     except Exception as e:
@@ -98,6 +96,13 @@ def image_kv_salt(lora_id: int, images: List[Any]) -> int:
     return (lora_id ^ digest) & ((1 << 63) - 1)
 
 
+def has_images(messages: List[Dict[str, Any]]) -> bool:
+    """Whether any message carries an ``image_url`` part."""
+    return any(isinstance(m.get("content"), list) and any(
+        isinstance(p, dict) and p.get("type") == "image_url"
+        for p in m["content"]) for m in messages)
+
+
 def extract_images(messages: List[Dict[str, Any]]
                    ) -> Tuple[List[Any], List[Dict[str, Any]]]:
     """Pull image_url parts out of OpenAI multipart messages; each becomes
@@ -106,9 +111,7 @@ def extract_images(messages: List[Dict[str, Any]]
     out = []
     for m in messages:
         c = m.get("content")
-        if isinstance(c, list) and any(
-                isinstance(p, dict) and p.get("type") == "image_url"
-                for p in c):
+        if has_images([m]):
             parts = []
             for p in c:
                 if isinstance(p, dict) and p.get("type") == "image_url":

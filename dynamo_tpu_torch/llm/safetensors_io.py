@@ -176,6 +176,9 @@ class ShardSet:
     def raw(self, name: str) -> RawTensor:
         return self._where[name].raw(name)
 
+    def get_tensor(self, name: str) -> torch.Tensor:
+        return self._where[name].get_tensor(name)
+
     def close(self) -> None:
         for f in self.files:
             f.close()

@@ -14,7 +14,12 @@ Prefill attention runs :func:`~dynamo_tpu_torch.ops.attention.
 flash_attention` over the gathered context (``attn_impl="flash"``); decode
 reads the pool through page tables with :func:`~dynamo_tpu_torch.ops.
 attention.paged_attention` (``attn_impl="paged"``). ``attn_impl="dense"``
-is the plain masked-softmax path of :func:`attend`.
+is the plain masked-softmax path of :func:`attend`; Gemma3 VLM image
+chunks take it, with their soft tokens as an embedding override and the
+same-image bidirectional or-mask (the JAX package's ``xla`` path).
+
+Mixture-of-Experts models (``num_experts > 0``, Mixtral) run their FFN
+through :func:`~dynamo_tpu_torch.models.moe.moe_ffn`.
 
 Reference capability equivalent: the in-engine model executed by vLLM/TRT-LLM
 behind the reference's engine adapters (SURVEY §2.1, §7 step 3).
@@ -32,6 +37,7 @@ import torch.nn.functional as F
 
 from ..device import to_device
 from ..ops.attention import flash_attention, paged_attention
+from .moe import moe_ffn
 
 # ---------------------------------------------------------------------------
 # Config
@@ -59,6 +65,10 @@ _GEMMA3_TEXT_DEFAULTS: Dict[str, Any] = {
     "rms_norm_eps": 1e-6,
     # omitting sliding_window must NOT read as "no sliding attention"
     "sliding_window": 4096,
+    # the class default ties the head to the embedding (the hub's Gemma3
+    # checkpoints ship no lm_head); the JAX package's table lacks this key
+    # and maps them untied (ROADMAP Queue 3 item 10)
+    "tie_word_embeddings": True,
 }
 
 
@@ -134,10 +144,12 @@ class LlamaConfig:
     rope_local_theta: Optional[float] = None
     qk_norm: bool = False
     dtype: torch.dtype = torch.bfloat16
-    # MoE (0 experts = dense FFN); the torch port serves dense models only
+    # MoE (0 experts = dense FFN; models/moe.py)
     num_experts: int = 0
     experts_per_token: int = 2
-    # Gemma3 VLM vision tower (not ported: a config that sets it raises)
+    # Gemma3 VLM vision tower (HF vision_config dict; models/siglip.py
+    # builds from it). Image soft tokens replace ``image_token_id``
+    # placeholder embeddings at prefill
     vision: Optional[Dict[str, Any]] = None
     mm_tokens_per_image: int = 256
     image_token_id: Optional[int] = None
@@ -158,11 +170,31 @@ class LlamaConfig:
     @classmethod
     def from_hf_config(cls, cfg: Dict[str, Any],
                        dtype: torch.dtype = torch.bfloat16) -> "LlamaConfig":
-        """Map a HF ``config.json`` (LlamaForCausalLM family) onto ours."""
+        """Map a HF ``config.json`` (LlamaForCausalLM family) onto ours.
+        Gemma3 VLM configs nest the text model under ``text_config``: the
+        text half maps recursively; the vision tower and the mm wiring land
+        on the vision fields."""
         if _GEMMA_VLM_ARCH in (cfg.get("architectures", []) or []):
-            raise NotImplementedError(
-                f"{_GEMMA_VLM_ARCH}: the vision tower is not ported to torch "
-                f"yet; serve the text-only config")
+            if "text_config" not in cfg or "vision_config" not in cfg:
+                raise ValueError(
+                    f"{_GEMMA_VLM_ARCH} config must nest text_config and "
+                    f"vision_config; refusing to guess a flat layout")
+            text = dict(cfg["text_config"])
+            # the nested text config usually omits architectures: restore
+            # the family marker so the gemma3 mapping rules fire
+            text.setdefault("architectures", ["Gemma3ForCausalLM"])
+            base = cls.from_hf_config(text, dtype=dtype)
+            return cls(**{
+                **base.__dict__,
+                "vision": dict(cfg["vision_config"]),
+                "mm_tokens_per_image": int(cfg.get("mm_tokens_per_image",
+                                                   256)),
+                # the hub config spells it image_token_index; newer
+                # transformers re-exports *_id: accept both
+                "image_token_id": int(
+                    cfg.get("image_token_id",
+                            cfg.get("image_token_index", 262144))),
+            })
         if cfg.get("model_type") == "gemma3_text":
             cfg = {**_GEMMA3_TEXT_DEFAULTS, **cfg}
         return cls(
@@ -364,15 +396,6 @@ def preset(name: str, **overrides) -> LlamaConfig:
     return LlamaConfig(**d)
 
 
-def _require_servable(cfg: LlamaConfig) -> None:
-    """Model families the torch port does not run yet raise up front."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE models are not ported to torch yet")
-    if cfg.vision is not None:
-        raise NotImplementedError(
-            "vision towers (Gemma3 VLM) are not ported to torch yet")
-
-
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
@@ -387,8 +410,13 @@ def param_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
         "ln1": (L, D), "ln2": (L, D),
         "wq": (L, D, Hq, Dh), "wk": (L, D, Hkv, Dh), "wv": (L, D, Hkv, Dh),
         "wo": (L, Hq, Dh, D),
-        "wg": (L, D, F_), "wu": (L, D, F_), "wd": (L, F_, D),
     }
+    E = cfg.num_experts
+    if E:
+        layers.update(wr=(L, D, E), wg=(L, E, D, F_), wu=(L, E, D, F_),
+                      wd=(L, E, F_, D))
+    else:
+        layers.update(wg=(L, D, F_), wu=(L, D, F_), wd=(L, F_, D))
     if cfg.sandwich_norms:
         layers["ln1_post"] = (L, D)
         layers["ln2_post"] = (L, D)
@@ -428,8 +456,6 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     then cast to ``cfg.dtype``. ``ln1``/``ln2``/``final_norm`` are ones; the
     sandwich and q/k norms are random (rounded through ``cfg.dtype``, kept
     f32) so a parity test would catch a dropped one."""
-    _require_servable(cfg)
-
     def draw(name: str, shape) -> torch.Tensor:
         if name in ("ln1", "ln2", "final_norm"):
             return torch.ones(shape, dtype=torch.float32, device=device)
@@ -489,7 +515,6 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: LlamaConfig,
     torch tensors where numpy has no dtype for them) -> the port's, on
     ``device``. Names and shapes are identical; every leaf is checked
     against :func:`param_shapes`."""
-    _require_servable(cfg)
     shapes = param_shapes(cfg)
     extra = (set(np_tree) - set(shapes)) | (
         set(np_tree["layers"]) - set(shapes["layers"]))
@@ -659,14 +684,16 @@ def _attn_out(x: torch.Tensor, attn: torch.Tensor, lp: Dict[str, Any],
 
 def _ffn_block(x: torch.Tensor, lp: Dict[str, Any], l: int,
                cfg: LlamaConfig) -> torch.Tensor:
-    """Pre-norm dense FFN + residual; Gemma2 adds a post-norm on the branch
-    output (sandwich norms)."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE FFN is not ported to torch yet")
+    """Pre-norm FFN (dense or MoE) + residual; Gemma2 adds a post-norm on
+    the branch output (sandwich norms)."""
     h2 = rms_norm(x, lp["ln2"][l], cfg.rms_eps, cfg.norm_offset)
-    g = h2 @ lp["wg"][l]
-    u = h2 @ lp["wu"][l]
-    out = (_act(cfg, g) * u) @ lp["wd"][l]
+    if cfg.num_experts:
+        out = moe_ffn(h2, lp["wr"][l], lp["wg"][l], lp["wu"][l],
+                      lp["wd"][l], cfg.experts_per_token)
+    else:
+        g = h2 @ lp["wg"][l]
+        u = h2 @ lp["wu"][l]
+        out = (_act(cfg, g) * u) @ lp["wd"][l]
     if cfg.sandwich_norms:
         out = rms_norm(out, lp["ln2_post"][l], cfg.rms_eps, cfg.norm_offset)
     return x + out
@@ -713,6 +740,8 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig,
             read_valid: torch.Tensor,    # [B, S] bool slot holds a real token
             attn_impl: str = "flash",    # "flash" kernel | "dense"
             logits_idx: Optional[torch.Tensor] = None,  # [B] per-lane position
+            embed_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+            attn_spans: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One forward pass over a token chunk against the paged KV pool.
 
@@ -724,13 +753,28 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig,
     Returns (logits [B, T, vocab] f32, k_pool, v_pool). With ``logits_idx``
     the LM head runs only on each lane's hidden state at that chunk position
     and logits are [B, 1, vocab] — the prefill fast path.
+
+    Multimodal (Gemma3 VLM, ``attn_impl="dense"`` only):
+
+    - ``embed_override`` = (vals [B,T,D], mask [B,T] bool) replaces the
+      masked positions' embeddings AFTER the embed scale (HF's
+      masked_scatter of the projected image soft tokens).
+    - ``attn_spans`` = (q_span [B,T], read_span [B,S]) int32 image-group
+      ids (0 = text): tokens of the same image attend bidirectionally; the
+      or-mask goes into the full and the sliding masks alike.
     """
-    _require_servable(cfg)
     _check_impl(attn_impl, ("flash", "dense"))
+    if attn_spans is not None and attn_impl != "dense":
+        raise ValueError(
+            "image-span bidirectional attention (Gemma3 VLM) runs on "
+            "attn_impl='dense' only; the flash kernel takes no span inputs")
     B, T = tokens.shape
     page = k_pool.shape[3]
     lp = params["layers"]
     x = _embed(params, cfg, tokens)
+    if embed_override is not None:
+        ov_vals, ov_mask = embed_override
+        x = torch.where(ov_mask[..., None], ov_vals.to(x.dtype), x)
     rope = _rope_all(cfg, positions)
     flat_w = write_idx.reshape(-1).long()
     wp, wo = flat_w // page, flat_w % page
@@ -742,6 +786,14 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig,
         if cfg.sliding_window is not None:
             sliding_mask = mask & (read_pos[:, None, :]
                                    > positions[:, :, None] - cfg.sliding_window)
+        if attn_spans is not None:
+            q_span, read_span = attn_spans
+            bidir = ((q_span[:, :, None] > 0)
+                     & (q_span[:, :, None] == read_span[:, None, :])
+                     & read_valid[:, None, :])
+            mask = mask | bidir
+            if cfg.sliding_window is not None:
+                sliding_mask = sliding_mask | bidir
 
     for l in range(cfg.num_layers):
         q, k, v = _qkv(x, lp, l, cfg, rope)
@@ -790,7 +842,6 @@ def forward_decode(params: Dict[str, Any], cfg: LlamaConfig,
 
     Returns (logits [B, 1, vocab] f32, k_pool, v_pool).
     """
-    _require_servable(cfg)
     _check_impl(attn_impl, ("paged", "dense"))
     B = tokens.shape[0]
     page = k_pool.shape[3]

@@ -55,6 +55,9 @@ PAGED_CASES = {
                                "B": 6, "P": 25},
     "gemma2-9b-paged-dh256": {"softcap": 50.0, "window": 256, "Hq": 16,
                               "Hkv": 8, "Dh": 256},
+    # Gemma3-4B's decode (the vlm phase): 8 q / 4 kv heads at Dh 256, the
+    # sliding layers' 1024-token window, no softcap
+    "gemma3-4b": {"window": 1024, "Hq": 8, "Hkv": 4, "Dh": 256},
     # the llama-3.2-1b speculative draft's greedy step: one lane at the
     # reuse prompt's length, head dim 64
     "llama-3.2-1b-draft": {"lengths_l": [1500], "B": 1, "P": 24, "Dh": 64},

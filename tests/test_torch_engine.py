@@ -435,18 +435,20 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """...nor ``xxhash``, ``aiohttp``, ``msgpack`` or ``ml_dtypes``, which
-    the card's machine lacks: the port carries its own XXH3-64
-    (``llm/xxh3.py``) and MessagePack (``runtime/_msgpack.py``), serves
-    HTTP on the standard library's asyncio (``llm/http_service.py``), and
-    moves bf16 KV as ``uint16`` bits (``llm/kv_transfer.py``)."""
+    """...nor ``xxhash``, ``aiohttp``, ``msgpack``, ``ml_dtypes`` or
+    ``PIL``, which the card's machine lacks: the port carries its own
+    XXH3-64 (``llm/xxh3.py``), MessagePack (``runtime/_msgpack.py``) and
+    PNG decoder (``llm/_png.py``), serves HTTP on the standard library's
+    asyncio (``llm/http_service.py``), resizes images with its own copy of
+    PIL's bilinear resample (``engine/multimodal.py``), and moves bf16 KV
+    as ``uint16`` bits (``llm/kv_transfer.py``)."""
     files = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     bad = {str(f.relative_to(ROOT)): sorted(
                r for r in set(_imported_roots(f))
                if r in ("jax", "jaxlib", "dynamo_tpu", "xxhash", "aiohttp",
-                        "msgpack", "ml_dtypes"))
+                        "msgpack", "ml_dtypes", "PIL"))
            for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
 

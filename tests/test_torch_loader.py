@@ -24,9 +24,10 @@ the JAX package.
   the greedy completions of the JAX CLI's engine on the same files (f32).
 - Import guard: in a subprocess that cannot import ``jax``, ``dynamo_tpu``,
   ``regex``, ``tokenizers``, ``transformers``, ``safetensors``,
-  ``ml_dtypes``, ``huggingface_hub``, ``xxhash`` or ``aiohttp`` (all absent
-  on the card's machine), every port module imports, the three tokenizer
-  kinds tokenize, and a safetensors directory and a GGUF file load.
+  ``ml_dtypes``, ``huggingface_hub``, ``xxhash``, ``aiohttp``, ``msgpack``
+  or ``PIL`` (all absent on the card's machine), every port module
+  imports, the three tokenizer kinds tokenize, a safetensors directory and
+  a GGUF file load, and a PNG data URL decodes and normalizes.
 """
 
 from __future__ import annotations
@@ -560,7 +561,7 @@ def test_served_greedy_completions_match_jax_cli(hf_checkpoint, monkeypatch,
 
 BLOCKED = ("jax", "dynamo_tpu", "regex", "tokenizers", "transformers",
            "safetensors", "ml_dtypes", "huggingface_hub", "xxhash", "aiohttp",
-           "msgpack")
+           "msgpack", "PIL")
 
 GUARD = r'''
 import importlib, importlib.abc, json, pkgutil, sys
@@ -588,10 +589,19 @@ ids = {k: load_tokenizer(k).encode("the quick brown fox")
 cfg = llama.LlamaConfig.from_hf_config(json.load(open(d + "/config.json")))
 tree = load_llama_params_host(d, cfg)
 _, gtree = load_llama_params_gguf(gguf_bpe, device="cpu")
+import base64
+import numpy as np
+from dynamo_tpu_torch.llm import _png
+from dynamo_tpu_torch.llm.preprocessor import _decode_data_url
+from dynamo_tpu_torch.engine.multimodal import normalize_image
+img = (np.arange(40 * 50 * 3) % 251).astype(np.uint8).reshape(40, 50, 3)
+url = "data:image/png;base64," + base64.b64encode(_png.encode(img)).decode()
+px = normalize_image(_decode_data_url(url), 56)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps({"modules": len(mods), "ids": ids, "leaked": leaked,
                   "wq": list(tree["layers"]["wq"].shape),
-                  "gwq": list(gtree["layers"]["wq"].shape)}))
+                  "gwq": list(gtree["layers"]["wq"].shape),
+                  "px": list(px.shape)}))
 '''
 
 
@@ -617,6 +627,7 @@ def test_port_runs_without_the_libraries_the_card_lacks(hf_checkpoint,
     assert res["ids"][f"gguf-sp:{sp}"] == [259, 260, 261, 262]
     assert res["ids"][d] == res["ids"][f"gguf-bpe:{g}"]
     assert res["wq"] == res["gwq"] == [2, 64, 4, 16]
+    assert res["px"] == [3, 56, 56]          # an image request, no PIL
 
 
 ENTRY_GUARD = r'''
