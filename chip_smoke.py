@@ -171,6 +171,24 @@ with a traceback and prints no result:
                step never reads the expert counts) under sync debug mode
                "error".
 
+15. kvpage   — the KV paging long-context lane (runs right after spec, on
+               its weight tensors): Llama-3-8B at full width and depth,
+               page 64, chunk 512, dense ``max_context`` 2048, a 20-page
+               lane (1280 tokens) with 8-block segments over a 384-block
+               host tier. (a) a greedy 10240-token prompt for 16 tokens
+               beside (d) a 64-token dense-path request, against a dense
+               engine whose pool holds the prompt; (b) the same prompt from
+               the pinned prefix; (c) two lanes with the 10240- and
+               6144-token prompts at once, each equal to its stream alone;
+               (e) ``cli.run`` over HTTP: the long prompt streams a 200,
+               and without paging gets the typed 400. Tokens equal or a
+               near-tie, the last prefill logits within 2x the plain-vs-
+               flash control, at most 20 pages leased, demotions as
+               :func:`kvpage_demotions` computes, a reuse hit, no fault;
+               prefill seconds and decode ms a step against dense, the
+               ``dyn_kvpage_*`` counters, page-in GB/s (assembly, upload),
+               peak device memory.
+
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2.
 """
@@ -1200,11 +1218,13 @@ def _generate_request(engine, loop, bi):
     return asyncio.run_coroutine_threadsafe(go(), loop).result(600)
 
 
-def _prefix_logits(torch, core, prompt, warm_tokens: int):
+def _prefix_logits(torch, core, prompt, warm_tokens: int,
+                   attn_impl: str = "flash"):
     """Last-position logits of ``prompt`` through ``llama.forward`` in a
     scratch pool: a cold chunked prefill (chunks of the engine's
     ``prefill_chunk``), then a warm prefill of only the last
-    ``warm_tokens`` over the cold pass's cached pages."""
+    ``warm_tokens`` over the cold pass's cached pages. ``attn_impl``
+    "dense" takes the plain attention path instead of the flash kernel."""
     from dynamo_tpu_torch.models import llama
 
     m, dev, page = core.cfg.model, core.device, core.page_size
@@ -1222,7 +1242,7 @@ def _prefix_logits(torch, core, prompt, warm_tokens: int):
             core.params, m, toks[:, c0:c1], pos, kp, vp, page + pos.long(),
             page + ctx, ctx.to(torch.int32),
             torch.ones((1, c1), dtype=torch.bool, device=dev),
-            attn_impl="flash",
+            attn_impl=attn_impl,
             logits_idx=torch.tensor([c1 - c0 - 1], device=dev))
         return lg[0, 0].float()
 
@@ -4055,6 +4075,586 @@ def vlm_phase(torch, att, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the KV paging long-context lane
+# ---------------------------------------------------------------------------
+
+KVPAGE_ENGINE = dict(max_batch=8, max_context=2048, page_size=64,
+                     prefill_chunk=512, decode_steps=8, host_cache_blocks=384,
+                     kvpage_budget=20, kvpage_seg_pages=8, kvpage_prefetch=2,
+                     kvpage_max_context=16384)
+KVPAGE_PROMPTS = (10240, 6144)      # 8x and 4.8x the 1280-token budget
+KVPAGE_TOKENS = 16
+KVPAGE_SHORT_TOKENS = 8             # (c) and (e): one decode window each
+KVPAGE_DENSE_TOKENS = 64            # the dense-path request beside (a)
+KVPAGE_SEED = 10240
+KVPAGE_BUDGET_S = 300               # the phase's time limit on the card
+# every step of a paged greedy stream against the dense path's logits over
+# the same tokens: the most |paged - dense| a sound lane may show, set
+# between the sound runs' largest reading (0.664) and the least of the
+# planted faults' (5.88, one cold segment dropped) on the card
+# (scripts/kvpage_faults.py, PERF.md)
+KVPAGE_LOGIT_LIMIT = 2.0
+KVPAGE_FAULT_TOKENS = 4             # a planted fault's stream
+KVPAGE_FAULTS = ("drop_segment", "no_upload_wait")   # the gate must fail
+# spin cycles (about 20 ms) that hold back each layer's first staging
+# upload on the side stream in a planted fault: longer than the host takes
+# to enqueue a layer's segments (about 1 ms each), so an attention that
+# does not wait reads stale slots through the layer (a hold of 5 ms left
+# one step of four within 0.92 of the dense logits)
+KVPAGE_UPLOAD_DELAY = 40_000_000
+
+
+def kvpage_demotions(prompt: int, matched: int, new: int, chunk: int,
+                     page: int, lane_budget: int, chain: int) -> int:
+    """Blocks the paged lane demotes serving one greedy request, from the
+    configuration alone: each prefill chunk leases its pages, then sealed
+    blocks demote until ``lane_budget - chunk_pages - 1`` stay resident;
+    a decode window of ``chain`` tokens demotes first if its new pages
+    would take the lane over its share."""
+    chunk_pages = -(-chunk // page)
+    hot_keep = max(1, lane_budget - chunk_pages - 1)
+    first, res, done, dem = matched, 0, matched * page, 0
+
+    def demote(keep, sealed):
+        nonlocal first, res, dem
+        n = 0
+        while res - n > keep and first + n < sealed:
+            n += 1
+        dem, first, res = dem + n, first + n, res - n
+
+    while done < prompt:
+        done += min(chunk, prompt - done)
+        res = -(-done // page) - first
+        demote(hot_keep, done // page)
+    total, gen = prompt, 1
+    while gen < new:
+        n = min(chain, new - gen)
+        need = -(-(total + n) // page) - first - res
+        if res + need > lane_budget:
+            demote(lane_budget - need, total // page)
+        res += need
+        total, gen = total + n, gen + n
+    return dem
+
+
+def _kvpage_counters() -> dict:
+    from dynamo_tpu_torch.utils.prometheus import stage_metrics
+
+    st = stage_metrics()
+    wait = st.kvpage_pagein_wait.state()["series"].get("", {})
+    return dict(demotions=st.kvpage_demotions.get(),
+                pageins=st.kvpage_pageins.get(),
+                faults=st.kvpage_faults.get(),
+                pagein_wait_s=float(wait.get("sum", 0.0)),
+                pagein_wait_n=float(wait.get("total", 0)))
+
+
+def _stream_rate(st: dict) -> dict:
+    n = len(st["tokens"])
+    return dict(ttft_s=st["ttft_s"],
+                decode_ms_step=1e3 * (st["last_s"] - st["ttft_s"]) / (n - 1))
+
+
+def _stream_logits(torch, core, prompt, tokens):
+    """The dense path's teacher-forced logits of a greedy stream through
+    ``llama.forward`` (the flash kernel) in a scratch pool: row i is what
+    chooses ``tokens[i]``, from ``prompt + tokens[:i]``. The prompt goes in
+    chunks of the engine's ``prefill_chunk``, then ``tokens[:-1]`` in one
+    chunk. f32 [len(tokens), vocab]."""
+    from dynamo_tpu_torch.models import llama
+
+    m, dev, page = core.cfg.model, core.device, core.page_size
+    full = list(prompt) + list(tokens[:-1])
+    n_pages = -(-len(full) // page) + 1          # + scratch page 0
+    shape = (m.num_layers, m.num_kv_heads, n_pages, page, m.head_dim)
+    kp = torch.zeros(shape, dtype=m.dtype, device=dev)
+    vp = torch.zeros(shape, dtype=m.dtype, device=dev)
+    toks = torch.tensor(full, device=dev)[None]
+
+    def chunk(c0, c1, last_only):
+        pos = torch.arange(c0, c1, dtype=torch.int32, device=dev)[None]
+        ctx = torch.arange(c1, device=dev)[None]
+        lg, _, _ = llama.forward(
+            core.params, m, toks[:, c0:c1], pos, kp, vp, page + pos.long(),
+            page + ctx, ctx.to(torch.int32),
+            torch.ones((1, c1), dtype=torch.bool, device=dev),
+            logits_idx=torch.tensor([c1 - c0 - 1], device=dev)
+            if last_only else None)
+        return lg[0].float()
+
+    n = len(prompt)
+    with torch.no_grad():
+        for c0 in range(0, n, core.cfg.prefill_chunk):
+            c1 = min(n, c0 + core.cfg.prefill_chunk)
+            rows = [chunk(c0, c1, True)]
+        if len(full) > n:
+            rows.append(chunk(n, len(full), False))
+    return torch.cat(rows)
+
+
+def kvpage_record(torch, kp):
+    """Have the lane's sampling head also keep the f32 logits it samples
+    from, one [B, vocab] tensor a call (the prefill tail's, then each
+    decode step's): returns that list and a function that undoes it."""
+    from dynamo_tpu_torch.models import llama
+
+    prg, rec = kp.programs, []
+    head, m = prg.head, kp.core.cfg.model
+
+    def recorded(params, x, last_i, *rest):
+        rows = torch.arange(x.shape[0], device=x.device)
+        rec.append(llama._lm_head(x[rows, last_i][:, None], params,
+                                  m)[:, 0].float())
+        return head(params, x, last_i, *rest)
+
+    prg.head = recorded
+    return rec, lambda: delattr(prg, "head")
+
+
+def kvpage_stream_check(torch, core, prompt, got: list, rows: list) -> dict:
+    """Every token of one lane's greedy stream (``rows``: its logits as
+    :func:`kvpage_record` kept them, row 0 of each call) against the dense
+    path's teacher-forced logits over the same tokens: per step the most
+    |paged - dense| logit, the relative L2 distance, and the dense path's
+    margin for the token the lane chose, (top - chosen) / |top| (0 where
+    it is the dense argmax too)."""
+    want = _stream_logits(torch, core, prompt, got)
+    lane = torch.stack([r[0] for r in rows])
+    if lane.shape != want.shape:
+        raise AssertionError(f"kvpage: {lane.shape[0]} lane logit rows for "
+                             f"{len(got)} tokens")
+    delta = lane - want
+    top = want.max(-1).values
+    chosen = want[torch.arange(len(got), device=want.device),
+                  torch.tensor(got, device=want.device)]
+    out = dict(steps=len(got),
+               max_abs=delta.abs().amax(-1).tolist(),
+               rel_l2=(delta.norm(dim=-1) / want.norm(dim=-1)).tolist(),
+               margin=((top - chosen) / top.abs()).tolist(),
+               max_logit=top.abs().max().item())
+    out.update(worst_abs=max(out["max_abs"]), worst_rel=max(out["rel_l2"]),
+               worst_margin=max(out["margin"]),
+               lane_argmax=all(int(lane[i].argmax()) == t
+                               for i, t in enumerate(got)))
+    return out
+
+
+def kvpage_sound(tf: dict) -> bool:
+    """Whether a teacher-forced reading passes the lane's gate: every
+    token is the argmax of the logits the lane kept, and those are within
+    ``KVPAGE_LOGIT_LIMIT`` of the dense path's at every step, so each
+    token is within twice the limit of the dense path's top logit."""
+    return tf["lane_argmax"] and tf["worst_abs"] <= KVPAGE_LOGIT_LIMIT
+
+
+@contextlib.contextmanager
+def kvpage_fault(torch, kp, name: str):
+    """Plant one fault in the lane ``kp`` for the runs inside:
+
+    - ``drop_segment``: every cold plan leaves out its second segment;
+    - ``no_upload_wait``: the attention on a staging slot no longer waits
+      on that slot's upload, and each layer's first upload is held back
+      (``KVPAGE_UPLOAD_DELAY`` spin cycles on the side stream, which the
+      uploads after it queue behind), so the missing wait shows;
+    - ``no_upload_wait_undelayed``: the missing wait alone;
+    - ``delayed_upload``: the delay with the wait kept (a sound control);
+    - ``bf16_merge``: the online-softmax sums rounded to bf16 after every
+      merge;
+    - ``uncached_window``: no decode window keeps its host slots (sound:
+      every step takes its segments from the pager again);
+    - ``none``: nothing."""
+    from dynamo_tpu_torch.llm.kvpage import programs, runner
+
+    undo = []
+
+    def patch(obj, attr, value):
+        undo.append((obj, attr, getattr(obj, attr), attr in vars(obj)))
+        setattr(obj, attr, value)
+
+    if name == "drop_segment":
+        segs = kp._cold_segments
+        patch(kp, "_cold_segments", lambda seq: (lambda s: s[:1] + s[2:])(
+            segs(seq)))
+    if name in ("no_upload_wait", "no_upload_wait_undelayed"):
+        patch(kp, "_attend_slot", lambda i: None)
+    if name in ("no_upload_wait", "delayed_upload"):
+        upload = kp._upload_batch
+
+        def delayed(parts, plans, B, l, s, cache=None):
+            if s == 0 and kp._side is not None:
+                with torch.cuda.stream(kp._side):
+                    torch.cuda._sleep(KVPAGE_UPLOAD_DELAY)
+            return upload(parts, plans, B, l, s, cache)
+
+        patch(kp, "_upload_batch", delayed)
+    if name == "bf16_merge":
+        merge = programs._merge
+
+        def rounded(*a):
+            o, m, d = merge(*a)
+            return (o.to(torch.bfloat16).float(), m,
+                    d.to(torch.bfloat16).float())
+
+        patch(programs, "_merge", rounded)
+    if name == "uncached_window":
+        patch(runner, "WINDOW_CACHE_BYTES", -1)
+    try:
+        yield
+    finally:
+        for obj, attr, value, own in reversed(undo):
+            if own:
+                setattr(obj, attr, value)
+            else:
+                delattr(obj, attr)
+
+
+def kvpage_fault_run(torch, eng, prompt, name: str, tokens: int) -> dict:
+    """One greedy stream of ``prompt`` through the lane of ``eng`` with the
+    fault ``name`` planted (:func:`kvpage_fault`), held to the dense path
+    by :func:`kvpage_stream_check`."""
+    core = eng.core
+    kp = core.kvpager
+    rec, unrecord = kvpage_record(torch, kp)
+    w0, s0, d0 = kp.decode_windows, kp.decode_steps_run, kp.decode_seconds
+    try:
+        with kvpage_fault(torch, kp, name):
+            got = spec_streams(eng, {name: _greedy_request(prompt, tokens)})
+    finally:
+        unrecord()
+    st = got[name]
+    tf = kvpage_stream_check(torch, core, prompt, st["tokens"], rec)
+    steps = kp.decode_steps_run - s0
+    return dict(fault=name, tokens=tokens, prefix_hit=core.last_prefix_hit,
+                decode_windows=kp.decode_windows - w0, decode_steps=steps,
+                decode_ms_step=1e3 * (kp.decode_seconds - d0) / steps
+                if steps else None, teacher_forced=tf,
+                sound=kvpage_sound(tf))
+
+
+def _greedy_request(prompt, n):
+    """A greedy request of ``n`` tokens that ignores EOS."""
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+
+    return BackendInput(token_ids=prompt, stop=StopConditions(
+        max_tokens=n, ignore_eos=True))
+
+
+def kvpage_phase(torch, att, smi: str, params) -> dict:
+    """The KV paging lane at Llama-3-8B full width and depth on the serve
+    phase's weight tensors (one copy on the card, shared by every engine
+    here): a dense reference engine whose ``max_context`` holds the long
+    prompts, then engines with the dense ``max_context`` of 2048 and a
+    20-page lane (1280 tokens) over a 384-block host tier.
+    (a) a greedy 10240-token prompt for 16 tokens through the lane, with
+    (d) a 64-token dense-path request served beside it; (b) the same
+    prompt again from the pinned prefix; two planted faults
+    (``KVPAGE_FAULTS``) from the pinned prefix; (c) two lanes
+    (``kvpage_batch`` 2) with the 10240- and 6144-token prompts at once
+    for 8 tokens, each held to its stream alone on that engine; (e) over
+    HTTP through ``cli.run``: the long prompt streams a 200 with paging
+    and gets the typed 400 without.
+    Gates: tokens equal to the dense engine's or a first divergence at a
+    near-tie (:func:`greedy_rule`); every step of (a) and (b) against the
+    dense path's teacher-forced logits (:func:`kvpage_sound`), which both
+    planted faults must fail; at most 20 pages leased, the demotion counts
+    :func:`kvpage_demotions` gives, a reuse hit, no page fault. The last
+    prefill position against the dense path and two controls of the dense
+    path alone (plain attention against flash, chunk 256 against 512) are
+    reported."""
+    import gc
+    import urllib.error
+    from dataclasses import replace
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+    from dynamo_tpu_torch.models import llama
+
+    t_phase = time.perf_counter()
+    m = llama.preset(PRESET)
+    rng = np.random.default_rng(KVPAGE_SEED)
+    long_p, mid_p = (rng.integers(0, m.vocab_size, n).tolist()
+                     for n in KVPAGE_PROMPTS)
+    short_p = rng.integers(0, m.vocab_size, KVPAGE_DENSE_TOKENS).tolist()
+    page = KVPAGE_ENGINE["page_size"]
+
+    def bi(prompt, n=KVPAGE_TOKENS):
+        return _greedy_request(prompt, n)
+
+    def engine(**kw):
+        return TorchEngine(TorchEngineConfig(
+            model=m, device=DEVICE, **{**KVPAGE_ENGINE, **kw}), params)
+
+    def peak_gb(base):
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    # earlier phases' engines sit in reference cycles: collect them first,
+    # so the peaks below are this phase's own
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    # the dense reference: a pool that holds the long prompts
+    ctx = KVPAGE_PROMPTS[0] + KVPAGE_DENSE_TOKENS + KVPAGE_TOKENS
+    torch.cuda.reset_peak_memory_stats()
+    dense = engine(max_batch=2, max_context=ctx, host_cache_blocks=0,
+                   kvpage_budget=0)
+    try:
+        ref = spec_streams(dense, {"long": bi(long_p)})
+        ref.update(spec_streams(dense, {"short": bi(short_p)}))
+        dense_peak = peak_gb(base)
+    finally:
+        dense.shutdown()
+        del dense
+        gc.collect()            # the core's hooks hold a cycle to its pool
+        torch.cuda.empty_cache()
+
+    c0 = _kvpage_counters()
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine()
+    rows = {}
+    try:
+        core = eng.core
+        kp = core.kvpager
+        L = m.num_layers
+        rec, unrecord = kvpage_record(torch, kp)
+        _reset_launches(att)
+        t0 = time.perf_counter()
+        got = spec_streams(eng, {"long": bi(long_p),
+                                 "short": bi(short_p)})
+        wall_a = time.perf_counter() - t0
+        launches = _launches(att)
+        unrecord()
+        peak_paged = peak_gb(base)
+        if got["short"]["tokens"] != ref["short"]["tokens"]:
+            raise AssertionError("kvpage (d): the dense-path request beside "
+                                 "the lane changed its tokens")
+        if got["short"]["last_s"] >= got["long"]["last_s"]:
+            raise AssertionError("kvpage (d): the 64-token request did not "
+                                 "finish while the long prompt ran")
+        if not (launches["flash"].get(m.head_dim, 0) >= L
+                and launches["paged"].get(m.head_dim, 0) >= L):
+            raise AssertionError(f"kvpage (d): the dense request did not "
+                                 f"launch both kernels: {launches}")
+        ag = greedy_rule(torch, core, bi(long_p), got["long"]["tokens"],
+                         ref["long"]["tokens"])
+        # every step against the dense path over the lane's own tokens
+        tf_a = kvpage_stream_check(torch, core, long_p,
+                                   got["long"]["tokens"], rec)
+        # the last prefill position's logits against the dense prefill's,
+        # and two controls of the dense path alone: the plain attention
+        # against the flash kernel, chunk 256 against 512
+        paged_lg = rec[0][0]
+        lg512, _ = _prefix_logits(torch, core, long_p, 1)
+        half = SimpleNamespace(cfg=replace(core.cfg, prefill_chunk=256),
+                               params=core.params, device=core.device,
+                               page_size=core.page_size)
+        lg256, _ = _prefix_logits(torch, half, long_p, 1)
+        plain, _ = _prefix_logits(torch, core, long_p, 1, attn_impl="dense")
+        scale = lg512.abs().max().item()
+        diff = (paged_lg - lg512).abs().max().item()
+        control = (plain - lg512).abs().max().item()
+        logits = dict(max_abs=scale, paged_vs_dense=diff,
+                      plain_vs_flash=control,
+                      paged_vs_plain=(paged_lg - plain).abs().max().item(),
+                      chunk_256_vs_512=(lg256 - lg512).abs().max().item(),
+                      argmax_equal=int(paged_lg.argmax()) == int(
+                          lg512.argmax()))
+        lane_budget = kp.lane_budget
+        want_a = kvpage_demotions(KVPAGE_PROMPTS[0], 0, KVPAGE_TOKENS,
+                                  core.cfg.prefill_chunk, page, lane_budget,
+                                  kp.decode_chain)
+        c1 = _kvpage_counters()
+        dem_a = kp.demoted_blocks
+        row_a = dict(phase="kvpage", run="a", prompt=KVPAGE_PROMPTS[0],
+                     engine=KVPAGE_ENGINE, wall_s=wall_a,
+                     paged=_stream_rate(got["long"]),
+                     dense=_stream_rate(ref["long"]),
+                     beside=dict(short_ttft_s=got["short"]["ttft_s"],
+                                 short_last_s=got["short"]["last_s"],
+                                 long_last_s=got["long"]["last_s"]),
+                     greedy=ag, teacher_forced=tf_a, logits=logits,
+                     logit_limit=KVPAGE_LOGIT_LIMIT,
+                     demotions=dem_a, demotions_want=want_a,
+                     peak_pages=kp.peak_resident,
+                     prefill_chunks=kp.prefill_chunks,
+                     prefill_s=kp.prefill_seconds,
+                     decode_windows=kp.decode_windows,
+                     decode_steps=kp.decode_steps_run,
+                     decode_s=kp.decode_seconds,
+                     pagein=kp.pagein_stats(),
+                     counters={k: c1[k] - c0[k] for k in c1},
+                     launches=launches,
+                     peak_gb=dict(paged=peak_paged, dense=dense_peak),
+                     card=smi)
+        pi = row_a["pagein"]
+        row_a["pagein"].update(
+            assemble_gbs=pi["bytes"] / pi["assemble_s"] / 1e9
+            if pi["assemble_s"] else None,
+            upload_gbs=pi["bytes"] / pi["upload_s"] / 1e9
+            if pi["upload_s"] else None)
+        emit(row_a)
+        if not kvpage_sound(tf_a):
+            raise AssertionError(f"kvpage (a): the lane's stream is off the "
+                                 f"dense path's logits: {tf_a}")
+        if kp.peak_resident > KVPAGE_ENGINE["kvpage_budget"] or \
+                dem_a != want_a or row_a["counters"]["faults"] or \
+                not row_a["counters"]["pageins"]:
+            raise AssertionError(f"kvpage (a): residency, demotions or "
+                                 f"page-ins off: {row_a}")
+        rows["a"] = row_a
+
+        # (b) the same prompt again: its demoted prefix is pinned, not
+        # recomputed
+        d0, c1 = kp.demoted_blocks, _kvpage_counters()
+        rec, unrecord = kvpage_record(torch, kp)
+        try:
+            got_b = spec_streams(eng, {"long": bi(long_p)})["long"]
+        finally:
+            unrecord()
+        hit = core.last_prefix_hit
+        want_b = kvpage_demotions(KVPAGE_PROMPTS[0], hit // page,
+                                  KVPAGE_TOKENS, core.cfg.prefill_chunk,
+                                  page, lane_budget, kp.decode_chain)
+        c2 = _kvpage_counters()
+        row_b = dict(phase="kvpage", run="b", prefix_hit=hit,
+                     paged=_stream_rate(got_b),
+                     greedy=greedy_rule(torch, core, bi(long_p),
+                                        got_b["tokens"],
+                                        ref["long"]["tokens"]),
+                     teacher_forced=kvpage_stream_check(
+                         torch, core, long_p, got_b["tokens"], rec),
+                     demotions=kp.demoted_blocks - d0,
+                     demotions_want=want_b,
+                     counters={k: c2[k] - c1[k] for k in c2}, card=smi)
+        emit(row_b)
+        if hit <= 0 or row_b["demotions"] != want_b or \
+                row_b["counters"]["faults"] or \
+                not kvpage_sound(row_b["teacher_forced"]):
+            raise AssertionError(f"kvpage (b): no reuse, counts off or the "
+                                 f"stream off the dense path: {row_b}")
+        rows["b"] = row_b
+
+        # planted faults, each served from the pinned prefix: the gate
+        # above must refuse every one
+        faults = [kvpage_fault_run(torch, eng, long_p, name,
+                                   KVPAGE_FAULT_TOKENS)
+                  for name in KVPAGE_FAULTS]
+        emit(dict(phase="kvpage", run="faults", runs=faults, card=smi))
+        if any(f["sound"] for f in faults):
+            raise AssertionError(f"kvpage: a planted fault passed the "
+                                 f"gate: {faults}")
+        rows["faults"] = faults
+        if core.pool.free_pages != core.pool.num_pages - 1 or \
+                core.tiered.pinned_count():
+            raise AssertionError("kvpage: pages or pins leaked")
+    finally:
+        eng.shutdown()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) two lanes at once, each against its stream alone on this engine
+    # (the tier cleared between runs, so no run reuses another's prefix)
+    eng = engine(kvpage_batch=2)
+    try:
+        core = eng.core
+        kp = core.kvpager
+        alone = {}
+        n_c = KVPAGE_SHORT_TOKENS
+        for key, prompt in (("long", long_p), ("mid", mid_p)):
+            alone.update(spec_streams(eng, {key: bi(prompt, n_c)}))
+            core.tiered.clear()
+        d0, c1 = kp.demoted_blocks, _kvpage_counters()
+        t0 = time.perf_counter()
+        both = spec_streams(eng, {"long": bi(long_p, n_c),
+                                  "mid": bi(mid_p, n_c)})
+        wall_c = time.perf_counter() - t0
+        c2 = _kvpage_counters()
+        want_c = sum(kvpage_demotions(n, 0, n_c,
+                                      core.cfg.prefill_chunk, page,
+                                      kp.lane_budget, kp.decode_chain)
+                     for n in KVPAGE_PROMPTS)
+        row_c = dict(phase="kvpage", run="c", batch=2, wall_s=wall_c,
+                     equal_alone={k: both[k]["tokens"] == alone[k]["tokens"]
+                                  for k in both},
+                     long=_stream_rate(both["long"]),
+                     mid=_stream_rate(both["mid"]),
+                     long_alone=_stream_rate(alone["long"]),
+                     max_window_lanes=kp.max_window_lanes,
+                     demotions=kp.demoted_blocks - d0,
+                     demotions_want=want_c, peak_pages=kp.peak_resident,
+                     counters={k: c2[k] - c1[k] for k in c2},
+                     pagein=kp.pagein_stats(), card=smi)
+        emit(row_c)
+        if not all(row_c["equal_alone"].values()) or \
+                kp.max_window_lanes != 2 or \
+                kp.peak_resident > KVPAGE_ENGINE["kvpage_budget"] or \
+                row_c["demotions"] != want_c or row_c["counters"]["faults"]:
+            raise AssertionError(f"kvpage (c): batched lanes off: {row_c}")
+        rows["c"] = row_c
+    finally:
+        eng.shutdown()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (e) over HTTP through the CLI: a 200 stream with paging, the typed
+    # 400 without
+    prompt = ("The paged lane streams the cold tail of a long context. "
+              * 200)[:KVPAGE_PROMPTS[0]]
+    paged_args = dict(preset=PRESET, **KVPAGE_ENGINE)
+    dense_args = {k: v for k, v in paged_args.items()
+                  if not k.startswith("kvpage")}
+    # the card's context length must admit the prompt (the preprocessor
+    # refuses longer ones before any engine sees them)
+    ctx_arg = ["--context-length", str(KVPAGE_ENGINE["kvpage_max_context"])]
+    http = {}
+    with served(["--extra-engine-args", json.dumps(paged_args),
+                 *ctx_arg]) as (_, _, port, model, _, _):
+        http_post(port, "/v1/completions",
+                  {"model": model, "prompt": prompt, "stream": True,
+                   "max_tokens": KVPAGE_SHORT_TOKENS, "logprobs": 1},
+                  http, "paged")
+    with served(["--extra-engine-args", json.dumps(dense_args),
+                 *ctx_arg]) as (_, _, port, model, _, _):
+        try:
+            http_post(port, "/v1/completions",
+                      {"model": model, "prompt": prompt,
+                       "max_tokens": KVPAGE_SHORT_TOKENS}, http, "dense")
+        except urllib.error.HTTPError as e:
+            http["dense"] = dict(status=e.code,
+                                 error=json.loads(e.read())["error"])
+    ph = http["paged"]
+    row_e = dict(phase="kvpage", run="e", prompt_bytes=len(prompt),
+                 paged=dict(status=ph["status"], done=ph["done"],
+                            tokens=len(ph["tokens"]), ttft_s=ph["ttft_s"],
+                            last_s=ph["last_s"], usage=ph["usage"]),
+                 no_paging=http["dense"], card=smi)
+    emit(row_e)
+    err = http["dense"].get("error") or {}
+    if ph["status"] != 200 or len(ph["tokens"]) != KVPAGE_SHORT_TOKENS or \
+            http["dense"].get("status") != 400 or \
+            (err.get("stage"), err.get("reason")) != (
+                "engine_admission", "context_exceeded") or \
+            err.get("message") != (
+                f"prompt of {ph['usage']['prompt_tokens']} tokens exceeds "
+                f"the configured max_context of "
+                f"{KVPAGE_ENGINE['max_context']}"):
+        raise AssertionError(f"kvpage (e): HTTP answers off: {row_e}")
+    rows["e"] = row_e
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "kvpage", "mode": "summary", "phase_s": phase_s})
+    if phase_s > KVPAGE_BUDGET_S:
+        raise AssertionError(f"kvpage phase took {phase_s:.1f} s, over its "
+                             f"{KVPAGE_BUDGET_S} s budget")
+    return dict(rows, launches=rows["a"]["launches"], phase_s=phase_s)
+
+
+# ---------------------------------------------------------------------------
 # phase 14: Mixtral-8x7B widths through the engine
 # ---------------------------------------------------------------------------
 
@@ -4195,6 +4795,8 @@ def moe_phase(torch, att, smi: str) -> dict:
 
 
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -4267,7 +4869,11 @@ def main() -> int:
     disagg = disagg_phase(torch, smi, serve)
     cluster = cluster_phase(torch, smi, serve)
     spec = spec_phase(torch, att, smi, params)
+    kvpage = kvpage_phase(torch, att, smi, params)
     del params      # the HTTP engine draws the same weights from the seed
+    # the phases' engines sit in reference cycles with their weights:
+    # collect them before the next engine draws its own
+    gc.collect()
     torch.cuda.empty_cache()
     spec["http"] = spec_http_phase(torch, smi)
     emit({"phase": "spec", "mode": "summary", "phase_s": spec["phase_s"]})
@@ -4290,6 +4896,7 @@ def main() -> int:
              spec_launches=ngram["spec_flash_launches"],
              draft_launches=draft["spec_flash_launches"],
              moe_launches=moe["flash_launches"],
+             kvpage_launches=sum(kvpage["launches"]["flash"].values()),
              verify_ms={"t5": verify5["ms"], "t2": verify2["ms"]},
              verify_bound_frac={"t5": verify5["bound_frac"],
                                 "t2": verify2["bound_frac"]},
@@ -4311,6 +4918,7 @@ def main() -> int:
              spec_launches=ngram["spec_paged_launches"],
              draft_launches=draft["spec_paged_launches"],
              moe_launches=moe["paged_launches"],
+             kvpage_launches=sum(kvpage["launches"]["paged"].values()),
              max_abs_err=paged["max_abs_err"], ms=paged["ms"],
              plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
              bound_by=paged["bound_by"], bound_frac=paged["bound_frac"],

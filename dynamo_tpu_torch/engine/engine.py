@@ -69,10 +69,16 @@ Architecture:
   them), while text waves keep the flash kernel and decode the paged one.
 - Mixture-of-Experts models (Mixtral) through ``models/moe.py``: sorted
   dispatch on prefill chunks, dense (sync-free) dispatch on decode.
+- The long-context KV paging lane (``llm/kvpage``), as in the JAX engine:
+  with ``kvpage_budget > 0`` (or ``DYN_KVPAGE_DEVICE_BUDGET``) and a host
+  tier, a prompt over ``max_context`` or over the pool is routed to a
+  :class:`~..llm.kvpage.runner.PagedEngine` at admission instead of
+  refused; it holds at most ``budget`` pages of the shared pool, demotes
+  sealed blocks into the pinned host tier and streams them back per
+  layer, one unit of its work at the head of every ``step``.
 
-Not ported yet (the JAX engine has them): the long-context paging lane,
-MoE checkpoints (neither package's loader maps expert tensors) and
-tp/pp/sp/ep.
+Not ported yet (the JAX engine has them): MoE checkpoints (neither
+package's loader maps expert tensors) and tp/pp/sp/ep.
 
 Reference capability: the role vLLM/TRT-LLM play behind the reference's
 adapters (continuous batching, paged KV, streaming detached tokens), per
@@ -127,9 +133,7 @@ WT_STAGE_BLOCKS = 16
 # JAX engine options this engine does not implement yet: asking for one
 # raises instead of silently serving a different engine
 _NOT_PORTED = frozenset({
-    "tp", "sp", "ep", "pp", "prefill_lanes", "attn_impl",
-    "warmup", "kvpage_budget", "kvpage_seg_pages",
-    "kvpage_prefetch", "kvpage_max_context", "kvpage_batch"})
+    "tp", "sp", "ep", "pp", "prefill_lanes", "attn_impl", "warmup"})
 
 
 @dataclass
@@ -162,6 +166,17 @@ class TorchEngineConfig:
     spec: Optional[str] = None          # "ngram" | "draft" | "off"/None
     spec_k: Optional[int] = None        # max drafts/lane (None => DYN_SPEC_K)
     spec_draft: Optional[str] = None    # draft preset/dir (None => env)
+    # KV paging (llm/kvpage/): serve contexts beyond max_context with
+    # device residency bounded to a page budget: chunked prefill demotes
+    # sealed blocks d2h, decode streams them back through staged uploads.
+    # None => consult the DYN_KVPAGE_* env knobs; 0 disables. Needs
+    # host_cache_blocks > 0 and does not compose with spec decoding
+    # (checked at construction)
+    kvpage_budget: Optional[int] = None      # device pages for the lane
+    kvpage_seg_pages: Optional[int] = None   # blocks per staging segment
+    kvpage_prefetch: Optional[int] = None    # segments prefetched ahead
+    kvpage_max_context: Optional[int] = None  # paged context ceiling
+    kvpage_batch: Optional[int] = None       # concurrent decode lanes
 
     @classmethod
     def from_card(cls, card: ModelDeploymentCard,
@@ -462,6 +477,29 @@ class EngineCore:
         self.spec_lane_rounds = 0       # (lane, round) pairs that drafted
         self.spec_seconds = 0.0         # host clock of whole rounds
 
+        # --- KV paging lane (llm/kvpage/): long-context requests the pool
+        # or max_context would refuse are served with bounded device
+        # residency (chunked prefill demotes sealed blocks to the host
+        # tier, decode streams them back per layer through staged uploads)
+        self.kvpager = None
+        from ..llm.kvpage.runner import PagedConfig
+
+        pcfg = PagedConfig.resolve(cfg)
+        if pcfg is not None:
+            from ..llm.kvpage.programs import PagedPrograms
+            from ..llm.kvpage.runner import PagedEngine
+
+            why = PagedPrograms.validate(cfg)
+            if why is not None:
+                raise ValueError(f"KV paging does not support {why}")
+            if self.tiered is None:
+                raise ValueError("KV paging needs a host tier to demote "
+                                 "into (set host_cache_blocks > 0)")
+            if self.spec is not None:
+                raise ValueError("KV paging does not compose with "
+                                 "speculative decoding")
+            self.kvpager = PagedEngine(self, pcfg)
+
     def _build_vision_tower(self, given) -> None:
         """The Gemma3 VLM tower and projector (``self.vision_cfg`` None for
         a text model), as the JAX engine builds them: a checkpoint whose
@@ -586,7 +624,10 @@ class EngineCore:
     # ------------------------------------------------------------------
     def close(self) -> None:
         """Release host-side cache resources (the disk tier's spill memmaps
-        and files). Idempotent; called from TorchEngine.shutdown."""
+        and files, the pager's prefetch thread). Idempotent; called from
+        TorchEngine.shutdown."""
+        if self.kvpager is not None:
+            self.kvpager.close()
         if self.tiered is not None:
             self.tiered.close()
 
@@ -608,13 +649,17 @@ class EngineCore:
         else:
             self.waiting = collections.deque(
                 (s, r) for s, r in self.waiting if s != seq_id)
+            if self.kvpager is not None:
+                self.kvpager.cancel(seq_id)
             if seq_id in self._stream_injects:
                 # mid-stream cancel: release the half-written pages
                 self.abort_stream_inject(seq_id)
 
     @property
     def has_work(self) -> bool:
-        return bool(self.waiting or self.by_seq or self._inflight)
+        return bool(self.waiting or self.by_seq or self._inflight
+                    or (self.kvpager is not None
+                        and self.kvpager.has_work))
 
     @property
     def active(self) -> int:
@@ -624,7 +669,8 @@ class EngineCore:
         """The worker's ForwardPassMetrics fields, with the JAX engine's
         keys and values for the same schedule: slots, blocks and waiting
         requests, the prefix hit rate, the windowed goodput rates, and the
-        KV bytes resident against capacity (device pool plus host tier),
+        KV bytes resident against capacity (device pool plus host tier;
+        the paging lane's pinned host working set counts as resident),
         and the drafted-token acceptance rate (0 with spec off or nothing
         proposed yet). Any thread: reads counters only."""
         total = self.pool.num_pages - 1
@@ -637,6 +683,10 @@ class EngineCore:
         capacity = float(total) * blk_bytes
         if self.tiered is not None:
             capacity += float(self.tiered.host.num_blocks) * blk_bytes
+        if self.kvpager is not None:
+            # the lane's device pages are already counted in the pool; its
+            # pinned host working set is the part slots cannot see
+            resident += self.kvpager.resident_bytes()[1]
         return {
             "request_active_slots": float(self.active),
             "request_total_slots": float(self.cfg.max_batch),
@@ -936,14 +986,21 @@ class EngineCore:
         callers without waiting for it (TTFT); the rest are returned.
 
         A sequence's first output carries admission's prefix-restore length
-        (``StepOutput.prefix_hit``)."""
+        (``StepOutput.prefix_hit``).
+
+        One unit of the KV paging lane's work (a prefill chunk or a decode
+        window) runs first, between dense dispatches; its outputs do not
+        break the dense window's chain."""
         out = self._reap_cancelled()
+        n_reaped = len(out)
         with torch.no_grad():
             self._advance_writethrough()
+            if self.kvpager is not None and self.kvpager.has_work:
+                out.extend(self.kvpager.advance())
             prefill_work = any(s is not None and s.prefill_done < len(s.prompt)
                                for s in self.slots)
             admit_possible = bool(self.waiting) and None in self.slots
-            sync_needed = prefill_work or admit_possible or bool(out)
+            sync_needed = prefill_work or admit_possible or n_reaped > 0
             if self._inflight:
                 if not sync_needed and self._can_chain():
                     self._dispatch_decode()
@@ -1342,15 +1399,24 @@ class EngineCore:
     def _admit_one(self, out: List[StepOutput]):
         """Admit the head-of-line request into a free slot (no prefill yet).
         Returns (slot_idx, slot), "rejected" (popped with an error emitted),
-        or "blocked" (no KV capacity right now)."""
+        "paged" (popped into the KV paging lane), or "blocked" (no KV
+        capacity right now)."""
         seq_id, req = self.waiting[0]
         prompt = list(req.token_ids)
         over_ctx = len(prompt) >= self.cfg.max_context
         over_pool = (self.pool.pages_needed(len(prompt) + 1)
                      > self.pool.num_pages - 1)
         if over_ctx or over_pool:
-            # can NEVER fit, even with an empty pool: reject, don't starve
+            # beyond the dense path's reach: the paging lane's workload
+            # when it is on; otherwise a typed 400 naming the limit (can
+            # NEVER fit, even with an empty pool: reject, don't starve)
             self.waiting.popleft()
+            if self.kvpager is not None:
+                so = self.kvpager.try_route(seq_id, req)
+                if so is None:
+                    return "paged"
+                out.append(so)
+                return "rejected"
             if over_ctx:
                 msg = (f"prompt of {len(prompt)} tokens exceeds the "
                        f"configured max_context of {self.cfg.max_context}")
@@ -1424,7 +1490,7 @@ class EngineCore:
             admitted = self._admit_one(out)
             if admitted == "blocked":
                 break
-            if admitted == "rejected":
+            if admitted in ("rejected", "paged"):
                 continue
             chunks.append(admitted)
         if chunks:
@@ -2056,7 +2122,9 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
                     self._stop_profile(prof, profile_dir)
                     prof, profile_dir = None, None
             self._deliver_all(outs)
-            if not outs and not self.core.by_seq:
+            paging = (self.core.kvpager is not None
+                      and self.core.kvpager.has_work)
+            if not outs and not self.core.by_seq and not paging:
                 # waiting requests that can't be admitted yet: don't spin
                 self._wake.wait(timeout=0.02)
                 self._wake.clear()

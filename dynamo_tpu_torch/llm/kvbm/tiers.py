@@ -304,19 +304,24 @@ class TieredKvCache:
                 return None
             return got[0].copy(), got[1].copy()
 
-    def peek_layer(self, seq_hash: int, layer: int
+    def peek_layer(self, seq_hash: int, layer: int, out=None
                    ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         """Copy ONE layer's [Hkv, page, Dh] slice of a resident block, no
         LRU touch — the KV-paging plane's page-in read (streaming cold
         blocks layer-at-a-time must not thrash the reuse order that serves
-        admission restores)."""
+        admission restores). ``out`` = (k, v) arrays to copy into (the
+        pager's segment rows: one copy instead of two)."""
         with self._lock:
             got = self.host.peek_layer(seq_hash, layer)
             if got is None and self.disk is not None:
                 got = self.disk.peek_layer(seq_hash, layer)
             if got is None:
                 return None
-            return got[0].copy(), got[1].copy()
+            if out is None:
+                return got[0].copy(), got[1].copy()
+            np.copyto(out[0], got[0])
+            np.copyto(out[1], got[1])
+            return out
 
     # ------------------------------------------------------------------
     # pinning (KV-paging working set)

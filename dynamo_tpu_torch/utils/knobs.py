@@ -61,6 +61,7 @@ _DOCS = {
     "store": "docs/observability.md",
     "disagg": "docs/disagg_serving.md",
     "spec": "docs/speculative.md",
+    "kvpage": "docs/long_context.md",
 }
 
 
@@ -320,6 +321,28 @@ _ALL: List[Knob] = [
        "trailing-token window the n-gram proposer indexes"),
     _k("DYN_SPEC_DRAFT", "str", "", "spec",
        "draft model preset name or checkpoint dir (mode=draft)"),
+    # -------------------------------------------------------- KV paging
+    _k("DYN_KVPAGE_DEVICE_BUDGET", "int", "0", "kvpage",
+       "device KV pages the paged long-context lane may hold resident "
+       "(0 = KV paging off; engine-config kvpage_budget overrides)"),
+    _k("DYN_KVPAGE_SEG_PAGES", "int", "8", "kvpage",
+       "cold KV blocks per staged h2d upload segment"),
+    _k("DYN_KVPAGE_PREFETCH", "int", "2", "kvpage",
+       "segments the page-in thread assembles ahead of the attention "
+       "pass (0 = synchronous page-ins, every one a counted fault)"),
+    _k("DYN_KVPAGE_MAX_CONTEXT", "int", "131072", "kvpage",
+       "context ceiling of the paged lane, tokens (the dense path's "
+       "max_context still governs normal requests)"),
+    _k("DYN_KVPAGE_DECODE_STEPS", "int", "4", "kvpage",
+       "paged-lane decode tokens chained on-device per host fetch "
+       "(sampled token feeds the next forward without a round-trip; "
+       "1 = per-token synchronous as before)"),
+    _k("DYN_KVPAGE_BATCH", "int", "1", "kvpage",
+       "concurrent paged decode lanes sharing the device budget: each "
+       "lane gets budget/batch pages and one batched dispatch serves a "
+       "window step for every lane, with cold segments lane-stacked "
+       "into shared staging slots (engine-config kvpage_batch "
+       "overrides; 1 = the serial lane)"),
     # -------------------------------------------------------------- disagg
     _k("DYN_PREFILL_QUEUE_MAX", "int", "0", "disagg",
        "bounded shared prefill queue depth (0 = unbounded)"),

@@ -15,8 +15,9 @@ llama-3.2-1b draft's head dim (64) hold the spec path's shapes. The engine
 tests at the end serve the CLI's default tiny-byte (Dh=16), speculate
 through the flash kernel (n-gram and draft), check the construction-time
 kernel check, enqueue a chained decode dispatch under
-``torch.cuda.set_sync_debug_mode("error")``, and stream a prompt's KV into
-a pool layer by layer under the same mode.
+``torch.cuda.set_sync_debug_mode("error")``, stream a prompt's KV into
+a pool layer by layer under the same mode, and run the KV paging lane's
+two-lane decode against each lane alone.
 """
 
 import numpy as np
@@ -758,3 +759,43 @@ def test_staged_prefetch_on_a_side_stream_is_consumed_bitwise():
         dk, dv = _page_bits(core, h)
         assert np.array_equal(k.view(np.int16), dk.numpy())
         assert np.array_equal(v.view(np.int16), dv.numpy())
+
+
+@pytest.mark.cuda
+def test_kvpage_lanes_on_the_card_are_batch_invariant():
+    """The KV paging lane on the card (tiny-byte, bf16): two prompts of 9x
+    and 6x a lane's budget, each alone and then both at once in a
+    two-lane engine, give the same tokens bit for bit; no page-in faults,
+    at most the budget leased, and uploads timed on the side stream."""
+    _card()
+    core = _tiny_core(page_size=16, max_context=128, host_cache_blocks=160,
+                      kvpage_budget=16, kvpage_seg_pages=2,
+                      kvpage_max_context=4096, kvpage_batch=2)
+    kp = core.kvpager
+    prompts = {"a": [(i * 7 + 3) % 251 for i in range(9 * 8 * 16)],
+               "b": [(i * 5 + 1) % 251 for i in range(6 * 8 * 16)]}
+
+    def run(ids):
+        for sid in ids:
+            _submit(core, sid, prompts[sid], 12)
+        got = {sid: [] for sid in ids}
+        for _ in range(2000):
+            for so in core.step():
+                assert so.error is None, so.error
+                got[so.seq_id].append(so.token)
+            if not core.has_work:
+                return got
+        raise AssertionError("the lane did not finish")
+
+    alone = {}
+    for sid in prompts:
+        alone.update(run([sid]))
+        core.tiered.clear()             # no run reuses another's prefix
+    assert run(list(prompts)) == alone
+    assert kp.max_window_lanes == 2 and kp.pager.faults == 0
+    assert 0 < kp.peak_resident <= 16 and kp.demoted_blocks > 0
+    st = kp.pagein_stats()
+    assert st["bytes"] > 0 and st["upload_s"] > 0
+    assert core.pool.free_pages == core.pool.num_pages - 1
+    assert core.tiered.pinned_count() == 0
+    core.close()

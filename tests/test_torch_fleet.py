@@ -367,6 +367,46 @@ def checkpoint(tmp_path_factory):
     return str(d)
 
 
+@pytest.fixture(scope="module")
+def jax_worker_engine(checkpoint):
+    """One JAX engine on the checkpoint (f32, the workers' engine
+    arguments) for every JAX worker of the module: its programs compile
+    once. Each worker takes it with its reusable blocks flushed, so a
+    worker starts from an empty cache as with an engine of its own."""
+    from dynamo_tpu.engine.engine import JaxEngine, JaxEngineConfig
+
+    eng = JaxEngine(JaxEngineConfig(
+        model=jl.LlamaConfig.from_hf_config(HF_CONFIG, dtype=jnp.float32),
+        params_path=checkpoint, page_size=PAGE, warmup=False, **ENGINE))
+
+    class Shared:
+        """The module engine in place of the one a worker would build;
+        the worker's shutdown leaves it running for the next test."""
+
+        def __init__(self, cfg):
+            # the worker's own arguments must describe this very engine,
+            # so sharing it cannot hide a mismatch
+            have = eng.core.cfg
+            for f in ("params_path", "page_size", "max_batch",
+                      "max_context", "prefill_chunk", "decode_steps",
+                      "warmup"):
+                assert getattr(cfg, f) == getattr(have, f), f
+            assert cfg.model == have.model
+            core = eng.core
+            core.pool.on_block_sealed = core.pool.on_blocks_removed = None
+            core.pool.flush_reusable()
+            assert not core.has_work
+
+        def __getattr__(self, name):
+            return getattr(eng, name)
+
+        def shutdown(self):
+            pass
+
+    yield Shared
+    eng.shutdown()
+
+
 @pytest.fixture
 def f32(monkeypatch):
     """Both packages size checkpoints in f32 (bf16 by default)."""
@@ -449,12 +489,14 @@ PREFIX = "The mixed fleet shares one prefix, block by block. "   # 51 bytes
     ("dynamo_tpu", "dynamo_tpu_torch"), ("dynamo_tpu_torch", "dynamo_tpu")],
     ids=["jax-plane/torch-holder", "torch-plane/jax-holder"])
 async def test_mixed_fleet_routes_by_the_holders_kv_events(
-        plane, holder, checkpoint, f32):
+        plane, holder, checkpoint, f32, jax_worker_engine, monkeypatch):
     """``plane`` runs the store, the KV router and the discovery frontend;
     a ``holder`` worker serves prefix A first, then a worker of the other
     package joins. Requests sharing A go to the holder with the overlap
     its own KV events announced."""
     other = PKGS[1 - PKGS.index(holder)]
+    monkeypatch.setattr(_mod("dynamo_tpu", "engine.engine"), "JaxEngine",
+                        jax_worker_engine)
 
     async def body():
         srv = _mod(plane, "runtime.store_server").PyStoreServer()

@@ -416,18 +416,47 @@ def _jax_core(**kw):
 
 @pytest.fixture(scope="module")
 def jax_reference():
-    """Each schedule's run on the JAX engine, and its weights (the same
-    seed gives every JAX core the same weights)."""
+    """Each schedule's run on the JAX engine, and its weights. One core
+    serves both schedules (its programs compile once): between them its
+    device blocks are flushed, its tiers emptied and their hit counters
+    zeroed, so each schedule starts from an empty cache as on a new core."""
     runs = {}
-    for schedule in SCHEDULE_HITS:
-        core = _jax_core()
-        try:
+    core = _jax_core()
+    try:
+        for schedule in SCHEDULE_HITS:
+            core.pool.flush_reusable()
+            core._flush_evictions()
+            core.tiered.clear()
+            core.tiered.hits = core.tiered.misses = 0
+            core.dispatch_hook = None
+            assert not core.has_work and core.pool.free_pages == \
+                core.pool.num_pages - 1
             runs[schedule] = _serve_all(core, JBI, JSC, JPub(1, None),
                                         JIndexer(8), schedule)
-            params = jax.tree.map(lambda a: np.array(a), core.params)
-        finally:
-            core.close()
+        params = jax.tree.map(lambda a: np.array(a), core.params)
+    finally:
+        core.close()
     return runs, params
+
+
+PLAIN = dict(num_pages=None, host_cache_blocks=0, disk_cache_blocks=0)
+
+
+@pytest.fixture(scope="module")
+def jax_plain():
+    """One JAX core without tiers for the tests that drive one (its
+    programs compile once for the module); each test takes it with its
+    reusable blocks flushed and no dispatch hook."""
+    core = _jax_core(**PLAIN)
+
+    def fresh():
+        core.dispatch_hook = None
+        core.pool.flush_reusable()
+        assert not core.has_work
+        return core
+
+    yield fresh
+    core.close()
 
 
 def _torch_core(np_params=None, **kw):
@@ -473,13 +502,14 @@ def test_engine_reuse_matches_jax_engine(jax_reference, schedule):
     assert core.pool.free_pages == core.pool.num_pages - 1
 
 
-def test_steady_batch_dispatches_match_jax_engine(jax_reference):
+def test_steady_batch_dispatches_match_jax_engine(jax_reference,
+                                                  jax_plain):
     """Two requests decoding side by side: the same tokens, and the same
     (chained, lanes) for every decode dispatch as the JAX core's dispatch
     hook records (the window chains while both run, syncs when one
     finishes, and chains again on the survivor)."""
     _, np_params = jax_reference
-    plain = dict(num_pages=None, host_cache_blocks=0, disk_cache_blocks=0)
+    plain = PLAIN
     requests = {"x": (list(range(3, 23)), 13), "y": (list(range(40, 45)), 22)}
 
     def run(core, bi, sc):
@@ -495,11 +525,11 @@ def test_steady_batch_dispatches_match_jax_engine(jax_reference):
                 return got, dispatches
         raise AssertionError("the batch did not finish")
 
-    ref = _jax_core(**plain)
+    ref = jax_plain()
     try:
         want = run(ref, JBI, JSC)
     finally:
-        ref.close()
+        ref.dispatch_hook = None
     got = run(_torch_core(np_params, **plain), BackendInput, StopConditions)
     assert got == want
     tokens, dispatches = got
@@ -573,7 +603,7 @@ def test_engine_reuse_respects_batching_invariance():
     pytest.param(11, 5, True, id="11-5"),
 ])
 def test_engine_never_reuses_a_block_with_an_unwritten_slot(
-        jax_reference, prompt_len, max_tokens, slot_written):
+        jax_reference, jax_plain, prompt_len, max_tokens, slot_written):
     """A request's last sampled token has no KV in the pool until a later
     step feeds it back. When it completes a block and no later step ran
     (the request ended on its prefill token), that block must not be
@@ -584,10 +614,10 @@ def test_engine_never_reuses_a_block_with_an_unwritten_slot(
     engines: the block stays, and the next turn's prefix hit is the JAX
     engine's."""
     _, np_params = jax_reference
-    plain = dict(num_pages=None, host_cache_blocks=0, disk_cache_blocks=0)
+    plain = PLAIN
     warm = _torch_core(np_params, **plain)
     cold = _torch_core(np_params, enable_prefix_reuse=False, **plain)
-    ref = _jax_core(**plain)
+    ref = jax_plain()
     events = []
     warm.pool.on_block_sealed = lambda sid, b, p, l: events.append(
         ("stored", b.sequence_hash))
@@ -611,7 +641,7 @@ def test_engine_never_reuses_a_block_with_an_unwritten_slot(
                             4)
         ref_again, ref_hit = _drive(ref, JBI, JSC, "b", turn2, 4)
     finally:
-        ref.close()
+        ref.pool.flush_reusable()
     assert again == want
     assert hit == prompt_len + max_tokens - (0 if slot_written else 8)
     if slot_written:
