@@ -9,8 +9,11 @@ Phases, in order, each printing one JSON line; any failure exits non-zero
 with a traceback and prints no result:
 
 1. device    — the card's name and power limit (nvidia-smi).
-2. build     — builds the CUDA kernels from ``dynamo_tpu_torch/ops/csrc``;
-               ptxas's registers and spills for each kernel instance.
+2. build     — builds the CUDA kernels from ``dynamo_tpu_torch/ops/csrc``
+               and, beside them, the native host helpers (the C++ store,
+               data plane and KV-event publisher) from
+               ``dynamo_tpu_torch/native``; ptxas's registers and spills
+               for each kernel instance.
 3. kernels   — every kernel of the serving path against its plain torch
                version on the card, in bf16, at Llama-3-8B (Gemma2-9B and
                Gemma3-4B) head shapes, the flash kernel also on a ragged dispatch in
@@ -82,7 +85,11 @@ with a traceback and prints no result:
                built from the same host tensors. Write, load (s, GB/s,
                host RSS growth), tokenizer load, encode and TTFT.
 10. fleet    — the distributed runtime, each piece a process of the
-               port's own (``python -m dynamo_tpu_torch...``): the store,
+               port's own (``python -m dynamo_tpu_torch...``), every one on
+               the native data plane and each store the C++ dynstore (the
+               phase reads both back from the children and fails
+               otherwise): two stores, the second holding the telemetry
+               families (``DYN_STORE_SHARDS``), a regional aggregator,
                two workers serving Llama-3-8B on this card (full width and
                depth, the serve phase's engine arguments, random weights
                from the same seed), the KV-aware router and the discovery
@@ -95,10 +102,17 @@ with a traceback and prints no result:
                whose dispatch and kernel-launch counters account for each
                other (both kernels launched in both workers); SIGTERM on
                one worker exits 0, removes its keys, and the next four
-               requests answer from the other. Fleet and in-process TTFT
-               and gap between tokens of one lone stream, the route span,
-               the codec's µs a frame, the data plane's µs an item, each
-               worker's ForwardPassMetrics and peak device memory.
+               requests answer from the other. The observers' read of the
+               stage dumps comes from the aggregator's region record, whose
+               counters for each worker equal the frontend's flat scrape;
+               a ``stored`` and a ``removed`` event sent through the C-ABI
+               publisher come back from the live ``kv_events`` subject.
+               Fleet and in-process TTFT and gap between tokens of one lone
+               stream, the route span, the codec's µs a frame, both data
+               planes' µs an item and GB/s on 64 parts of 3 MB (in turns),
+               asyncio items turns in a fresh process and before and after
+               the region read (where its stalls come on), each worker's
+               ForwardPassMetrics and peak device memory.
 11. disagg   — disaggregated prefill and decode, each piece a process of
                the port's own: the store, a decode worker
                (``--enable-disagg --max-local-prefill-length 256``), a
@@ -116,7 +130,30 @@ with a traceback and prints no result:
                burst of four 1024-token prompts all goes remote and leaves
                the queue empty. Remote against local TTFT, transfer
                seconds and GB/s, the flows, each worker's peak memory, and
-               the data plane's own rate on the same parts.
+               the data plane's own rate on the same parts. Every child on
+               the native plane and store, as in the fleet phase.
+11b. cluster — cluster-wide KV sharing, two ``max_batch`` 1 workers with
+               ``DYN_KV_CLUSTER=1`` behind the router and frontend, on the
+               native plane and store: the stamped donor fetch, the
+               router's donor election, the staged restore; then failover:
+               a seeded 1024-token greedy request for 128 tokens, served
+               cold, then warm (the unkilled run), then warm again with its
+               worker SIGKILLed once the stream holds 16 tokens. The
+               stream (the frontend's ``RemoteCoreEngine`` in this process,
+               for exact token ids) must finish with all 128, its first
+               tokens the unkilled run's, one ``resumed`` count, the
+               survivor's flash launches one a layer a chunk of the rebuilt
+               prefix and paged ones one a layer a decode step, the
+               survivor's tokens equal to an in-process engine's cold run
+               of the prompt and the emitted tokens, and every token of
+               the unkilled and the killed stream within
+               FAILOVER_MARGIN_LIMIT of the top logit of a teacher-forced
+               prefill over prompt + stream, which two planted wrong
+               resume prefixes must break. Whether the stream equals the
+               unkilled run (bf16 rebuilds by prefill what the unkilled
+               run decoded), and where not, the top-2 gap there; the pause
+               from the kill to the survivor's first token, and how the
+               survivor rebuilt.
 
 12. spec     — speculative decoding in process on the serve phase's
                weight tensors (Llama-3-8B, full width and depth, its engine
@@ -743,8 +780,13 @@ def scrape(port: int) -> dict:
     status, text = http_get(port, "/metrics")
     if status != 200:
         raise AssertionError(f"/metrics answered {status}")
+    return samples(text.decode())
+
+
+def samples(text: str) -> dict:
+    """Prometheus text as {sample name with labels: value}."""
     out = {}
-    for line in text.decode().splitlines():
+    for line in text.splitlines():
         if line and not line.startswith("#"):
             key, _, val = line.rpartition(" ")
             out[key] = float(val)
@@ -2165,20 +2207,63 @@ FLEET_PREFIX_TOKENS, FLEET_SUFFIX_TOKENS, FLEET_SEED = 1024, 64, 1024
 FLEET_START_S = 600          # the slowest start: two 8B workers at once
 FLEET_METRICS_S = 0.25       # the workers' metrics interval
 FLEET_LONG_TOKENS = 384      # keeps A's worker busy while B is routed
+FLEET_REGION_S = 0.5         # the regional aggregator's merge interval
+# the plane probe's request: 64 parts of one layer's K or V of the
+# 1496-token reuse prompt (Llama-3-8B: 8 kv heads x 128 x bf16), as the
+# disagg push moves them
+PROBE_PARTS, PROBE_PART_BYTES = 64, REUSE_PROMPT * 8 * 128 * 2
+PROBE_ITEMS = 2000
+# a turn's items stream stops here: on the card an asyncio turn has read
+# 8-40 ms an item (not understood), which would cost the phase minutes
+PROBE_ITEMS_S = 3.0
+# the C-ABI publisher's throwaway worker id (no worker has it)
+CABI_WORKER = 0xC0FFEE
 
 
 class Fleet:
     """Child processes of the port's own entry points
     (``python -m dynamo_tpu_torch...``), each logging to a file under
-    ``root`` (``FLEET_DIR`` by default). Never forks: every child is a fresh interpreter. ``stop``
-    kills whatever is still running."""
+    ``root`` (``FLEET_DIR`` by default). Never forks: every child is a
+    fresh interpreter, on the native data plane and, for a store, the
+    C++ dynstore (the CLI execs it in its own place), so a broken native
+    build fails the phase. ``stop`` kills whatever is still running."""
 
     def __init__(self, root: str = FLEET_DIR):
         self.root = root
         os.makedirs(root, exist_ok=True)
         self.procs: dict = {}
         # the children run with the default liveness lease TTL (10 s)
-        self.env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1")
+        self.env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1",
+                        DYNAMO_TPU_DATAPLANE="native",
+                        DYNAMO_TPU_STORE="native")
+
+    def planes(self, serving=()) -> dict:
+        """What each child serves on: a store child's program (the C++
+        dynstore or the asyncio server), every other child's data plane
+        as its ``data plane: <kind> on port`` log line names it (None for
+        a child that serves no endpoint). Fails unless every store and
+        every named ``serving`` child is native."""
+        import re
+
+        out = {}
+        for name, (proc, _) in self.procs.items():
+            if name.startswith("store"):
+                try:
+                    exe = os.path.basename(os.readlink(f"/proc/{proc.pid}/exe"))
+                except OSError:
+                    exe = "gone"
+                out[name] = "native" if exe.startswith("dynstore-") else exe
+            else:
+                kinds = re.findall(r"data plane: (\w+) on port",
+                                   self.log(name))
+                out[name] = kinds[-1] if kinds else None
+        bad = {n: k for n, k in out.items()
+               if k not in ("native", None)
+               or (k is None and (n.startswith("store") or n in serving))}
+        if bad:
+            raise AssertionError(f"children not on the native plane and "
+                                 f"store: {bad} (all: {out})")
+        return out
 
     def start(self, name: str, module: str, *args: str):
         log = open(os.path.join(self.root, f"{name}.log"), "w")
@@ -2476,9 +2561,7 @@ async def _fleet_async(fleet: Fleet, store_port: int, http_port: int,
                 raise AssertionError(f"worker {w}: kernel launches do not "
                                      f"account for its dispatches: {d} {k}")
 
-        # 5. the codec: one EngineOutput frame, packed and read back; and
-        # the data plane's own cost a streamed item, both ends in this
-        # process (an endpoint that yields EngineOutput dicts, no engine)
+        # 5. the codec: one EngineOutput frame, packed and read back
         out_dict = EngineOutput(token_ids=[12345], cum_log_prob=-1.5,
                                 kv_prefix_hit_tokens=1024).to_dict()
         frame = [{wire.KIND_KEY: "data"}, json.dumps(out_dict).encode()]
@@ -2493,24 +2576,31 @@ async def _fleet_async(fleet: Fleet, store_port: int, http_port: int,
             _msgpack.unpackb(body)
         unpack_us = 1e6 * (time.perf_counter() - t0) / n
 
-        async def items(request, ctx):
-            for _ in range(request["n"]):
-                yield out_dict
+        # asyncio items turns around the region read and the C-ABI
+        # publisher, and one in a fresh process: where the asyncio plane's
+        # stalls (an item in milliseconds with the CPU idle) come on
+        stall = {"fresh_process": await asyncio.to_thread(
+            probe_turn_fresh, store_port)}
+        stall["before_region"] = await probe_turn(
+            store_port, "python", "stall0", parts_too=False)
 
-        probe = drt.namespace("probe").component("plane").endpoint("items")
-        await probe.serve(items)
-        plane = await probe.client().start()
-        await plane.wait_for_instances(1, timeout=30)
-        plane_n = []
-        for n in (100, 5000):               # warm-up, then timed
-            t0 = time.perf_counter()
-            got = 0
-            async for _ in plane.generate({"n": n}):
-                got += 1
-            plane_n.append((got, time.perf_counter() - t0))
-        if plane_n[1][0] != 5000:
-            raise AssertionError(f"data plane probe lost items: {plane_n}")
-        plane_us = 1e6 * plane_n[1][1] / plane_n[1][0]
+        # 6. the region plane: the aggregator's record, read as every
+        # observer reads stage dumps, against the frontend's flat scrape
+        # (through the sharded client) of the same quiet moment
+        region = await region_check(drt.store, http_port)
+        stall["after_region"] = await probe_turn(
+            store_port, "python", "stall1", parts_too=False)
+
+        # 7. KV events through the C ABI, read back from the live subject
+        cabi = await cabi_check(backend, store_port, index, page)
+
+        # 8. the data plane's own cost, each plane in turn (its first turn
+        # is the asyncio one after the C-ABI publisher)
+        probe = await plane_probe(store_port)
+        stall["after_cabi"] = dict(probe["python"][0], plane="python")
+        if any(r["plane"] != "python" for r in stall.values()):
+            raise AssertionError(f"stall turns off the asyncio plane: "
+                                 f"{stall}")
         return dict(
             holder=f"{wa:x}", other=f"{wb:x}", prefix_tokens=len(a_tokens),
             kv_events_s=events_s, prefix_hits=hits,
@@ -2523,10 +2613,246 @@ async def _fleet_async(fleet: Fleet, store_port: int, http_port: int,
             fleet_lone_stream=lone,
             engine_output_pack_us=pack_us,
             engine_output_unpack_us=unpack_us, frame_bytes=len(body),
-            dataplane_us_per_item=plane_us,
+            dataplane_us_per_item_native=[r["us_per_item"]
+                                          for r in probe["native"]],
+            dataplane_us_per_item_asyncio=[r["us_per_item"]
+                                           for r in probe["python"]],
+            plane_probe=probe, asyncio_stall_turns=stall, region=region,
+            cabi=cabi,
             workers=per_worker, card=smi)
     finally:
         await drt.close()
+
+
+async def probe_turn(store_port: int, mode: str, name: str,
+                     parts_too: bool = True) -> dict:
+    """One turn of the plane probe on plane ``mode`` ("python" is the
+    asyncio plane), both ends on this process's one loop: µs an item of a
+    stream of EngineOutput frames (PROBE_ITEMS, or as many as arrive in
+    PROBE_ITEMS_S) with this process's CPU time over them, and with
+    ``parts_too`` GB/s of PROBE_PARTS parts of PROBE_PART_BYTES pushed
+    through an endpoint that drains them. Returns the row with the plane
+    the runtime served on."""
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+
+    saved = os.environ.get("DYNAMO_TPU_DATAPLANE")
+    os.environ["DYNAMO_TPU_DATAPLANE"] = mode    # read at the first serve
+    try:
+        drt = await DistributedRuntime(store_port=store_port).connect()
+        try:
+            return await _probe_turn(drt, name, mode, parts_too)
+        finally:
+            await drt.close()
+    finally:
+        if saved is None:
+            os.environ.pop("DYNAMO_TPU_DATAPLANE", None)
+        else:
+            os.environ["DYNAMO_TPU_DATAPLANE"] = saved
+
+
+async def _probe_turn(drt, name: str, mode: str, parts_too: bool) -> dict:
+    from dynamo_tpu_torch.llm.protocols.common import EngineOutput
+
+    item = EngineOutput(token_ids=[12345], cum_log_prob=-1.5,
+                        kv_prefix_hit_tokens=1024).to_dict()
+    part = bytes(PROBE_PART_BYTES)
+
+    async def items(request, ctx):
+        for _ in range(request["n"]):
+            yield item
+
+    async def drain(request, ctx):
+        n = 0
+        async for p in request.parts:
+            n += len(p)
+        yield {"bytes": n}
+
+    async def parts():
+        for _ in range(PROBE_PARTS):
+            yield part
+
+    comp = drt.namespace("probe").component(name)
+    await comp.endpoint("items").serve(items)
+    ci = await comp.endpoint("items").client().start()
+    await ci.wait_for_instances(1, timeout=30)
+    for n in (20, PROBE_ITEMS):                     # warm-up, then timed
+        t0 = last = time.perf_counter()
+        c0 = time.process_time()
+        got, capped, gaps = 0, False, []
+        stream = ci.generate({"n": n})
+        async for _ in stream:
+            got += 1
+            now = time.perf_counter()
+            gaps.append(now - last)
+            last = now
+            if now - t0 > PROBE_ITEMS_S:
+                capped = True
+                break
+        await stream.aclose()
+        item_s = time.perf_counter() - t0
+        # this process's CPU seconds over the same items: a wall far above
+        # them means the loop waited
+        item_cpu_s = time.process_time() - c0
+    if got != PROBE_ITEMS and not capped:
+        raise AssertionError(f"{mode} plane probe: {got} items")
+    # the item gaps over 1 ms, and TCP_NODELAY on this process's ends of
+    # the plane's sockets (the asyncio server's and the client's pooled
+    # ones): a stall of about 40 ms an item is the delayed-ACK timer
+    # meeting Nagle's algorithm
+    import socket
+
+    def nodelay(writers):
+        return [w.get_extra_info("socket").getsockopt(
+            socket.IPPROTO_TCP, socket.TCP_NODELAY) for w in writers
+            if w.get_extra_info("socket") is not None]
+
+    row = dict(plane=drt.dataplane, us_per_item=1e6 * item_s / got,
+               cpu_us_per_item=1e6 * item_cpu_s / got, items=got,
+               gaps_over_1ms=sum(g > 1e-3 for g in gaps),
+               gaps_over_1ms_s=sum(g for g in gaps if g > 1e-3),
+               max_gap_ms=1e3 * max(gaps),
+               nodelay=dict(server=nodelay(drt._conn_writers),
+                            client=nodelay(e[2] for conns in
+                                           ci._pool.values()
+                                           for e in conns)))
+    if parts_too:
+        await comp.endpoint("kv").serve(drain)
+        ck = await comp.endpoint("kv").client().start()
+        await ck.wait_for_instances(1, timeout=30)
+        for _ in range(2):                          # warm-up, then timed
+            t0 = time.perf_counter()
+            async for ack in ck.generate({}, parts=parts()):
+                moved = ack["bytes"]
+            part_s = time.perf_counter() - t0
+        if moved != PROBE_PARTS * PROBE_PART_BYTES:
+            raise AssertionError(f"{mode} plane probe: {moved} bytes")
+        row["gb_s"] = moved / part_s / 1e9
+    return row
+
+
+async def plane_probe(store_port: int) -> dict:
+    """The data plane's own cost on each plane, in turns (asyncio, native,
+    native, asyncio), each a :func:`probe_turn`. {plane: [row, ...]}."""
+    rows: dict = {}
+    for turn, mode in enumerate(("python", "native", "native", "python")):
+        row = await probe_turn(store_port, mode, f"plane{turn}")
+        rows.setdefault(row.pop("plane"), []).append(row)
+    if sorted(rows) != ["native", "python"]:
+        raise AssertionError(f"plane probe ran on {sorted(rows)}")
+    return rows
+
+
+def probe_turn_fresh(store_port: int) -> dict:
+    """An asyncio items turn of :func:`probe_turn` in a fresh Python
+    process (this script's environment, no state of this process)."""
+    code = ("import asyncio, json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke as s; print(json.dumps(asyncio.run("
+            "s.probe_turn(int(sys.argv[2]), 'python', 'fresh', False))))")
+    out = subprocess.run([sys.executable, "-c", code, ROOT, str(store_port)],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        raise AssertionError(f"fresh probe turn: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+async def region_check(store, http_port: int) -> dict:
+    """The stage states every observer reads (``fetch_stage_states_ex``,
+    which the router's cost model calls) must come from a region record
+    while the aggregator runs, and each worker's dispatch and kernel-launch
+    counters there must equal the frontend's flat scrape (its own
+    ``/metrics``, which excludes its dump and so always scrapes flat)
+    taken around the read, unchanged across it."""
+    import asyncio
+
+    from dynamo_tpu_torch.llm.metrics_aggregator import fetch_stage_states_ex
+    from dynamo_tpu_torch.utils.prometheus import render_states
+
+    def counters(sc):
+        return {n: _per_worker(sc, n, label) for n, label in (
+            ("dyn_engine_dispatches_total", "kind"),
+            ("dyn_kernel_launches_total", "kernel"))}
+
+    for _ in range(5):
+        # the workers publish every FLEET_METRICS_S, the aggregator merges
+        # every FLEET_REGION_S
+        await asyncio.sleep(2 * FLEET_REGION_S + 2 * FLEET_METRICS_S)
+        before = counters(await asyncio.to_thread(_fleet_stage, http_port))
+        t0 = time.perf_counter()
+        states, read = await fetch_stage_states_ex(store, "dynamo")
+        read_s = time.perf_counter() - t0
+        after = counters(await asyncio.to_thread(_fleet_stage, http_port))
+        if before == after:
+            break
+    if read is None:
+        raise AssertionError("no fresh region record: the observers' read "
+                             "fell back to the flat scrape")
+    got = counters({k: v for k, v in samples(render_states(states)).items()
+                    if 'component="backend"' in k})
+    if before != after or got != after:
+        raise AssertionError(f"region counters {got} against the flat "
+                             f"scrape {before} / {after}")
+    return dict(aggregators=read.meta["aggregators"],
+                workers=read.meta["workers"], read_s=read_s,
+                age_max_s=read.meta["age_max_s"],
+                merge_p50_s=read.meta["merge_p50_s"],
+                counters_equal_flat=True,
+                backend_workers=sorted(f"{w:x}" for w in
+                                       read.ids.get("backend", ())))
+
+
+async def cabi_check(backend, store_port: int, index, page: int) -> dict:
+    """One ``stored`` and one ``removed`` event through the C-ABI publisher
+    under a throwaway worker id, read back from the live ``kv_events``
+    subject: dict for dict the Python protocol's events, and applied by
+    the smoke's own index (the router's view) like a worker's."""
+    import asyncio
+
+    from dynamo_tpu_torch.llm.kv_router.native import NativeKvPublisher
+    from dynamo_tpu_torch.llm.kv_router.protocols import (KV_EVENT_SUBJECT,
+                                                          KvCacheEvent,
+                                                          KvRemovedEvent,
+                                                          KvStoredEvent,
+                                                          RouterEvent,
+                                                          StoredBlock)
+    from dynamo_tpu_torch.llm.tokens import compute_seq_hashes
+
+    got: list = []
+    arrived: list = []
+    both = asyncio.Event()
+
+    async def on_event(payload):
+        if payload.get("worker_id") == CABI_WORKER:
+            got.append(payload)
+            arrived.append(time.perf_counter())
+            if len(got) == 2:
+                both.set()
+
+    await backend.subscribe(KV_EVENT_SUBJECT, on_event)
+    tokens = list(range(page))
+    (h,) = compute_seq_hashes(tokens, page)
+    pub = await asyncio.to_thread(NativeKvPublisher, "127.0.0.1",
+                                  store_port, "dynamo", "backend",
+                                  CABI_WORKER)
+    try:
+        t0 = time.perf_counter()
+        pub.publish_stored([(h, 0xABC)])
+        await asyncio.sleep(0.2)
+        held = index.find_matches_for_tokens(tokens).scores.get(CABI_WORKER)
+        pub.publish_removed([h])
+        await asyncio.wait_for(both.wait(), 10)
+        read_ms = 1e3 * (arrived[0] - t0)
+    finally:
+        pub.shutdown()
+    want = [RouterEvent(CABI_WORKER, KvCacheEvent(1, stored=KvStoredEvent(
+                [StoredBlock(h, 0xABC)]))).to_dict(),
+            RouterEvent(CABI_WORKER, KvCacheEvent(2, removed=KvRemovedEvent(
+                [h]))).to_dict()]
+    left = index.find_matches_for_tokens(tokens).scores.get(CABI_WORKER)
+    if got != want or held != 1 or left:
+        raise AssertionError(f"C-ABI events {got}, want {want}; indexed "
+                             f"{held} then {left}")
+    return dict(events=len(got), read_back_ms=read_ms,
+                equal_python_protocol=True)
 
 
 async def _fleet_drain(fleet: Fleet, store_port: int, http_port: int,
@@ -2586,22 +2912,34 @@ async def _fleet_drain(fleet: Fleet, store_port: int, http_port: int,
 def fleet_phase(torch, smi: str, serve_lone: dict) -> dict:
     """Two Llama-3-8B torch workers behind the port's store, KV-aware
     router and discovery frontend, each a process of its own on this
-    card: routing by the overlap of the workers' own KV events, routing
-    by load, one trace across processes, the workers' stage dumps
-    (dispatches and kernel launches), the codec's cost, and a SIGTERM
-    drain."""
+    card, on the native data plane, over a store split in two C++
+    dynstores (``DYN_STORE_SHARDS``: the telemetry families on the second)
+    with a regional aggregator beside them: routing by the overlap of the
+    workers' own KV events, routing by load, one trace across processes,
+    the workers' stage dumps (dispatches and kernel launches) through the
+    sharded client and from a region record, KV events through the C ABI,
+    the codec's and both data planes' cost, and a SIGTERM drain."""
     import asyncio
     import re
 
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     fleet = Fleet()
+    saved = os.environ.get("DYN_STORE_SHARDS")
     try:
-        fleet.start("store", "dynamo_tpu_torch.runtime.store_server",
-                    "--host", "127.0.0.1", "--port", "0")
-        line = fleet.wait_line("store", r"listening on \S+:\d+", 60)
-        store_port = int(line.rsplit(":", 1)[1])
+        ports = []
+        for name in ("store", "store_telemetry"):
+            fleet.start(name, "dynamo_tpu_torch.runtime.store_server",
+                        "--host", "127.0.0.1", "--port", "0")
+            line = fleet.wait_line(name, r"listening on \S+:\d+", 60)
+            ports.append(int(line.rsplit(":", 1)[1]))
+        store_port = ports[0]
         store = f"127.0.0.1:{store_port}"
+        # every process of the fleet, this one too, routes the telemetry
+        # families (metrics, stage dumps, regions) to the second store
+        shards = f"telemetry=127.0.0.1:{ports[1]}"
+        fleet.env["DYN_STORE_SHARDS"] = os.environ["DYN_STORE_SHARDS"] = \
+            shards
         t0 = time.perf_counter()
         for name in ("worker0", "worker1"):
             fleet.start(name, "dynamo_tpu_torch.cli.worker", "--engine",
@@ -2619,6 +2957,9 @@ def fleet_phase(torch, smi: str, serve_lone: dict) -> dict:
         fleet.start("router", "dynamo_tpu_torch.cli.router", "--store",
                     store, "--block-size", str(ENGINE_ARGS["page_size"]))
         fleet.wait_line("router", r"kv router serving", 120)
+        fleet.start("aggregator", "dynamo_tpu_torch.cli.aggregator",
+                    "--store", store, "--interval", str(FLEET_REGION_S))
+        fleet.wait_line("aggregator", r"regional aggregator serving", 120)
         fleet.start("http", "dynamo_tpu_torch.cli.http", "--store", store,
                     "--host", "127.0.0.1", "--port", "0",
                     "--router-component", "router", "--namespace",
@@ -2630,6 +2971,7 @@ def fleet_phase(torch, smi: str, serve_lone: dict) -> dict:
             if time.monotonic() - t0 > 60:
                 raise AssertionError("frontend never discovered the model")
             time.sleep(0.1)
+        planes = fleet.planes(serving=("worker0", "worker1", "router"))
         row = asyncio.run(_fleet_async(fleet, store_port, http_port, smi))
         # the same greedy requests on the same seeded weights: the fleet
         # must stream what the in-process server streamed, through the
@@ -2645,7 +2987,8 @@ def fleet_phase(torch, smi: str, serve_lone: dict) -> dict:
         row["drain"] = asyncio.run(_fleet_drain(
             fleet, store_port, http_port, victim, int(row["holder"], 16)))
         row.update(phase="fleet", preset=PRESET, engine=ENGINE_ARGS,
-                   workers_start_s=workers_start_s,
+                   workers_start_s=workers_start_s, planes=planes,
+                   store_shards=shards,
                    serve_lone_stream=serve_lone,
                    fleet_added_ttft_ms=1e3 * (
                        row["fleet_lone_stream"]["ttft_s"]
@@ -2663,6 +3006,10 @@ def fleet_phase(torch, smi: str, serve_lone: dict) -> dict:
         return row
     finally:
         fleet.stop()
+        if saved is None:
+            os.environ.pop("DYN_STORE_SHARDS", None)
+        else:
+            os.environ["DYN_STORE_SHARDS"] = saved
 
 
 # ---------------------------------------------------------------------------
@@ -2910,7 +3257,8 @@ async def _disagg_async(fleet: Fleet, store_port: int, http_port: int,
                        span_ms=span_ms),
             peak_mem_bytes={"decode": peak.get(dwid, {}).get(""),
                             "prefill": peak.get(pwid, {}).get("")},
-            plane_probe=dict(bytes=kv_bytes, parts=2 * L, seconds=plane_s,
+            plane_probe=dict(plane=drt.dataplane, bytes=kv_bytes,
+                             parts=2 * L, seconds=plane_s,
                              gb_s=kv_bytes / plane_s / 1e9),
             flash_launches=pp["flash"] + bp["flash"],
             paged_launches=dp["paged"] + bd["paged"])
@@ -2967,12 +3315,13 @@ def disagg_phase(torch, smi: str, serve: dict) -> dict:
             if time.monotonic() - t0 > 60:
                 raise AssertionError("frontend never discovered the model")
             time.sleep(0.1)
+        planes = fleet.planes(serving=("decode",))
         row = asyncio.run(_disagg_async(fleet, store_port, http_port,
                                         serve["reuse"]["cold_tokens"]))
         local_ttft = serve["reuse"]["ttft_s"]["cold"]
         xfer = row["kv_transfer"]
         row.update(phase="disagg", preset=PRESET, engine=ENGINE_ARGS,
-                   workers_start_s=workers_start_s,
+                   workers_start_s=workers_start_s, planes=planes,
                    remote_ttft_s=row["remote"]["ttft_s"],
                    local_ttft_s=local_ttft,
                    remote_added_ttft_ms=1e3 * (row["remote"]["ttft_s"]
@@ -3301,6 +3650,10 @@ async def _cluster_async(fleet: Fleet, store_port: int, http_port: int,
         peak = _per_worker(sc6, "dyn_device_memory_peak_bytes")
         launches = {w: _delta(_counts(sc0, w), _counts(sc6, w))
                     for w in (ha, hb)}
+
+        # 5. failover: the workers are expendable now
+        failover = await _failover(fleet, drt, workers, http_port, ids,
+                                   m.vocab_size)
         return dict(
             donor=ha, receiver=hb, prompt_tokens=REUSE_PROMPT,
             blocks=n_blocks, step1=step1,
@@ -3311,14 +3664,281 @@ async def _cluster_async(fleet: Fleet, store_port: int, http_port: int,
             a_mirrors_bitwise_equal_cold_blocks=mirrors_equal,
             routed=routed, staged_on_b=staged, writethrough=wt,
             peak_mem_bytes={w: peak.get(w, {}).get("") for w in (ha, hb)},
-            launches=launches,
-            flash_launches=sum(v["flash"] for v in launches.values()),
-            paged_launches=sum(v["paged"] for v in launches.values()))
+            launches=launches, failover=failover,
+            flash_launches=sum(v["flash"] for v in launches.values())
+            + failover["survivor_launches"]["flash"],
+            paged_launches=sum(v["paged"] for v in launches.values())
+            + failover["survivor_launches"]["paged"])
     finally:
         await drt.close()
 
 
-def cluster_phase(torch, smi: str, serve: dict) -> dict:
+FAILOVER_SEED, FAILOVER_PROMPT, FAILOVER_TOKENS = 1152, 1024, 128
+FAILOVER_KILL_AT = 16           # tokens the client holds before the kill
+# the most a token of the unkilled or the killed stream may sit below the
+# top logit of a teacher-forced prefill over prompt + stream (absolute).
+# A token another bf16 path chose sits at most twice that path's largest
+# logit difference below the top: the kvpage phase reads up to 0.664
+# between two bf16 paths of this model, so 1.33. On an H100 the sound
+# streams read 0.1875 (unkilled) and 0.375 (killed), both planted wrong
+# resume prefixes 6.34-6.42.
+FAILOVER_MARGIN_LIMIT = 1.5
+SURVIVOR_COUNTERS = ("dyn_kv_cluster_fallbacks_total",
+                     "dyn_kv_cluster_fetches_total",
+                     "dyn_resume_kv_reattach_blocks_total")
+
+
+async def worker_counters(store, wid: int, names) -> dict:
+    """Label-less counters of one worker's own stage dump, read from the
+    store (the frontend's ``/metrics`` sums them over the workers, and a
+    dead worker's dump leaves with its lease)."""
+    from dynamo_tpu_torch.llm.metrics_aggregator import (merge_stage_items,
+                                                         stage_base_key,
+                                                         stage_slice_of,
+                                                         stage_slice_prefix)
+
+    items = [(k, v) for k, v in await store.get_prefix(
+        stage_slice_prefix("dynamo", stage_slice_of(wid)))
+        if stage_base_key(k).endswith(f"/backend/{wid:x}")]
+    ((_doc, metrics),) = merge_stage_items(items).values()
+    return {n: sum((metrics.get(n) or {}).get("series", {}).values())
+            for n in names}
+
+
+async def _failover(fleet: Fleet, drt, workers, http_port: int, ids: dict,
+                    vocab: int) -> dict:
+    """Mid-stream failover through the frontend's own engine class
+    (``RemoteCoreEngine``, which wraps ``llm/resume.py``) in this process,
+    so the stream's token ids are exact (a random-weight model's ids past
+    the byte range detokenize to empty text). A seeded greedy request is
+    served cold, then again (warm, the unkilled reference), then a third
+    time: its worker is SIGKILLed once the stream holds FAILOVER_KILL_AT
+    tokens. The stream must finish with every token, its tokens before
+    the break those of the unkilled run, one ``resumed`` count, the dead
+    worker excluded, and the survivor's launches covering the rebuild
+    (flash, one a layer a prefill chunk) and the rest of the decode
+    (paged)."""
+    import asyncio
+    import signal
+
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       FinishReason,
+                                                       StopConditions)
+    from dynamo_tpu_torch.llm.remote import RemoteCoreEngine
+    from dynamo_tpu_torch.models.llama import preset
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.utils.prometheus import stage_metrics
+
+    Lk = preset(PRESET).num_layers * (DEVICE == "cuda")
+    router = await drt.namespace("dynamo").component("router") \
+        .endpoint("route").client().start()
+    await router.wait_for_instances(1, timeout=60)
+    engine = RemoteCoreEngine(workers, router, model_name=PRESET)
+    prompt = np.random.default_rng(FAILOVER_SEED).integers(
+        0, vocab, FAILOVER_PROMPT).tolist()
+    names = {w: n for n, w in ids.items()}
+
+    async def decision():
+        st, raw = await asyncio.to_thread(http_get, http_port,
+                                          "/v1/router/decisions")
+        last = json.loads(raw)["decisions"][-1]
+        decisions.append(last)
+        return last["worker_id"]
+
+    decisions: list = []
+
+    async def stream(kill=None):
+        bi = BackendInput(token_ids=list(prompt), stop=StopConditions(
+            max_tokens=FAILOVER_TOKENS, ignore_eos=True))
+        got, hits, finish, killed_at = [], [], None, None
+        t0 = time.monotonic()
+        ttft = pause = gap = last = None
+        async for out in engine.generate(bi, Context()):
+            now = time.monotonic()
+            if out.finish_reason == FinishReason.ERROR:
+                raise AssertionError(f"failover stream failed: {out.error}")
+            if out.kv_prefix_hit_tokens is not None:
+                # each attempt's first frame carries its prefix hit: a
+                # later one is the survivor's first token
+                hits.append((len(got), out.kv_prefix_hit_tokens))
+                if got and killed_at is not None:
+                    pause, gap = now - killed_at, now - last
+            if out.token_ids:
+                ttft = now - t0 if ttft is None else ttft
+                last = now
+            got += out.token_ids
+            finish = out.finish_reason or finish
+            if kill is not None and killed_at is None \
+                    and len(got) >= FAILOVER_KILL_AT:
+                kill()
+                killed_at = time.monotonic()
+        return dict(ids=got, hits=hits, ttft_s=ttft, pause_s=pause,
+                    gap_s=gap, finish=finish.value if finish else None,
+                    total_s=time.monotonic() - t0)
+
+    async def settled(wid):
+        # the worker idle in its published metrics, and two router
+        # scrapes since: overlap, not a stale load, places the next run
+        t0 = time.monotonic()
+        while json.loads((await drt.store.get(
+                f"metrics/dynamo/backend/{wid:x}")).decode())[
+                "request_active_slots"] > 0:
+            if time.monotonic() - t0 > 30:
+                raise AssertionError(f"worker {wid:x} never went idle")
+            await asyncio.sleep(0.05)
+        await asyncio.sleep(1.2)
+
+    cold = await stream()
+    holder = await decision()
+    await settled(holder)
+    unkilled = await stream()
+    if await decision() != holder:
+        raise AssertionError(f"the unkilled run left the cold run's "
+                             f"worker: {decisions}")
+    (survivor,) = set(ids.values()) - {holder}
+    hs, hh = f"{survivor:x}", f"{holder:x}"
+    await settled(holder)
+    sc0 = await asyncio.to_thread(scrape, http_port)
+    own0 = await worker_counters(drt.store, survivor, SURVIVOR_COUNTERS)
+    resumed0 = stage_metrics().stream_resumes.get("resumed")
+
+    def resume_latency_sum():
+        return _total(samples("\n".join(
+            stage_metrics().resume_latency.render())),
+            "dyn_resume_latency_seconds_sum")
+
+    latency0 = resume_latency_sum()
+    victim = fleet.procs[names[holder]][0]
+    killed = await stream(kill=lambda: victim.send_signal(signal.SIGKILL))
+    if await decision() != survivor:
+        raise AssertionError(f"the resume was not routed to the survivor: "
+                             f"{decisions}")
+    await asyncio.sleep(4 * FLEET_METRICS_S)
+    sc1 = await asyncio.to_thread(scrape, http_port)
+    resumed = stage_metrics().stream_resumes.get("resumed") - resumed0
+    # the resume layer's own reading: from the break it saw to the
+    # survivor's first token (the pause less the break's detection)
+    resume_s = resume_latency_sum() - latency0
+    # the resumed attempt's first frame: where it re-entered, and the
+    # prefix the survivor held for it
+    (k, hit_s), = [h for h in killed["hits"] if h[0] > 0] or [(None, None)]
+    got = killed["ids"]
+    s = _delta(_counts(sc0, hs), _counts(sc1, hs))
+    chunk = ENGINE_ARGS["prefill_chunk"]
+
+    own1 = await worker_counters(drt.store, survivor, SURVIVOR_COUNTERS)
+    fallbacks, fetches, reattached = (own1[n] - own0[n]
+                                      for n in SURVIVOR_COUNTERS)
+    row = dict(
+        holder=hh, survivor=hs, prompt_tokens=FAILOVER_PROMPT,
+        max_tokens=FAILOVER_TOKENS, kill_at=FAILOVER_KILL_AT,
+        victim_rc=victim.wait(timeout=30), emitted_before_break=k,
+        finish=killed["finish"], tokens=len(got), resumed=resumed,
+        pause_s=killed["pause_s"], gap_s=killed["gap_s"],
+        resume_latency_s=resume_s,
+        cold_ttft_s=cold["ttft_s"],
+        unkilled_ttft_s=unkilled["ttft_s"], killed_total_s=killed["total_s"],
+        unkilled_equals_cold=unkilled["ids"] == cold["ids"],
+        unkilled_total_s=unkilled["total_s"],
+        survivor_prefix_hit=hit_s, survivor_launches=s,
+        cluster_fetches=fetches, cluster_fallbacks=fallbacks,
+        resume_reattached_blocks=reattached,
+        rebuild=("failed cluster fetch, then local prefill" if fallbacks
+                 else "its own tier" if hit_s else "local prefill"),
+        prefix_equals_unkilled=k is not None
+        and got[:k] == unkilled["ids"][:k],
+        equals_unkilled=got == unkilled["ids"],
+        first_divergence=next((i for i, (a, b) in enumerate(
+            zip(got, unkilled["ids"])) if a != b), None),
+        prompt=prompt, ids=got, unkilled_ids=unkilled["ids"])
+    if not (row["finish"] == "length" and len(got) == FAILOVER_TOKENS
+            and resumed == 1 and k is not None
+            and k >= FAILOVER_KILL_AT and row["prefix_equals_unkilled"]
+            and row["victim_rc"] == -signal.SIGKILL
+            and s["prefill"] == -(-(FAILOVER_PROMPT + k - hit_s) // chunk)
+            and s["flash"] == Lk * s["prefill"]
+            and s["decode_step"] >= FAILOVER_TOKENS - k - 1
+            and s["paged"] == Lk * s["decode_step"]):
+        raise AssertionError(f"failover: "
+                             f"{ {n: v for n, v in row.items() if 'ids' not in n and n != 'prompt'} }")
+    return row
+
+
+def failover_reference(torch, params, fo: dict) -> dict:
+    """The resumed stream against an in-process engine on the same
+    weights and engine arguments. The survivor's part must equal, token
+    for token, a cold greedy run of prompt + the tokens emitted before
+    the break (the rebuild the survivor made). Both whole streams, the
+    unkilled and the killed, are then held to one teacher-forced prefill
+    of prompt + stream (:func:`_stream_logits`, the flash path): every
+    token must sit within FAILOVER_MARGIN_LIMIT of that step's top logit.
+    The two streams may differ where the unkilled run decoded what the
+    survivor prefilled: bf16 orders near-tied logits of random weights
+    differently on the two paths. Two planted faults, each the survivor's
+    greedy continuation from a wrong resume prefix (the last emitted token
+    dropped; the emitted tokens ignored), spliced after the emitted
+    tokens, must each break the margin."""
+    from dynamo_tpu_torch.engine.engine import (TorchEngine,
+                                                TorchEngineConfig)
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+
+    k, got, prompt = fo["emitted_before_break"], fo["ids"], fo["prompt"]
+    eng = TorchEngine(TorchEngineConfig.from_card(
+        ModelDeploymentCard.synthetic(PRESET),
+        **dict(ENGINE_ARGS, max_batch=CLUSTER_MAX_BATCH), device=DEVICE),
+        params)
+
+    def greedy(prefix, n):
+        return spec_streams(eng, {"r": BackendInput(
+            token_ids=list(prefix), stop=StopConditions(
+                max_tokens=n, ignore_eos=True))})["r"]["tokens"]
+
+    def margins(stream):
+        # per step: the teacher-forced top logit less the chosen token's
+        lg = _stream_logits(torch, eng.core, prompt, stream)
+        idx = torch.arange(len(stream), device=lg.device)
+        chosen = lg[idx, torch.tensor(stream, device=lg.device)]
+        return (lg.max(-1).values - chosen).tolist()
+
+    try:
+        row = dict(survivor_equals_cold_rebuild=got[k:] == greedy(
+            prompt + got[:k], FAILOVER_TOKENS - k))
+        n = fo["first_divergence"]
+        if n is not None:
+            lg, _ = _prefix_logits(torch, eng.core,
+                                   prompt + fo["unkilled_ids"][:n], 1)
+            top = torch.topk(lg, 2).values.tolist()
+            row.update(diverging_tokens=[got[n], fo["unkilled_ids"][n]],
+                       top2_gap=top[0] - top[1],
+                       rel_gap=(top[0] - top[1]) / abs(top[0]))
+        sound = {"unkilled": margins(fo["unkilled_ids"]),
+                 "killed": margins(got)}
+        faults = {name: margins(got[:k] + greedy(prefix,
+                                                 FAILOVER_TOKENS - k))
+                  for name, prefix in (
+                      ("last_emitted_dropped", prompt + got[:k - 1]),
+                      ("emitted_ignored", prompt))}
+    finally:
+        eng.shutdown()
+    worst = {name: max(m) for name, m in {**sound, **faults}.items()}
+    row.update(margin_limit=FAILOVER_MARGIN_LIMIT, worst_margin=worst,
+               steps_over_limit={name: sum(x > FAILOVER_MARGIN_LIMIT
+                                           for x in m) for name, m in
+                                 {**sound, **faults}.items()})
+    emit({"phase": "cluster", "step": "failover_margins", **row,
+          "margins": {name: m for name, m in {**sound, **faults}.items()}})
+    if not (row["survivor_equals_cold_rebuild"]
+            and all(worst[name] <= FAILOVER_MARGIN_LIMIT for name in sound)
+            and all(worst[name] > FAILOVER_MARGIN_LIMIT for name in faults)):
+        raise AssertionError(f"failover stream against the reference: {row}")
+    return row
+
+
+def cluster_phase(torch, smi: str, serve: dict, params) -> dict:
     """Cluster-wide KV sharing on this card, each piece a process of the
     port's own with ``DYN_KV_CLUSTER=1`` and the default lease: the store,
     two Llama-3-8B workers (``max_batch`` 1, so that two requests saturate
@@ -3372,11 +3992,18 @@ def cluster_phase(torch, smi: str, serve: dict) -> dict:
             if time.monotonic() - t0 > 60:
                 raise AssertionError("frontend never discovered the model")
             time.sleep(0.1)
+        planes = fleet.planes(serving=("A", "B", "router"))
         row = asyncio.run(_cluster_async(fleet, store_port, http_port, ids,
                                          serve["reuse"]))
+        fleet.stop()        # the card's memory for the reference engine
+        fo = row["failover"]
+        fo.update(failover_reference(torch, params, fo))
+        for key in ("prompt", "ids", "unkilled_ids"):
+            fo.pop(key)
+        emit({"phase": "cluster", "step": "failover", **fo})
         fetch = row["step1"]["fetch"]
         row.update(phase="cluster", preset=PRESET, engine=engine_args,
-                   workers_start_s=workers_start_s,
+                   workers_start_s=workers_start_s, planes=planes,
                    fetch_s=fetch["seconds"], fetch_gb_s=fetch["gb_s"],
                    cluster_warm_minus_cold_ttft_ms=1e3 * (
                        row["ttft_s"]["cluster_warm"]
@@ -4815,9 +5442,24 @@ def main() -> int:
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.native import _build as native_build
+
+    def timed_native():
+        t = time.perf_counter()
+        built = native_build.build_all()
+        return {k: os.path.basename(v) for k, v in built.items()}, \
+            time.perf_counter() - t
+
+    # the host helpers (g++, one process each) build beside the kernels
     t0 = time.perf_counter()
-    _build.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(timed_native)
+        _build.build_all()
+        native, native_s = native.result()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "native": native, "native_seconds": native_s,
           "ptxas": {k: _build.ptxas_instances(v)
                     for k, v in _build.build_log.items()}})
 
@@ -4867,7 +5509,7 @@ def main() -> int:
     ckpt = checkpoint_phase(torch, att, smi)
     fleet = fleet_phase(torch, smi, serve["lone_stream"])
     disagg = disagg_phase(torch, smi, serve)
-    cluster = cluster_phase(torch, smi, serve)
+    cluster = cluster_phase(torch, smi, serve, params)
     spec = spec_phase(torch, att, smi, params)
     kvpage = kvpage_phase(torch, att, smi, params)
     del params      # the HTTP engine draws the same weights from the seed

@@ -68,6 +68,12 @@ def stage_slice_of(worker_id: int) -> int:
     return worker_id % stage_slices()
 
 
+def stage_slice_prefix(namespace: str, slice_idx: int) -> str:
+    """Every stage dump of one slice — the aggregator's per-tick read
+    unit."""
+    return f"{STAGE_PREFIX}{namespace}/s{slice_idx:02x}/"
+
+
 def stage_key(namespace: str, component: str, worker_id: int) -> str:
     """Store key a worker refreshes its per-stage latency histogram dump
     under (utils.prometheus.StageMetrics state; lease-bound like above).
@@ -317,12 +323,34 @@ async def fetch_worker_metrics(store, namespace: str, component: str
     return workers
 
 
+async def _store_dump_items(store) -> List[tuple]:
+    """The store server(s)' self-telemetry items. On a sharded store
+    every shard publishes its own dump under the SAME key in its own
+    KV — read each shard's copy and suffix the key with the shard name
+    so the per-publisher grouping in :func:`merge_stage_items` keeps
+    them distinct (a routed read would surface only the shard that owns
+    the ``metrics-store`` family and silently hide the rest)."""
+    if hasattr(store, "get_prefix_on"):
+        items: List[tuple] = []
+        for i, name in enumerate(store.shard_names):
+            try:
+                for key, value in await store.get_prefix_on(
+                        i, STORE_STAGE_PREFIX):
+                    items.append((f"{key}#{name}", value))
+            except Exception:  # noqa: BLE001 - a dead shard's dump is
+                # simply absent; its families already raise typed errors
+                log.debug("store dump unreadable on shard %s", name)
+        return items
+    return list(await store.get_prefix(STORE_STAGE_PREFIX))
+
+
 async def fetch_stage_states_ex(store, namespace: Optional[str] = None,
                                 exclude_worker: Optional[int] = None
                                 ) -> tuple:
-    """``(states, region_read)``: the stage states plus the region record
-    that served them — always None here: the port reads the flat path
-    only (see below); the pair keeps the JAX package's return shape.
+    """``(states, region_read)``: the stage states plus the
+    :class:`~dynamo_tpu_torch.runtime.scale.regions.RegionStates` that
+    served them (None on the flat path) — the JAX package's dyntop renders
+    the region metadata, everyone else uses :func:`fetch_stage_states`.
 
     Delta-aware: a worker's ``.../delta`` batch (see
     :class:`StagePublisher`) is overlaid onto its full snapshot when the
@@ -334,15 +362,27 @@ async def fetch_stage_states_ex(store, namespace: Optional[str] = None,
     ``exclude_worker`` skips one publisher's dump — a frontend that both
     publishes and scrapes must not merge its own counters twice.
 
-    The JAX package reads pre-merged region records instead when
-    regional aggregators are live (``runtime/scale/regions.py``); that
-    view is not ported yet (ROADMAP Queue 1 item 12), so the port always
-    takes the flat scrape, which is the JAX package's own path without
-    regional aggregators."""
+    **Region-aware**: when regional aggregators are live for the
+    namespace (runtime/scale/regions.py) the states come from their R
+    pre-merged region records instead of the N per-worker dumps — same
+    ``(component, state_dump)`` shape, O(regions) read+merge cost. The
+    flat scrape remains the fallback (no aggregator, stale records) and
+    the only path for ``exclude_worker`` reads: a region record is
+    already merged, one publisher cannot be subtracted from it."""
+    if namespace and exclude_worker is None:
+        from ..runtime.scale.regions import fetch_region_states
+
+        regional = await fetch_region_states(store, namespace)
+        if regional is not None:
+            states = list(regional.states)
+            for _key, (doc, metrics) in merge_stage_items(
+                    await _store_dump_items(store)).items():
+                states.append((doc.get("component") or "store", metrics))
+            return states, regional
     prefix = STAGE_PREFIX + (f"{namespace}/" if namespace else "")
     items = list(await store.get_prefix(prefix))
     if namespace:
-        items.extend(await store.get_prefix(STORE_STAGE_PREFIX))
+        items.extend(await _store_dump_items(store))
     if exclude_worker is not None:
         items = [(k, v) for k, v in items
                  if stage_base_key(k).rsplit("/", 1)[-1]

@@ -68,11 +68,18 @@ class RemoteCoreEngine(AsyncEngine[BackendInput, EngineOutput]):
 
     async def generate(self, request: BackendInput,
                        context: Context) -> AsyncIterator[EngineOutput]:
-        # The JAX package wraps _dispatch_once in the mid-stream resume
-        # layer (llm/resume.py, on by default there: DYN_RESUME_MAX=2). That
-        # layer is not ported yet (ROADMAP Queue 1 item 12): every request
-        # takes one attempt, as the JAX package does with DYN_RESUME_MAX=0,
-        # and a broken stream surfaces as its typed 503.
+        from . import resume
+
+        if resume.max_attempts() > 0:
+            # mid-stream failover: a transport break / inter-frame stall
+            # re-enters _dispatch_once with the dead instance excluded and
+            # the emitted tokens folded into the resume prefix — the
+            # detokenizer above this engine sees one continuous stream
+            async for item in resume.run(self._dispatch_once, request,
+                                         context,
+                                         breaker=self.worker_client.breaker):
+                yield item
+            return
         async for item in self._dispatch_once(request, context, set(), 0,
                                               None):
             yield item

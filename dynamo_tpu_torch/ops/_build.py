@@ -4,21 +4,24 @@ Each ``csrc/*.cu`` file compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface under ``build/dynamo_tpu_torch/`` at
 the repository root. A library's file name carries a hash of its source, the
 shared headers and the flags, so an edited kernel rebuilds and an unchanged
-one is reused. All sources compile in parallel, one ``nvcc`` process each.
-Nothing here runs at import time: the first kernel launch builds.
+one is reused, and a library builds under a lock that holds across
+processes (:mod:`dynamo_tpu_torch.utils.buildcache`). All sources compile in
+parallel, one ``nvcc`` process each. Nothing here runs at import time: the
+first kernel launch builds.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import re
 import shutil
-import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Sequence
+
+from ..utils.buildcache import artifact, build_once
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dynamo_tpu_torch"
@@ -44,11 +47,9 @@ def _nvcc() -> str:
 
 
 def _library_path(src: Path, headers: Sequence[Path]) -> Path:
-    h = hashlib.sha256(src.read_bytes())
-    for hdr in headers:
-        h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+    return artifact(BUILD_DIR, f"{src.stem}.so",
+                    [src.read_bytes(), *(h.read_bytes() for h in headers),
+                     " ".join(NVCC_FLAGS).encode()])
 
 
 def build_all() -> Dict[str, ctypes.CDLL]:
@@ -59,36 +60,24 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             return _libs
         headers = sorted(CSRC.glob("*.cuh"))
         sources = sorted(CSRC.glob("*.cu"))
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        pending: List[tuple] = []
-        try:
-            for src in sources:
-                lib = _library_path(src, headers)
-                if lib.exists():
-                    continue
-                tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-                proc = subprocess.Popen(
-                    [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                     str(src)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True)
-                pending.append((src, lib, tmp, proc))
-            failures = []
-            for src, lib, tmp, proc in pending:
-                out, _ = proc.communicate()
+
+        def one(src: Path):
+            try:
+                out = build_once(
+                    _library_path(src, headers),
+                    lambda tmp: [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC),
+                                 "-o", str(tmp), str(src)],
+                    f"nvcc failed for {src.name}")
+            except RuntimeError as e:
+                return str(e)
+            if out is not None:
                 build_log[src.stem] = out
-                if proc.returncode != 0:
-                    failures.append(f"nvcc failed for {src.name}:\n{out}")
-                else:
-                    os.replace(tmp, lib)
-            if failures:
-                raise RuntimeError("\n".join(failures))
-        finally:
-            for _, _, tmp, proc in pending:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-                tmp.unlink(missing_ok=True)
+            return None
+
+        with ThreadPoolExecutor(max(1, len(sources))) as pool:
+            failures = [f for f in pool.map(one, sources) if f]
+        if failures:
+            raise RuntimeError("\n".join(failures))
         for src in sources:
             _libs[src.stem] = ctypes.CDLL(str(_library_path(src, headers)))
         return _libs

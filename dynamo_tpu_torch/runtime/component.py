@@ -33,7 +33,6 @@ from ..utils import faults
 from . import deadline as dl
 from .circuit_breaker import InstanceBreaker
 from .engine import AsyncEngine, Context, EngineError
-from .store_client import StoreClient
 from .wire import (CODE_KEY, CONTEXT_ID_KEY, CTYPE_KEY, ENDPOINT_KEY,
                    KIND_KEY, MESSAGE_KEY, PRIORITY_KEY, REASON_KEY,
                    RESUME_KEY, RETRY_AFTER_KEY, STAGE_KEY, STREAMING_KEY,
@@ -156,29 +155,7 @@ class EndpointInfo:
         return cls(**json.loads(b.decode()))
 
 
-def make_store_client(host: str, port: int) -> StoreClient:
-    """The store client of a runtime. ``DYN_STORE_SHARDS`` (the JAX
-    package's sharded client, ``runtime/scale/shards.py``) raises: the
-    port has one store until ``runtime/scale`` is ported, and a silent
-    single-store fallback would split the keyspace from its peers'."""
-    if os.environ.get("DYN_STORE_SHARDS", "").strip():
-        raise NotImplementedError(
-            "DYN_STORE_SHARDS: the sharded store client (runtime/scale) is "
-            "not ported to dynamo_tpu_torch yet (ROADMAP Queue 1 item 12)")
-    return StoreClient(host, port)
-
-
-def check_dataplane_mode(mode: str) -> None:
-    """``DYNAMO_TPU_DATAPLANE``: ``auto`` and ``python`` mean the asyncio
-    plane below; ``native`` (the JAX package's C++ epoll plane) raises
-    until it is ported. There is no quiet fallback."""
-    if mode not in ("auto", "python", "native"):
-        raise ValueError(f"DYNAMO_TPU_DATAPLANE={mode!r}")
-    if mode == "native":
-        raise NotImplementedError(
-            "DYNAMO_TPU_DATAPLANE=native: the native data plane is not "
-            "ported to dynamo_tpu_torch yet (ROADMAP Queue 1, the native "
-            "helpers after item 5); use auto or python")
+DATAPLANE_MODES = ("auto", "python", "native")
 
 
 class DistributedRuntime:
@@ -186,11 +163,18 @@ class DistributedRuntime:
 
     def __init__(self, store_host: str = "127.0.0.1", store_port: int = 4222,
                  advertise_host: Optional[str] = None):
+        # DYN_STORE_SHARDS set => a ShardedStoreClient routing each
+        # keyspace family to its owning dynstore; unset => the plain
+        # single-store client (identical behavior)
+        from .scale.shards import make_store_client
+
         self.store = make_store_client(store_host, store_port)
         self.lease: Optional[int] = None
         self.worker_id: int = 0
         self._advertise_host = advertise_host
         self._dp_server: Optional[asyncio.base_events.Server] = None
+        self._native_dp = None   # native (C++) data plane when enabled
+        self.dataplane: Optional[str] = None   # "native" | "python"
         self.dp_host: Optional[str] = None
         self.dp_port: Optional[int] = None
         self._handlers: Dict[str, Handler] = {}
@@ -266,6 +250,9 @@ class DistributedRuntime:
             except Exception:
                 pass
         self._conn_writers.clear()
+        if self._native_dp is not None:
+            self._native_dp.stop()
+            self._native_dp = None
         await self.store.close()
 
     def namespace(self, name: str) -> "Namespace":
@@ -275,13 +262,35 @@ class DistributedRuntime:
     # data plane (one TCP server per process, endpoints multiplexed by name)
     # ------------------------------------------------------------------
     async def _ensure_data_plane(self) -> None:
-        if self._dp_server is not None:
+        if self._dp_server is not None or self._native_dp is not None:
             return
-        check_dataplane_mode(os.environ.get("DYNAMO_TPU_DATAPLANE", "auto"))
-        self._dp_server = await asyncio.start_server(
-            self._serve_conn, "0.0.0.0", 0)
-        self.dp_port = self._dp_server.sockets[0].getsockname()[1]
+        # DYNAMO_TPU_DATAPLANE: the native C++ epoll plane is the deployed
+        # default; "python" forces the asyncio plane, "native" forces
+        # native (any failure raises), unset = auto (native when g++
+        # builds it, else asyncio, with the reason logged)
+        mode = os.environ.get("DYNAMO_TPU_DATAPLANE", "auto")
+        if mode not in DATAPLANE_MODES:
+            raise ValueError(f"DYNAMO_TPU_DATAPLANE={mode!r} "
+                             f"(expected auto|python|native)")
+        if mode in ("auto", "native"):
+            try:
+                from .native_dataplane import NativeDataPlane
+
+                self._native_dp = NativeDataPlane(self)
+                self.dp_port = self._native_dp.start("0.0.0.0", 0)
+            except Exception:
+                self._native_dp = None   # half-started plane must not
+                if mode == "native":     # block the asyncio fallback
+                    raise
+                log.info("native data plane unavailable; using asyncio",
+                         exc_info=True)
+        if self._native_dp is None:
+            self._dp_server = await asyncio.start_server(
+                self._serve_conn, "0.0.0.0", 0)
+            self.dp_port = self._dp_server.sockets[0].getsockname()[1]
+        self.dataplane = "python" if self._native_dp is None else "native"
         self.dp_host = self._advertise_host or _local_ip()
+        log.info("data plane: %s on port %d", self.dataplane, self.dp_port)
 
     async def _serve_conn(self, reader: asyncio.StreamReader,
                           writer: asyncio.StreamWriter) -> None:

@@ -287,6 +287,25 @@ PREFIXES: List[Tuple[str, KeyFamily]] = sorted(
     key=lambda p: -len(p[0]))
 
 
+
+def families_for_prefix(prefix: str) -> List[str]:
+    """Every family a ``get_prefix``/``watch_prefix`` over ``prefix``
+    could touch — the sharded store client's fan-out set (a scan may
+    span families: ``metrics_stage/`` covers both ``metrics-stage`` and
+    ``metrics-store``). Falls back to the placeholder-led patterns like
+    :func:`classify_key`; an unmatchable prefix returns ``["other"]``
+    (routed to the default shard), and the EMPTY prefix scans every
+    family."""
+    if prefix == "":
+        return [f.name for f in _ALL] + ["other"]
+    out = [fam.name for p, fam in PREFIXES
+           if p.startswith(prefix) or prefix.startswith(p)]
+    if "/components/" in prefix:
+        out.append("endpoints")
+    if not out:
+        out.append("other")
+    return out
+
 def classify_key(key: str) -> str:
     """Family name for a FULL key/queue name (the store's own per-op
     telemetry labels every ``dyn_store_op_seconds`` series with this).

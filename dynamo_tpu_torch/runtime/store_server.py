@@ -13,9 +13,13 @@ Single asyncio process, all state in memory owned by one task group — the
 discovery/config/event/queue planes of SURVEY §1/L0 collapsed into one
 deployable binary.
 
-The JAX package also ships a C++ server (native/dynstore.cpp) on the same
-wire protocol; the port has only this asyncio server so far, and
-``StoreServer`` raises under ``DYNAMO_TPU_STORE=native``.
+Two implementations share this wire protocol:
+- this Python server (the reference implementation and test fixture), and
+- the C++ server (``dynamo_tpu_torch/native/dynstore.cpp``, epoll event
+  loop), spawned by :class:`NativeStoreServer`.
+``StoreServer(...)`` builds the one ``DYNAMO_TPU_STORE`` names: ``native``
+the C++ server, ``auto`` (the default) and ``python`` this one. The CLI's
+``--impl auto`` prefers the C++ server where ``g++`` builds it.
 
 Ops (client -> server): {op, id, ...} -> reply {id, ok, ...}; pushed
 server -> client frames carry {push: "watch"|"msg"|"queue", ...}.
@@ -179,9 +183,8 @@ class _Conn:
             pass
 
 
-class StoreServer:
+class PyStoreServer:
     def __init__(self, host: str = "127.0.0.1", port: int = 0):
-        check_store_impl(os.environ.get("DYNAMO_TPU_STORE", "auto"))
         self.host, self.port = host, port
         self._kv: Dict[str, _KeyVal] = {}
         self._leases: Dict[int, _Lease] = {}
@@ -592,32 +595,71 @@ class StoreServer:
 
 
 # ----------------------------------------------------------------------
-# store implementation selection: the native (C++) dynstore of the JAX
-# package is not ported yet (ROADMAP Queue 1, item 5's native helpers)
+# native (C++) implementation: same protocol, spawned as a subprocess
 # ----------------------------------------------------------------------
 
 STORE_IMPLS = ("auto", "python", "native")
 
 
-def check_store_impl(impl: str) -> None:
-    """Raise unless ``impl`` (``DYNAMO_TPU_STORE`` / ``--impl``) names the
-    asyncio server. ``native`` is the C++ dynstore, which the port does not
-    have yet; a silent fallback would run a different store than asked."""
+def build_native() -> str:
+    """The path of the C++ dynstore binary, compiled first if needed
+    (``dynamo_tpu_torch/native/_build.py``). Raises ``RuntimeError`` with
+    the compiler's output when it cannot be built."""
+    from ..native._build import build
+
+    return str(build("dynstore"))
+
+
+class NativeStoreServer:
+    """Spawns the C++ dynstore — same ``start()/stop()/port`` surface as
+    the asyncio server so it drops into every fixture."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+        self.host, self.port = host, port
+        self._proc: Optional[asyncio.subprocess.Process] = None
+
+    async def start(self) -> int:
+        # build off-loop: the first build is a multi-second g++ run and must
+        # not stall live coroutines (lease keepalives use sub-second TTLs)
+        binary = await asyncio.to_thread(build_native)
+        self._proc = await asyncio.create_subprocess_exec(
+            binary, "--host", self.host, "--port", str(self.port),
+            stdout=asyncio.subprocess.PIPE)
+        line = await asyncio.wait_for(self._proc.stdout.readline(), 10.0)
+        text = line.decode().strip()  # "dynstore listening on H:P"
+        if "listening on" not in text:
+            raise RuntimeError(f"native dynstore failed to start: {text!r}")
+        self.port = int(text.rsplit(":", 1)[1])
+        return self.port
+
+    async def stop(self) -> None:
+        if self._proc and self._proc.returncode is None:
+            self._proc.terminate()
+            try:
+                await asyncio.wait_for(self._proc.wait(), 5.0)
+            except asyncio.TimeoutError:
+                self._proc.kill()
+                await self._proc.wait()
+
+
+def _check_impl(impl: str) -> str:
     if impl not in STORE_IMPLS:
         raise ValueError(f"DYNAMO_TPU_STORE={impl!r} "
                          f"(expected auto|python|native)")
-    if impl == "native":
-        raise NotImplementedError(
-            "DYNAMO_TPU_STORE=native: the native dynstore is not ported to "
-            "dynamo_tpu_torch yet (ROADMAP Queue 1, the native helpers "
-            "after item 5); use auto or python")
+    return impl
 
 
-PyStoreServer = StoreServer
+def StoreServer(host: str = "127.0.0.1", port: int = 0):
+    """The store server ``DYNAMO_TPU_STORE`` names, read at each call:
+    ``native`` = :class:`NativeStoreServer`, ``auto`` (the default) and
+    ``python`` = :class:`PyStoreServer`."""
+    impl = _check_impl(os.environ.get("DYNAMO_TPU_STORE", "auto"))
+    cls = NativeStoreServer if impl == "native" else PyStoreServer
+    return cls(host, port)
 
 
 async def main(host: str = "0.0.0.0", port: int = 4222) -> None:
-    srv = StoreServer(host, port)
+    srv = PyStoreServer(host, port)
     p = await srv.start()
     log.info("dynstore listening on %s:%s", host, p)
     print(f"dynstore listening on {host}:{p}", flush=True)
@@ -633,9 +675,26 @@ if __name__ == "__main__":
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=4222)
     ap.add_argument("--impl", choices=STORE_IMPLS,
-                    default=os.environ.get("DYNAMO_TPU_STORE", "auto"),
-                    help="auto and python = the asyncio server; native "
-                         "raises until the C++ dynstore is ported")
+                    # argparse validates choices only for CLI-supplied
+                    # values: a typo'd env var must not run the wrong store
+                    default=_check_impl(os.environ.get("DYNAMO_TPU_STORE",
+                                                       "auto")),
+                    help="auto = the C++ dynstore when g++ builds it, "
+                         "else the asyncio server; native = the C++ "
+                         "dynstore (a failed build is an error); python = "
+                         "the asyncio server")
     a = ap.parse_args()
-    check_store_impl(a.impl)
+    binary = None
+    if a.impl == "native":
+        binary = build_native()
+    elif a.impl == "auto":
+        try:
+            binary = build_native()
+        except RuntimeError:
+            log.info("native dynstore unavailable; using asyncio server",
+                     exc_info=True)
+    if binary is not None:
+        # the C++ server takes this process's place, so a signal to it
+        # reaches the store itself; it prints the same ready line
+        os.execv(binary, [binary, "--host", a.host, "--port", str(a.port)])
     asyncio.run(main(host=a.host, port=a.port))

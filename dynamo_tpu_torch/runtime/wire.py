@@ -53,13 +53,13 @@ DEADLINE_KEY = "deadline"
 
 # Optional span-context field on request control headers: [trace_id,
 # parent_span_id]. Rides next to ``context_id`` so one request's spans
-# stitch across processes (utils/tracing.py). Planes that drop unknown
-# control fields (the native C parser) degrade to trace_id == context_id.
+# stitch across processes (utils/tracing.py). Both of the port's planes
+# read it; a plane that drops it degrades to trace_id == context_id.
 TRACE_KEY = "trace"
 
 # Optional overload-priority field on request control headers
-# ("interactive" | "batch", utils/overload.py). Absent => interactive —
-# planes that drop unknown fields degrade to the protective default.
+# ("interactive" | "batch", utils/overload.py). Absent => interactive, the
+# protective default.
 PRIORITY_KEY = "priority"
 
 # Optional resume-attempt ordinal on request control headers (llm/resume.py

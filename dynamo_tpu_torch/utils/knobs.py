@@ -245,6 +245,12 @@ _ALL: List[Knob] = [
        '(0 disables)'),
     _k("DYN_CB_COOLDOWN", "float", "5.0", "runtime",
        'breaker OPEN hold before the half-open probe, seconds'),
+    _k("DYN_RESUME_MAX", "int", "2", "runtime",
+       "mid-stream failover budget: resume attempts per stream after a "
+       "transport break or stall (0 disables resumable streams)"),
+    _k("DYN_RESUME_STALL", "float", "30.0", "runtime",
+       "inter-frame stall budget, seconds; a stream silent this long is "
+       "treated as a break and resumed (0 disables stall detection)"),
     _k("DYN_STORE_RECONNECT", "bool", "1", "runtime",
        'store-client reconnect + session replay on connection loss'),
     _k("DYN_STORE_RECONNECT_ATTEMPTS", "int", "10", "runtime",
@@ -261,6 +267,12 @@ _ALL: List[Knob] = [
        'extra dynstore processes, e.g. '
        "'telemetry=10.0.0.2:4222;traces=10.0.0.3:4222' (unset = the "
        'single default store; unrouted families stay on it)'),
+    _k("DYN_REGION_INTERVAL", "float", "2.0", "store",
+       "seconds between a regional aggregator's pre-merge ticks (one "
+       "region record published per tick)"),
+    _k("DYN_REGION_STALE", "float", "3*interval", "store",
+       "age in seconds beyond which observers treat a region record as "
+       "dead and fall back to the flat per-worker scrape"),
     _k("DYN_FAULTS", "csv", "", "faults",
        'fault-injection table armed at process start, e.g. '
        "'store.connect:refuse,kv.push.part:drop:0.5'"),
@@ -365,6 +377,20 @@ _ALL: List[Knob] = [
        "echo-engine per-token pacing, milliseconds (0 = as fast as "
        "possible; test/bench fixture)"),
 ]
+
+# The regional aggregator daemon (cli/aggregator.py) resolves its flags
+# through the dynconfig layering as DYN_AGGREGATOR_<FLAG>.
+_AGGREGATOR = [
+    ("STORE", "str", "127.0.0.1:4222", "store host:port"),
+    ("NAMESPACE", "str", "dynamo", "namespace whose workers this "
+                                   "aggregator's region tree covers"),
+    ("INTERVAL", "float", "DYN_REGION_INTERVAL", "seconds between "
+                                                 "region merges"),
+]
+_ALL.extend(
+    _k(f"DYN_AGGREGATOR_{flag}", typ, default, "store", desc,
+       derived=True)
+    for flag, typ, default, desc in _AGGREGATOR)
 
 KNOBS: Dict[str, Knob] = {k.name: k for k in _ALL}
 if len(KNOBS) != len(_ALL):

@@ -357,8 +357,8 @@ def wire_context() -> Optional[List[Optional[str]]]:
 def extract_wire(v: Any, default_trace_id: Optional[str] = None
                  ) -> Optional[SpanContext]:
     """Span context from a wire field; falls back to a parentless context on
-    ``default_trace_id`` (the request id) so planes that drop the trace field
-    (the native C data plane) still stitch spans into the right trace."""
+    ``default_trace_id`` (the request id) so a request that carries no trace
+    field still stitches its spans into the right trace."""
     ctx = SpanContext.from_wire(v)
     if ctx is None and default_trace_id:
         ctx = SpanContext(default_trace_id, None)

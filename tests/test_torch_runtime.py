@@ -26,10 +26,14 @@ def _mod(pkg, name):
 
 class Store:
     """A store server of either package that can die (connections reset,
-    state lost) and come back empty on the same port."""
+    state lost) and come back empty on the same port. ``pkg+native`` is
+    that package's C++ dynstore, else its asyncio server."""
 
     def __init__(self, pkg):
-        self.cls = _mod(pkg, "runtime.store_server").PyStoreServer
+        pkg, _, impl = pkg.partition("+")
+        mod = _mod(pkg, "runtime.store_server")
+        self.cls = mod.NativeStoreServer if impl == "native" \
+            else mod.PyStoreServer
         self.server = None
         self.port = None
 
@@ -382,47 +386,76 @@ async def test_faults_fire_and_follow_the_store():
 
 
 def test_native_and_sharded_options_raise(monkeypatch):
+    """The store and store-client switches resolve as in the JAX package:
+    a bad value raises, ``native`` names the C++ dynstore, a shard map
+    makes the sharded client and a malformed one raises."""
     from dynamo_tpu_torch.runtime import component, store_server
+    from dynamo_tpu_torch.runtime.scale.shards import ShardedStoreClient
+    from dynamo_tpu_torch.runtime.store_client import StoreClient
 
-    monkeypatch.setenv("DYNAMO_TPU_STORE", "native")
-    with pytest.raises(NotImplementedError, match="native dynstore"):
-        store_server.StoreServer()
+    for impl, cls in (("native", store_server.NativeStoreServer),
+                      ("python", store_server.PyStoreServer),
+                      ("auto", store_server.PyStoreServer)):
+        monkeypatch.setenv("DYNAMO_TPU_STORE", impl)
+        assert type(store_server.StoreServer()) is cls
     monkeypatch.setenv("DYNAMO_TPU_STORE", "bogus")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="DYNAMO_TPU_STORE"):
         store_server.StoreServer()
     monkeypatch.delenv("DYNAMO_TPU_STORE")
     monkeypatch.setenv("DYN_STORE_SHARDS", "telemetry=127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="runtime/scale"):
+    sharded = component.DistributedRuntime().store
+    assert isinstance(sharded, ShardedStoreClient)
+    assert sharded.shard_names == ["s0", "s1"]
+    monkeypatch.setenv("DYN_STORE_SHARDS", "nonsense=127.0.0.1:1")
+    with pytest.raises(ValueError, match="unknown family"):
         component.DistributedRuntime()
     monkeypatch.delenv("DYN_STORE_SHARDS")
-    with pytest.raises(NotImplementedError, match="native data plane"):
-        component.check_dataplane_mode("native")
-    component.check_dataplane_mode("auto")
-    component.check_dataplane_mode("python")
-    with pytest.raises(ValueError):
-        component.check_dataplane_mode("other")
+    assert type(component.DistributedRuntime().store) is StoreClient
 
 
-async def test_native_dataplane_env_raises_at_serve(monkeypatch):
+async def test_native_dataplane_env_raises_at_serve(monkeypatch, tmp_path):
+    """``DYNAMO_TPU_DATAPLANE``: a bad mode raises; with a compiler that
+    fails, ``native`` raises with its output and ``auto`` serves on the
+    asyncio plane."""
+    import shutil
+
+    from dynamo_tpu_torch.native import _build
     from dynamo_tpu_torch.runtime.component import DistributedRuntime
 
-    monkeypatch.setenv("DYNAMO_TPU_DATAPLANE", "native")
+    for f in ("dataplane.cpp", "msgpack.hpp"):
+        shutil.copy(_build.SRC / f, tmp_path / f)
+    with open(tmp_path / "dataplane.cpp", "a") as f:
+        f.write("\nthis is not C++;\n")
+    monkeypatch.setattr(_build, "SRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
 
-    async def body():
-        store = Store("dynamo_tpu_torch")
-        port = await store.start()
+    async def serve(mode):
+        monkeypatch.setenv("DYNAMO_TPU_DATAPLANE", mode)
         drt = await DistributedRuntime(store_port=port).connect()
         try:
             async def h(request, ctx):
                 yield request
 
-            with pytest.raises(NotImplementedError):
-                await drt.namespace("n").component("c").endpoint("e") \
-                    .serve(h)
+            await drt.namespace("n").component("c").endpoint("e").serve(h)
+            return drt.dataplane
         finally:
             await drt.close()
+
+    async def body():
+        store = Store("dynamo_tpu_torch")
+        nonlocal port
+        port = await store.start()
+        try:
+            with pytest.raises(ValueError, match="DYNAMO_TPU_DATAPLANE"):
+                await serve("bogus")
+            with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+                await serve("native")
+            assert await serve("auto") == "python"
+            assert await serve("python") == "python"
+        finally:
             await store.stop()
 
+    port = None
     await run(body())
 
 
