@@ -226,6 +226,37 @@ with a traceback and prints no result:
                ``dyn_kvpage_*`` counters, page-in GB/s (assembly, upload),
                peak device memory.
 
+16. fleet_plane — the fleet control plane (runs right after kvpage): (b)
+               on an engine holding the served Llama-3-8B weights (32
+               layers, 16 GB), A -> B -> A by in-place hot swap from
+               page-locked host trees (A copied off the card, B drawn
+               from seed + 1 a layer group at a time): every leaf equals
+               A's copy after the return and the greedy reuse stream equals
+               the serve phase's cold one (a printed depth cut if the host
+               cannot hold two copies); (a) the checkpoint phase's 4-layer
+               directory A and a sibling B written from seed + 1: the typed
+               refusals (busy, geometry, a tree without ``lm_head``), then
+               A -> B one layer a copy: B's greedy tokens equal a cold
+               engine of B and differ from A's, no tensor moves
+               (``data_ptr``), no library is built under ``build/``, peak
+               device memory rises by at most one layer group, the kernels
+               launch once a layer a prefill dispatch and decode step; (d)
+               ``run_profile(engine="torch")`` on A at batches 1 and 4,
+               prompts of 128 and 512 tokens, a table the SLA policy
+               loads; (c) the native store, ``cli.planner --fleet
+               --connector local --platform cuda --total-chips 1``,
+               ``cli.router --fleet`` and the discovery frontend, A and B
+               registered in one swap group (B of higher priority): a
+               request for A parks until the planner spawns A's worker on
+               card 0 (``CUDA_VISIBLE_DEVICES=0``), a request for B parks
+               until the arbiter hands that card to B by a swap — one
+               spawn, the same pid, ``dyn_model_swaps_total{outcome=
+               "swap"}`` 1 and ``reload`` 0, the wake record, both
+               answers the cold engines' greedy tokens, B's launches under
+               its component; swap seconds and GB/s, wake seconds, parked
+               and scale-from-zero TTFT, ``fleet_status`` and
+               ``/v1/models`` before and after.
+
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2.
 """
@@ -5421,6 +5452,595 @@ def moe_phase(torch, att, smi: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the fleet control plane — hot swap, planner, arbiter, profile
+# ---------------------------------------------------------------------------
+FPLANE_DIR = os.path.join(ROOT, "build", "dynamo_tpu_torch", "fleet_plane")
+FPLANE_SEED = CKPT_SEED + 1         # model B: the checkpoint of A, seed + 1
+FPLANE_PROMPT, FPLANE_PROMPT_SEED, FPLANE_TOKENS = 700, 7070, 16
+FPLANE_ENGINE = dict(CKPT_ENGINE, host_cache_blocks=64)   # (a): demotions
+FPLANE_GROUP = "llama3-8b-4l"       # the two models' swap_group
+FPLANE_MODELS = ("ckpt-a", "ckpt-b")
+FPLANE_BOOT_WAIT_S = 300            # the frontend parks a request this long
+FPLANE_FULL_GROUP = 4               # (b)'s layers a copy (the default)
+FPLANE_HOST_HEADROOM = 16 << 30     # host bytes (b) leaves free
+FPLANE_PROFILE = dict(batches=(1, 4), seq_lens=(128, 512), gen_tokens=16)
+
+
+def _mem_available() -> int:
+    """The host's ``MemAvailable`` in bytes (0 when unreadable)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def _core_greedy(core, prompt, n: int, seq: str = "g") -> list:
+    """``n`` greedy tokens of ``prompt`` through an idle EngineCore."""
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       FinishReason,
+                                                       StopConditions)
+
+    core.submit(seq, BackendInput(token_ids=list(prompt),
+                                  stop=StopConditions(max_tokens=n,
+                                                      ignore_eos=True)))
+    toks = []
+    while core.has_work:
+        for so in core.step():
+            if so.finish == FinishReason.ERROR:
+                raise AssertionError(f"request failed: {so.error}")
+            toks.append(so.token)
+    if len(toks) != n:
+        raise AssertionError(f"greedy run gave {len(toks)} of {n} tokens")
+    return toks
+
+
+def _counted_greedy(att, core, prompt, n: int) -> dict:
+    """A greedy run with the launch counters set to 0 just before it: its
+    tokens, and whether flash ran once a layer a prefill dispatch and
+    paged once a layer a decode step."""
+    L = core.cfg.model.num_layers
+    p0, s0 = core.prefill_dispatches, core.decode_steps_run
+    _reset_launches(att)
+    toks = _core_greedy(core, prompt, n)
+    pre, steps = core.prefill_dispatches - p0, core.decode_steps_run - s0
+    out = dict(tokens=toks, prefill_dispatches=pre, decode_steps=steps,
+               flash_launches=att.flash_attention.launches,
+               paged_launches=att.paged_attention.launches)
+    if not (out["flash_launches"] == L * pre > 0
+            and out["paged_launches"] == L * steps > 0):
+        raise AssertionError(f"launches do not account for the run: {out}")
+    return out
+
+
+def _built_libraries() -> dict:
+    """Every shared library the port has built (kernels and native
+    helpers): {path: mtime}."""
+    root = os.path.join(ROOT, "build", "dynamo_tpu_torch")
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".so"):
+                p = os.path.join(d, f)
+                out[p] = os.path.getmtime(p)
+    return out
+
+
+def write_sibling(torch, src: str, dst: str, seed: int) -> dict:
+    """Model B: the directory ``src`` (config, tokenizer) with weights of
+    the same shapes drawn from ``seed``, written as the checkpoint phase
+    writes A."""
+    import shutil
+
+    from dynamo_tpu_torch.engine import loader
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models import llama
+
+    shutil.rmtree(dst, ignore_errors=True)
+    os.makedirs(dst)
+    for f in os.listdir(src):
+        if not f.endswith(".safetensors"):
+            shutil.copy(os.path.join(src, f), dst)
+    cfg = llama.LlamaConfig.from_hf_config(
+        ModelDeploymentCard.resolve(src).model_config)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    dev_tree = llama.init_params(cfg, gen, torch.device(DEVICE))
+    host = {k: (v.to("cpu") if k != "layers" else
+                {n: x.to("cpu") for n, x in v.items()})
+            for k, v in dev_tree.items()}
+    del dev_tree
+    torch.cuda.empty_cache()
+    loader.save_llama_params(dst, host, cfg, shards=2, dtype=None)
+    return dict(write_s=time.perf_counter() - t0, weight_bytes=_nbytes(host))
+
+
+def swap_contract(torch, att, dir_a: str, dir_b: str, prompt) -> dict:
+    """(a) The hot-swap contract in process at Llama-3-8B width, 4 layers:
+    every typed refusal, then A -> B one layer a copy; B's greedy tokens
+    equal a cold engine of B bit for bit and differ from A's, every param
+    tensor keeps its storage, no library is built, the device's peak
+    memory rises by at most one layer group, and the kernels account for
+    the run after the swap."""
+    from dynamo_tpu_torch.engine.engine import EngineCore, TorchEngineConfig
+    from dynamo_tpu_torch.fleet.mobility import (SwapError, WeightCache,
+                                                 hot_swap)
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+
+    def cfg_of(path, **kw):
+        return TorchEngineConfig.from_card(
+            ModelDeploymentCard.resolve(path),
+            **dict(FPLANE_ENGINE, **kw), device=DEVICE)
+
+    cfg_a, cfg_b = cfg_of(dir_a), cfg_of(dir_b)
+    cold = EngineCore(cfg_b)
+    want_b = _core_greedy(cold, prompt, FPLANE_TOKENS)
+    cold.close()
+    cold.release_device()
+    del cold
+    core = EngineCore(cfg_a)
+    want_a = _core_greedy(core, prompt, FPLANE_TOKENS)
+    if want_a == want_b:
+        raise AssertionError("models A and B stream the same tokens")
+    # the worker's own path to B's host tree: load, then page-lock
+    on_card = DEVICE == "cuda"
+    cache = WeightCache(pinned=on_card)
+    t0 = time.perf_counter()
+    host_b = cache.load_now(dir_b, cfg_b.model)
+    load_s = time.perf_counter() - t0
+    if host_b is None or not all(
+            v.is_pinned() == on_card for v in [host_b["embed"],
+                                               *host_b["layers"].values()]):
+        raise AssertionError("B's host tree is not page-locked")
+
+    refusals = {}
+    core.submit("busy", BackendInput(token_ids=list(prompt[:64]),
+                                     stop=StopConditions(max_tokens=64)))
+    core.step()
+    for name, host, cfg in (
+            ("busy", host_b, cfg_b),
+            ("geometry", host_b, cfg_of(
+                dir_b, max_batch=2 * FPLANE_ENGINE["max_batch"])),
+            ("no_lm_head", {k: v for k, v in host_b.items()
+                            if k != "lm_head"}, cfg_b)):
+        if name == "geometry":
+            core.cancel("busy")
+            while core.has_work:
+                core.step()
+        try:
+            hot_swap(core, host, cfg)
+        except SwapError as e:
+            refusals[name] = e.reason
+        else:
+            raise AssertionError(f"the {name} swap was not refused")
+    if refusals != {"busy": "not_drained", "geometry": "shape_mismatch",
+                    "no_lm_head": "shape_mismatch"}:
+        raise AssertionError(f"refusals: {refusals}")
+
+    leaves = dict(core.params["layers"])
+    leaves.update({k: v for k, v in core.params.items() if k != "layers"})
+    ptrs = {k: v.data_ptr() for k, v in leaves.items()}
+    libs = _built_libraries()
+    group_bytes = sum(v[0].numel() * v.element_size()
+                      for v in core.params["layers"].values())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = hot_swap(core, host_b, cfg_b, group_layers=1)
+    rise = torch.cuda.max_memory_allocated() - base
+    moved = [k for k, v in leaves.items() if v.data_ptr() != ptrs[k]]
+    after = _counted_greedy(att, core, prompt, FPLANE_TOKENS)
+    row = dict(swap_s=out.seconds, slab_bytes=out.slab_bytes,
+               slab_s=out.slab_seconds,
+               slab_gb_s=out.slab_bytes / out.slab_seconds / 1e9,
+               groups=out.groups, demoted_blocks=out.demoted_blocks,
+               host_load_s=load_s, refusals=refusals,
+               tokens_equal_cold_b=after["tokens"] == want_b,
+               tokens_differ_from_a=after["tokens"] != want_a,
+               tensors_moved=moved, libraries_built=sorted(
+                   set(_built_libraries()) - set(libs)),
+               peak_rise_bytes=rise, layer_group_bytes=group_bytes,
+               weight_bytes=_nbytes(core.params),
+               **{k: after[k] for k in after if k != "tokens"})
+    L = cfg_a.model.num_layers
+    if not (row["tokens_equal_cold_b"] and row["tokens_differ_from_a"]
+            and not moved and not row["libraries_built"]
+            and _built_libraries() == libs and rise <= group_bytes
+            and out.groups == L * len(core.params["layers"])
+            and out.demoted_blocks > 0):
+        raise AssertionError(f"hot-swap contract: {row}")
+    core.close()
+    core.release_device()
+    cache.close()
+    return dict(row, want_a=want_a, want_b=want_b)
+
+
+def _drawn_host_tree(torch, tree, seed: int, rows: int):
+    """Model B of (b): for each leaf of ``tree``, a page-locked host leaf
+    drawn from ``seed`` as ``llama.init_params`` draws (ones for the
+    pre-norms, else normal over the leaf's leading dim, cast to the leaf's
+    dtype), ``rows`` leading rows (layers) at a time on the card, so no
+    f32 copy of a whole leaf, let alone the tree, exists at once."""
+    import math
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def draw(name, leaf):
+        h = torch.empty(leaf.shape, dtype=leaf.dtype,
+                        pin_memory=DEVICE == "cuda")
+        if name in ("ln1", "ln2", "final_norm"):
+            h.fill_(1.0)
+            return h
+        step = rows if leaf.dim() > 2 else max(1, (1 << 28) // max(
+            1, leaf[0].numel()))
+        for s in range(0, leaf.shape[0], step):
+            n = min(step, leaf.shape[0] - s)
+            t = torch.randn((n, *leaf.shape[1:]), generator=gen,
+                            dtype=torch.float32, device=DEVICE)
+            h[s:s + n].copy_(t.mul_(1.0 / math.sqrt(leaf.shape[0]))
+                             .to(leaf.dtype))
+        return h
+
+    out = {k: draw(k, v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = {k: draw(k, v) for k, v in tree["layers"].items()}
+    return out
+
+
+def swap_full_depth(torch, att, params, cold_tokens: list) -> dict:
+    """(b) A -> B -> A on an engine holding the serve phase's Llama-3-8B
+    weights (32 layers): A's host copy taken from the card, B drawn on the
+    host side one layer group at a time; after the return every leaf
+    equals the saved copy and the greedy stream equals the serve phase's
+    cold stream. Cut to fewer layers, on weights of its own, when the
+    host cannot hold two page-locked copies."""
+    import dataclasses
+
+    from dynamo_tpu_torch.engine.engine import EngineCore, TorchEngineConfig
+    from dynamo_tpu_torch.fleet.mobility import hot_swap
+    from dynamo_tpu_torch.fleet.mobility.weightcache import pin_tree
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models import llama
+
+    cfg = TorchEngineConfig.from_card(ModelDeploymentCard.synthetic(PRESET),
+                                      **ENGINE_ARGS, device=DEVICE)
+    weight_bytes = _nbytes(params)
+    avail = _mem_available()
+    cut = None
+    if avail < 2 * weight_bytes + FPLANE_HOST_HEADROOM:
+        L = cfg.model.num_layers
+        per_layer = sum(v[0].numel() * v.element_size()
+                        for v in params["layers"].values())
+        fixed = weight_bytes - L * per_layer
+        keep = int((avail - FPLANE_HOST_HEADROOM) / 2 - fixed) // per_layer
+        keep = max(1, min(L - 1, keep))
+        cut = dict(layers=keep, of=L, reason=(
+            f"MemAvailable {avail} B < two page-locked copies of "
+            f"{weight_bytes} B + {FPLANE_HOST_HEADROOM} B headroom"))
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, num_layers=keep))
+        gen = torch.Generator(device=DEVICE).manual_seed(CKPT_SEED)
+        params = llama.init_params(cfg.model, gen, torch.device(DEVICE))
+    core = EngineCore(cfg, params)
+    prompt = reuse_prompt(cfg.model.vocab_size)
+    t0 = time.perf_counter()
+    host_a = pin_tree(core.params)
+    copy_a_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_b = _drawn_host_tree(torch, core.params, FPLANE_SEED,
+                              FPLANE_FULL_GROUP)
+    draw_b_s = time.perf_counter() - t0
+    swaps = {}
+    for name, host in (("a_to_b", host_b), ("b_to_a", host_a)):
+        out = hot_swap(core, host, cfg, group_layers=FPLANE_FULL_GROUP)
+        swaps[name] = dict(seconds=out.seconds, slab_bytes=out.slab_bytes,
+                           slab_s=out.slab_seconds,
+                           slab_gb_s=out.slab_bytes / out.slab_seconds / 1e9,
+                           groups=out.groups,
+                           demoted_blocks=out.demoted_blocks)
+        if name == "a_to_b":
+            b_tokens = _core_greedy(core, prompt, REUSE_TOKENS)
+    leaves = {("layers", k): v for k, v in core.params["layers"].items()}
+    leaves.update({(k,): v for k, v in core.params.items()
+                   if k != "layers"})
+    unequal = [k for k, v in leaves.items() if not torch.equal(
+        v, (host_a[k[0]] if len(k) == 1 else host_a["layers"][k[1]])
+        .to(DEVICE))]
+    run = _counted_greedy(att, core, prompt, REUSE_TOKENS)
+    row = dict(layers=cfg.model.num_layers, cut=cut, mem_available=avail,
+               weight_bytes=_nbytes(core.params), host_copy_a_s=copy_a_s,
+               host_draw_b_s=draw_b_s, swaps=swaps,
+               leaves_unequal_after_return=unequal,
+               b_differs=b_tokens != run["tokens"],
+               stream_equals_serve=(run["tokens"] == cold_tokens
+                                    if cut is None else None),
+               **{k: run[k] for k in run if k != "tokens"})
+    core.close()
+    core.release_device()
+    del host_a, host_b
+    if unequal or not row["b_differs"] or (
+            cut is None and not row["stream_equals_serve"]):
+        raise AssertionError(f"full-depth swap: {row}")
+    return row
+
+
+def profile_sweep(torch, att, dir_a: str) -> dict:
+    """(d) ``run_profile(engine="torch")`` on model A on the card: a
+    ``ProfileTable`` the SLA policy loads, the kernels launched in it."""
+    from dynamo_tpu_torch.planner.policy import SlaPolicy
+    from dynamo_tpu_torch.planner.profile import ProfileTable, run_profile
+
+    _reset_launches(att)
+    t0 = time.perf_counter()
+    table = run_profile("torch", FPLANE_PROFILE["batches"],
+                        FPLANE_PROFILE["seq_lens"],
+                        gen_tokens=FPLANE_PROFILE["gen_tokens"],
+                        model_path=dir_a, device=DEVICE)
+    sweep_s = time.perf_counter() - t0
+    path = os.path.join(FPLANE_DIR, "profile.json")
+    table.save(path)
+    pol = SlaPolicy(ProfileTable.load(path), ttft_target=2.0,
+                    itl_target=0.05)
+    row = dict(table=table.to_dict(), sweep_s=sweep_s,
+               sla_capacity_2s_50ms=pol.capacity,
+               flash_launches=att.flash_attention.launches,
+               paged_launches=att.paged_attention.launches)
+    if table.meta.get("platform") != DEVICE or len(table.points) != 4 \
+            or not (row["flash_launches"] > 0 and row["paged_launches"] > 0):
+        raise AssertionError(f"profile sweep: {row}")
+    return row
+
+
+async def _fplane_store(store_port: int, fn):
+    from dynamo_tpu_torch.runtime.scale.shards import make_store_client
+
+    sc = await make_store_client("127.0.0.1", store_port).connect()
+    try:
+        return await fn(sc)
+    finally:
+        await sc.close()
+
+
+def _fplane_request(port: int, model: str, prompt) -> dict:
+    res: dict = {}
+    http_post(port, "/v1/completions", {
+        "model": model, "prompt": list(prompt), "max_tokens": FPLANE_TOKENS,
+        "temperature": 0.0, "stream": True, "logprobs": 1,
+        "ignore_eos": True}, res, "r")
+    r = res["r"]
+    if r["status"] != 200 or r["usage"]["completion_tokens"] != FPLANE_TOKENS:
+        raise AssertionError(f"{model} request: {r}")
+    return r
+
+
+def swap_across_processes(torch, dir_a: str, dir_b: str, prompt,
+                          want_a: list, want_b: list, b_bytes: int) -> dict:
+    """(c) The planner hands the card from A to B by an in-place swap:
+    the native store, ``cli.planner --fleet --connector local --platform
+    cuda --total-chips 1``, ``cli.router --fleet`` and the discovery
+    frontend, A and B registered in one swap group (B of higher priority,
+    so the arbiter preempts A for it). A request for A parks until the
+    planner spawns A's worker on card 0; a request for B parks until the
+    arbiter hands that card to B: the same worker swaps its weights in
+    place and re-registers as B."""
+    import asyncio
+    import re
+    import signal
+
+    from dynamo_tpu_torch.fleet.mobility import mobility_wake_key
+    from dynamo_tpu_torch.fleet.registry import (FleetModelSpec,
+                                                 fetch_fleet_status,
+                                                 put_fleet_model)
+    from dynamo_tpu_torch.llm.tokenizer import load_tokenizer
+
+    torch.cuda.empty_cache()
+    tok = load_tokenizer(dir_a)
+    strings = {m: [tok.decode([t]) for t in w]
+               for m, w in zip(FPLANE_MODELS, (want_a, want_b))}
+    a, b = FPLANE_MODELS
+    page = CKPT_ENGINE["page_size"]
+    fleet = Fleet(FPLANE_DIR)
+    # the planner's spawned workers log under this phase's directory
+    fleet.env["TMPDIR"] = FPLANE_DIR
+    pid = None
+    try:
+        fleet.start("store", "dynamo_tpu_torch.runtime.store_server",
+                    "--host", "127.0.0.1", "--port", "0")
+        line = fleet.wait_line("store", r"listening on \S+:\d+", 60)
+        store_port = int(line.rsplit(":", 1)[1])
+        store = f"127.0.0.1:{store_port}"
+        extra = ["--kv-block-size", str(page), "--metrics-interval", "0.25",
+                 "--extra-engine-args", json.dumps(CKPT_ENGINE)]
+        specs = [FleetModelSpec(name=m, engine="torch", model_path=p,
+                                chips_per_replica=1, min_replicas=0,
+                                max_replicas=1, priority=prio,
+                                swap_group=FPLANE_GROUP, extra_args=extra)
+                 for m, p, prio in ((a, dir_a, 0), (b, dir_b, 1))]
+
+        async def register(sc):
+            for s in specs:
+                await put_fleet_model(sc, "dynamo", s)
+        asyncio.run(_fplane_store(store_port, register))
+        fleet.start("planner", "dynamo_tpu_torch.cli.planner", "--store",
+                    store, "--namespace", "dynamo", "--fleet",
+                    "--connector", "local", "--platform", DEVICE,
+                    "--total-chips", "1", "--interval", "0.5",
+                    "--cooldown-up", "0")
+        fleet.wait_line("planner", r"planner serving", 120)
+        fleet.start("router", "dynamo_tpu_torch.cli.router", "--store",
+                    store, "--fleet", "--block-size", str(page))
+        fleet.wait_line("router", r"kv router serving", 120)
+        fleet.env["DYN_BOOT_WAIT"] = str(FPLANE_BOOT_WAIT_S)
+        fleet.start("http", "dynamo_tpu_torch.cli.http", "--store", store,
+                    "--host", "127.0.0.1", "--port", "0",
+                    "--router-component", "router", "--namespace",
+                    "dynamo")
+        line = fleet.wait_line("http", r"http frontend on :\d+", 120)
+        http_port = int(re.search(r":(\d+)", line).group(1))
+
+        def models():
+            return {r["id"]: r.get("state") for r in json.loads(
+                http_get(http_port, "/v1/models")[1])["data"]}
+
+        def status():
+            st = asyncio.run(_fplane_store(
+                store_port, lambda sc: fetch_fleet_status(sc, "dynamo")))
+            return {m: {k: v for k, v in s.items() if k != "ts"}
+                    for m, s in st.items()}
+
+        models0 = models()
+        status0 = status()
+        # A scales from zero: the parked request is its wake signal
+        ra = _fplane_request(http_port, a, prompt)
+        spawn = re.findall(r"planner spawned (\S+) worker pid=(\d+) "
+                           r"\(log ([^)]+)\)", fleet.log("planner"))
+        if len(spawn) != 1 or spawn[0][0] != a:
+            raise AssertionError(f"planner spawns: {spawn}")
+        pid, wlog = int(spawn[0][1]), spawn[0][2]
+        with open(f"/proc/{pid}/environ", "rb") as f:
+            wenv = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0")
+                        if b"=" in kv)
+        visible = wenv.get(b"CUDA_VISIBLE_DEVICES", b"").decode()
+        warm_a = _fplane_request(http_port, a, prompt)
+        # the plane's prefetch hint stages B's weights in the worker's
+        # host cache (its stage dump's dyn_weight_cache_bytes)
+        t0 = time.monotonic()
+        while _total(scrape(http_port), "dyn_weight_cache_bytes") \
+                < b_bytes:
+            if time.monotonic() - t0 > 120:
+                raise AssertionError("worker never staged B's weights")
+            time.sleep(0.25)
+        staged_s = time.monotonic() - t0
+        status_mid = status()
+        # B parks; the arbiter hands A's card to B by a swap
+        t_b = time.perf_counter()
+        rb = _fplane_request(http_port, b, prompt)
+        b_total_s = time.perf_counter() - t_b
+        wake = json.loads(asyncio.run(_fplane_store(
+            store_port, lambda sc: sc.get(mobility_wake_key("dynamo", b)))))
+        wid = wake["worker"]
+        time.sleep(1.0)
+        s0 = scrape(http_port)
+        rb2 = _fplane_request(http_port, b, prompt[::-1])
+        time.sleep(1.5)
+        s1 = scrape(http_port)
+        comp = f"backend-{b}"
+        d = _delta(_counts(_component(s0, comp), wid),
+                   _counts(_component(s1, comp), wid))
+        L = CKPT_HF["num_hidden_layers"]
+        spawns = re.findall(r"planner spawned", fleet.log("planner"))
+        wtext = open(wlog).read()
+        row = dict(
+            worker_pid=pid, worker_pid_alive_after=os.path.exists(
+                f"/proc/{pid}"), worker_cuda_visible_devices=visible,
+            spawns=len(spawns),
+            reregistered=f"re-registered as {b}" in wtext,
+            swaps_swap=_total(s1, "dyn_model_swaps_total", outcome="swap"),
+            swaps_reload=_total(s1, "dyn_model_swaps_total",
+                                outcome="reload"),
+            wake=wake, wake_s=wake["seconds"],
+            a_scale_from_zero_ttft_s=ra["ttft_s"],
+            a_warm_ttft_s=warm_a["ttft_s"], b_staged_after_s=staged_s,
+            b_parked_ttft_s=rb["ttft_s"], b_parked_total_s=b_total_s,
+            b_warm_ttft_s=rb2["ttft_s"],
+            a_tokens_equal_cold_a=ra["tokens"] == strings[a],
+            b_tokens_equal_cold_b=rb["tokens"] == strings[b],
+            b_launches_after_swap=d, models_before=models0,
+            models_after=models(), status_before=status0,
+            status_mid=status_mid, status_after=status(),
+            planes=dict(fleet.planes(serving=("router",)), worker=(
+                re.findall(r"data plane: (\w+) on port", wtext) or [None]
+            )[-1]),
+            loop_wedges_s=fleet.wedges(),
+            flash_launches=d.get("flash", 0.0),
+            paged_launches=d.get("paged", 0.0))
+        # a SIGTERM to the planner drains the worker it spawned
+        planner = fleet.procs["planner"][0]
+        planner.terminate()
+        planner.wait(timeout=60)
+        t0 = time.monotonic()
+        while os.path.exists(f"/proc/{pid}") and \
+                time.monotonic() - t0 < 30:
+            time.sleep(0.1)
+        row["worker_drained_with_planner"] = not os.path.exists(
+            f"/proc/{pid}")
+        row["planner_rc"] = planner.returncode
+        on_card = DEVICE == "cuda"
+        if not (row["worker_pid_alive_after"] and row["spawns"] == 1
+                and row["worker_drained_with_planner"]
+                and row["planner_rc"] == 0
+                and visible == ("0" if on_card else "")
+                and row["reregistered"]
+                and row["planes"]["worker"] == "native"
+                and row["swaps_swap"] == 1 and row["swaps_reload"] == 0
+                and wake["path"] == "swap"
+                and row["a_tokens_equal_cold_a"]
+                and row["b_tokens_equal_cold_b"]
+                and d["prefill"] > 0 and d["decode_step"] > 0
+                and d["flash"] == L * d["prefill"] * on_card
+                and d["paged"] == L * d["decode_step"] * on_card
+                and {a, b} <= set(row["models_after"])
+                and all(row["models_after"][m] for m in (a, b))):
+            raise AssertionError(f"the card handed from A to B: {row}")
+        return row
+    finally:
+        fleet.stop()
+        if pid is not None and os.path.exists(f"/proc/{pid}"):
+            # a planner that failed before its drain leaves its worker
+            os.kill(pid, signal.SIGTERM)
+            for _ in range(200):
+                if not os.path.exists(f"/proc/{pid}"):
+                    break
+                time.sleep(0.1)
+            else:
+                os.kill(pid, signal.SIGKILL)
+
+
+def fleet_plane_phase(torch, att, smi: str, params, serve: dict) -> dict:
+    """Phase 16: (b) on the served weights first, then (a), (d) and (c)
+    on the checkpoint phase's 4-layer directory and its sibling."""
+    t_phase = time.perf_counter()
+    os.makedirs(FPLANE_DIR, exist_ok=True)
+    full = swap_full_depth(torch, att, params,
+                           serve["reuse"]["cold_tokens"])
+    emit({"phase": "fleet_plane", "part": "b_full_depth", "card": smi,
+          **full})
+    dir_a = os.path.join(CKPT_DIR, "llama3-8b-4l")
+    dir_b = os.path.join(CKPT_DIR, "llama3-8b-4l-b")
+    sib = write_sibling(torch, dir_a, dir_b, FPLANE_SEED)
+    import numpy as np
+
+    prompt = np.random.default_rng(FPLANE_PROMPT_SEED).integers(
+        0, CKPT_HF["vocab_size"] - CKPT_SPECIALS, FPLANE_PROMPT).tolist()
+    contract = swap_contract(torch, att, dir_a, dir_b, prompt)
+    want_a, want_b = contract.pop("want_a"), contract.pop("want_b")
+    emit({"phase": "fleet_plane", "part": "a_contract", "card": smi,
+          "sibling": sib, **contract})
+    prof = profile_sweep(torch, att, dir_a)
+    emit({"phase": "fleet_plane", "part": "d_profile", "card": smi, **prof})
+    import gc
+
+    gc.collect()        # the profile's engines, before the worker's load
+    torch.cuda.empty_cache()
+    cross = swap_across_processes(torch, dir_a, dir_b, prompt, want_a,
+                                  want_b, sib["weight_bytes"])
+    emit({"phase": "fleet_plane", "part": "c_across_processes",
+          "card": smi, **cross})
+    row = dict(phase="fleet_plane", mode="summary", card=smi,
+               phase_s=time.perf_counter() - t_phase,
+               flash_launches=sum(r["flash_launches"] for r in (
+                   full, contract, prof, cross)),
+               paged_launches=sum(r["paged_launches"] for r in (
+                   full, contract, prof, cross)))
+    emit(row)
+    return row
+
+
 def main() -> int:
     import gc
 
@@ -5512,6 +6132,7 @@ def main() -> int:
     cluster = cluster_phase(torch, smi, serve, params)
     spec = spec_phase(torch, att, smi, params)
     kvpage = kvpage_phase(torch, att, smi, params)
+    fplane = fleet_plane_phase(torch, att, smi, params, serve)
     del params      # the HTTP engine draws the same weights from the seed
     # the phases' engines sit in reference cycles with their weights:
     # collect them before the next engine draws its own
@@ -5539,6 +6160,7 @@ def main() -> int:
              draft_launches=draft["spec_flash_launches"],
              moe_launches=moe["flash_launches"],
              kvpage_launches=sum(kvpage["launches"]["flash"].values()),
+             fleet_plane_launches=fplane["flash_launches"],
              verify_ms={"t5": verify5["ms"], "t2": verify2["ms"]},
              verify_bound_frac={"t5": verify5["bound_frac"],
                                 "t2": verify2["bound_frac"]},
@@ -5561,6 +6183,7 @@ def main() -> int:
              draft_launches=draft["spec_paged_launches"],
              moe_launches=moe["paged_launches"],
              kvpage_launches=sum(kvpage["launches"]["paged"].values()),
+             fleet_plane_launches=fplane["paged_launches"],
              max_abs_err=paged["max_abs_err"], ms=paged["ms"],
              plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
              bound_by=paged["bound_by"], bound_frac=paged["bound_frac"],

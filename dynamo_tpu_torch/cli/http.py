@@ -212,10 +212,41 @@ async def run_http(args, *, ready_event=None,
         log.warning("brownout watch failed; serving at level 0",
                     exc_info=True)
 
-    # fleet plane (multi-model registry, ``fleet/``): the JAX frontend
-    # watches it for per-model state and tenant tables. Not ported yet
-    # (ROADMAP Queue 1 item 12): the port serves without the fleet view,
-    # as the JAX frontend does when that watch fails.
+    # fleet plane (multi-model registry): /v1/models reports per-model
+    # state, registered models' 404s get their own (bounded) metric label
+    # so the planner can scale them from zero, and the per-tenant quota
+    # table follows the registry's per-model tenant tables live
+    from ..fleet.registry import FleetRegistry, fetch_fleet_status
+    from ..utils.overload import tenant_quotas_from_env
+
+    try:
+        fleet_reg = await FleetRegistry(drt.store, pub_ns).start()
+    except Exception:
+        fleet_reg = None
+        log.warning("fleet registry watch failed; serving without the "
+                    "fleet view", exc_info=True)
+    if fleet_reg is not None:
+        svc.known_models = lambda: set(fleet_reg.models)
+
+        async def fleet_status():
+            status = await fetch_fleet_status(drt.store, pub_ns)
+            for name, spec in fleet_reg.snapshot().items():
+                # registered but never reconciled (no planner yet):
+                # still listed, state honest about the blind spot
+                status.setdefault(name, {"state": "unknown",
+                                         "component": spec.component})
+            return status
+
+        svc.fleet_status = fleet_status
+        env_quotas = tenant_quotas_from_env()
+
+        def refresh_quotas(*_):
+            table = dict(env_quotas)
+            table.update(fleet_reg.tenant_quotas())
+            svc.tenants.set_quotas(table)
+
+        fleet_reg.on_change = refresh_quotas
+        refresh_quotas()
 
     publisher = StagePublisher(drt.store, pub_ns, "http", drt.worker_id,
                                drt.lease)

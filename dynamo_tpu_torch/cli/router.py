@@ -3,7 +3,9 @@
     python -m dynamo_tpu_torch.cli.router --namespace dynamo --worker-component \
         backend --store 127.0.0.1:4222
 
-Serves ``route`` on {namespace}/router: {token_ids} -> {worker_id}.
+Serves ``route`` on {namespace}/router: {token_ids} -> {worker_id}. With
+``--fleet`` one router serves every model of the fleet registry
+(``fleet_models/``), dispatching on the request's ``model`` field.
 Reference capability: components/router/src/main.rs.
 """
 
@@ -12,7 +14,7 @@ from __future__ import annotations
 import asyncio
 import logging
 
-from ..llm.kv_router.router import KvRouterService
+from ..llm.kv_router.router import FleetKvRouter, KvRouterService
 from ..runtime.component import DistributedRuntime
 from ..utils.dynconfig import EnvDefaultsParser
 
@@ -27,6 +29,11 @@ def parse_args(argv=None):
     p.add_argument("--store", default="127.0.0.1:4222")
     p.add_argument("--advertise-host", default=None)
     p.add_argument("--block-size", type=int, default=64)
+    p.add_argument("--fleet", action="store_true",
+                   help="route for every model in the fleet registry "
+                        "(fleet_models/) instead of one worker "
+                        "component; requests dispatch on their 'model' "
+                        "field with per-model candidate sets")
     return p.parse_args(argv)
 
 
@@ -38,10 +45,18 @@ async def run_router(args, *, ready_event=None,
         drt = await DistributedRuntime(
             store_host=host, store_port=int(port),
             advertise_host=args.advertise_host).connect()
-    svc = KvRouterService(drt, args.namespace, args.worker_component,
-                          block_size=args.block_size)
+    # getattr: harnesses build the Namespace by hand
+    fleet = getattr(args, "fleet", False)
+    if fleet:
+        svc = FleetKvRouter(drt, args.namespace,
+                            block_size=args.block_size)
+    else:
+        svc = KvRouterService(drt, args.namespace, args.worker_component,
+                              block_size=args.block_size)
     # fleet brownout level: any level above normal switches the scheduler
     # to fast-fail instead of capacity-wait polling (utils/overload.py).
+    # Armed BEFORE start so fleet mode hands the shared state to every
+    # per-model router it creates.
     from ..utils.overload import BrownoutState
 
     try:
@@ -87,7 +102,7 @@ async def run_router(args, *, ready_event=None,
 
     stage_task = asyncio.create_task(stage_publish_loop())
     print(f"kv router serving {args.namespace}.{args.component}.route "
-          f"(workers: {args.worker_component})",
+          f"(workers: {'<fleet registry>' if fleet else args.worker_component})",
           flush=True)
     if ready_event is not None:
         ready_event.set()

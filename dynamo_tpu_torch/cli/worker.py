@@ -29,9 +29,18 @@ The engine is built before the worker connects to the store, so no
 liveness lease exists while the bring-up holds the process (see
 :func:`build_engine`).
 
+On the simple serving path (no disagg, no cluster KV) a
+:class:`~..fleet.mobility.MobilityAgent` follows the fleet's
+``mobility/`` commands, as the JAX worker's does: it stages prefetch-hinted
+sibling checkpoints into a host weight cache (pinned on a card), and a swap
+command drains the worker, overwrites its weights in place
+(``TorchEngine.swap_weights``) and re-registers it under the sibling's
+component — or, on a typed refusal, rebuilds the engine cold after freeing
+the old one's device memory. Either way the rebuild runs while the worker
+holds no lease.
+
 Not ported yet, and refused at start instead of ignored: ``--num-nodes``
-above 1 (ROADMAP Queue 1 item 11); a model-mobility swap or prefetch
-command (item 12) is refused in the log and left for another worker.
+above 1 (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -59,9 +68,6 @@ from ..utils import overload, tracing
 from ..utils.dynconfig import EnvDefaultsParser
 
 log = logging.getLogger("dynamo_tpu_torch.worker")
-
-#: the JAX package's model-mobility keyspace (``fleet/mobility/keys.py``)
-MOBILITY_PREFIX = "mobility/"
 
 
 def check_ported(args) -> None:
@@ -122,26 +128,6 @@ async def _connect_drt(args) -> DistributedRuntime:
     return await DistributedRuntime(
         store_host=host, store_port=int(port),
         advertise_host=args.advertise_host).connect()
-
-
-async def _refuse_mobility(drt: DistributedRuntime, namespace: str,
-                           component: str) -> None:
-    """Watch this component's model-mobility commands and refuse them
-    loudly: the swap and cold-reload paths (``fleet/mobility``) are not
-    ported yet (ROADMAP Queue 1 item 12). The key is left in place, so a
-    JAX worker of the component may claim it."""
-    prefix = f"{MOBILITY_PREFIX}{namespace}/"
-    mine = (f"{prefix}swap/{component}", f"{prefix}prefetch/{component}")
-
-    async def on_event(key: str, value: Optional[bytes],
-                       deleted: bool) -> None:
-        if not deleted and key in mine:
-            log.error("refusing model-mobility command %s: weight swap and "
-                      "cold reload are not ported to dynamo_tpu_torch yet "
-                      "(ROADMAP Queue 1 item 12)", key)
-
-    for key, value in await drt.store.watch_prefix(prefix, on_event):
-        await on_event(key, value, False)
 
 
 async def _disagg_handler(args, drt: DistributedRuntime, component,
@@ -425,12 +411,22 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
     # this stage instead of queueing into a deadline burn
     gate = overload.gate_from_env()
     endpoint = component.endpoint("generate")
+    engine_ref = None         # set on the simple path (model mobility)
+    served = None
     if getattr(args, "enable_disagg", False) and core is not None:
         await endpoint.serve(await _disagg_handler(args, drt, component,
                                                    engine, gate, cluster))
     else:
-        served = engine if gate is None \
-            else overload.SlotGatedEngine(engine, gate)
+        # model mobility (simple path only: no disagg/cluster — those
+        # keep the plain cold-spawn wake): handlers stream through an
+        # EngineRef so a cold-reload fallback can rebind the engine
+        if core is not None and cluster is None:
+            from ..fleet.mobility import EngineRef
+
+            engine_ref = EngineRef(engine)
+        base = engine_ref if engine_ref is not None else engine
+        served = base if gate is None \
+            else overload.SlotGatedEngine(base, gate)
         if cluster is not None:
             # prefetch wraps OUTSIDE the slot gate: the peer fetch overlaps
             # the queue wait instead of holding a slot while blocks
@@ -443,7 +439,6 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
                              model_type="chat", lease=drt.lease)
         await register_model(drt.store, card, endpoint.path,
                              model_type="completion", lease=drt.lease)
-    await _refuse_mobility(drt, args.namespace, args.component)
 
     # --- metrics loop -------------------------------------------------
     from ..llm.metrics_aggregator import StagePublisher
@@ -451,8 +446,97 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
     stage_pub = StagePublisher(drt.store, args.namespace, args.component,
                                drt.worker_id, drt.lease)
 
+    # --- model mobility agent (simple path only) ---------------------
+    mobility = None
+    stopped = asyncio.Event()     # set when a failed swap ends the worker
+    if engine_ref is not None:
+        from ..fleet.mobility import MobilityAgent
+
+        async def _reregister(payload):
+            """Post-swap identity change: fresh lease (prepare_drain
+            revoked the old one), serve ``generate`` under the new
+            model's component, re-advertise the model, and move the
+            metrics/KV-event identity along."""
+            nonlocal component, card, stage_pub
+            import os
+
+            drt.lease = await drt.store.lease_grant(
+                ttl=float(os.environ.get("DYN_LEASE_TTL", "10.0")))
+            drt.worker_id = drt.lease
+            drt.draining.clear()
+            if token is not None:
+                drt.store.on_lease_lost = _lease_lost
+            args.component = payload.get("component") or args.component
+            args.model_path = payload.get("model_path") or args.model_path
+            args.model_name = payload.get("model") or args.model_name
+            component = ns.component(args.component)
+            pub.worker_id = drt.worker_id
+            card = _build_card(args)
+            await serve_core_engine(component.endpoint("generate"),
+                                    served)
+            if args.register_model:
+                ep_path = component.endpoint("generate").path
+                await register_model(drt.store, card, ep_path,
+                                     model_type="chat", lease=drt.lease)
+                await register_model(drt.store, card, ep_path,
+                                     model_type="completion",
+                                     lease=drt.lease)
+            stage_pub = StagePublisher(drt.store, args.namespace,
+                                       args.component, drt.worker_id,
+                                       drt.lease)
+            log.info("worker %x re-registered as %s (%s)",
+                     drt.worker_id, args.model_name, args.component)
+
+        async def _cold_reload(new_cfg):
+            """Typed swap-fallback: rebuild the engine off-loop (the
+            weight load can exceed the lease TTL; the agent drained, so
+            no lease is live) and re-attach the KV event hooks. The old
+            engine shuts down and gives its device memory back FIRST:
+            two 8B engines plus their KV do not fit one card with
+            headroom. The EngineRef rebinding is the agent's job."""
+            nonlocal engine, core
+            from ..engine.engine import TorchEngine
+
+            old = engine_ref.engine
+            core = None           # the metrics beat reads no dead core
+
+            def _build():
+                try:
+                    old.shutdown()
+                except Exception:  # noqa: BLE001 - the reload must
+                    log.exception("engine shutdown during reload")
+                old.core.release_device()
+                return TorchEngine(new_cfg)
+
+            new_engine = await asyncio.get_running_loop(
+                ).run_in_executor(None, _build)
+            engine = new_engine
+            core = new_engine.core
+            core.pool.on_block_sealed = pub.block_stored
+            core.pool.on_blocks_removed = pub.blocks_removed
+            return new_engine
+
+        def _swap_failed():
+            """A swap that failed past the drain left no lease and
+            possibly no engine: end the worker so its orchestrator reaps
+            it and releases its cards, instead of a zombie that holds
+            them."""
+            log.critical("model swap failed after the drain; shutting "
+                         "down")
+            if token is not None:
+                token.cancel()
+            stopped.set()
+
+        mobility = await MobilityAgent(
+            drt, args.namespace, args.component, engine_ref,
+            reregister=_reregister, cold_reload=_cold_reload,
+            model_name=args.model_name or "",
+            on_fatal=_swap_failed).start()
+
     async def metrics_loop():
         while True:
+            # recomputed per beat: a model swap moves this worker to a
+            # new component + lease mid-life
             key = metrics_key(args.namespace, args.component, drt.worker_id)
             extra = None
             if core is not None:
@@ -485,8 +569,7 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
         if token is not None:
             await token.wait()     # Worker shell: serve until shutdown signal
         else:
-            while True:
-                await asyncio.sleep(3600)
+            await stopped.wait()
     finally:
         drt.store.on_lease_lost = None
         mtask.cancel()
@@ -509,6 +592,8 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
                 await cluster.stop()   # cancel publisher, drop registry key
             except Exception:
                 log.warning("kv-cluster detach failed", exc_info=True)
+        if mobility is not None:
+            mobility.cache.close()     # drop pinned host weight trees
         if core is not None:
             try:
                 engine.shutdown()   # joins the engine thread, clears gauges

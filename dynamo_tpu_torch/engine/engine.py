@@ -631,6 +631,26 @@ class EngineCore:
         if self.tiered is not None:
             self.tiered.close()
 
+    def release_device(self) -> None:
+        """Drop every device tensor this core holds — weights, KV pools,
+        lane state, the draft, the pager and staging buffers — so that a
+        replacement engine can allocate on the same card (a worker's
+        cold reload). The core serves nothing afterwards; call it after
+        :meth:`close`, with the engine thread stopped."""
+        self.params = {}
+        self.k_pool = self.v_pool = self.gen_counts = None
+        self.vision_params = self.proj_params = None
+        self.proposer = None
+        self.kvpager = None
+        self._wt_stage = None
+        with self._h2d_stage_lock:
+            self._h2d_stage.clear()
+        if self.device.type == "cuda":
+            import gc
+
+            gc.collect()        # engine objects sit in reference cycles
+            torch.cuda.empty_cache()
+
     def flush_reusable(self) -> int:
         """Evict every reusable device block, offloading each to the host
         tier when there is one (cache-clear admin op). Returns the number
@@ -2070,6 +2090,8 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
                     self.core.submit(seq_id, payload)
                 elif kind == "cancel":
                     self.core.cancel(seq_id)
+                elif kind == "swap":
+                    self._run_swap(payload)
                 else:
                     self._run_kv_command(kind, seq_id, payload)
             if not self.core.has_work:
@@ -2179,6 +2201,32 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
             except Exception as e:  # noqa: BLE001
                 log.exception("prefill_extract failed")
                 loop.call_soon_threadsafe(_set_exception, fut, e)
+
+    def _run_swap(self, payload) -> None:
+        """Model-mobility hot-swap on the engine thread (single-threaded
+        core contract), post-drain; a typed ``SwapError`` reaches the
+        agent's fallback path through the future."""
+        from ..fleet.mobility.swap import hot_swap
+
+        host_params, new_cfg, loop, fut = payload
+        try:
+            res = hot_swap(self.core, host_params, new_cfg)
+            loop.call_soon_threadsafe(_set_result, fut, res)
+        except Exception as e:  # noqa: BLE001
+            log.exception("weight hot-swap failed")
+            loop.call_soon_threadsafe(_set_exception, fut, e)
+
+    async def swap_weights(self, host_params, new_cfg):
+        """Model-mobility hot-swap: post the in-place weight overwrite to
+        the engine thread and await its :class:`~dynamo_tpu_torch.fleet.
+        mobility.swap.SwapOutcome`. The caller must have drained first
+        (``has_work`` False); a typed ``SwapError`` propagates here when
+        the sibling's shape signature does not match."""
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        self._inbox.put(("swap", "", (host_params, new_cfg, loop, fut)))
+        self._wake.set()
+        return await fut
 
     def _ingest_fail(self, seq_id: str, e: Exception) -> None:
         """Engine-thread cleanup of a failed stream inject: release the

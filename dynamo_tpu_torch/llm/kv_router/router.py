@@ -19,6 +19,7 @@ import logging
 from typing import Dict, Optional
 
 from ...runtime.component import Client, Component, DistributedRuntime
+from ...runtime.engine import EngineError
 from ...utils.aiotasks import cancel_all, spawn
 from ..tokens import compute_seq_hashes
 from .indexer import KvIndexer
@@ -241,5 +242,133 @@ class KvRouterService:
         async def decisions_handler(request, ctx):
             limit = int((request or {}).get("limit", 0) or 0)
             yield {"decisions": self.decisions(limit)}
+
+        await component.endpoint("decisions").serve(decisions_handler)
+
+
+class FleetKvRouter:
+    """One routing service for a whole multi-model fleet.
+
+    The model-scoped candidate set comes for free from the existing
+    per-component machinery: each model pool is its own store component,
+    so one :class:`KvRouterService` per model *is* the model-scoped
+    router — its indexer subscribes only that component's ``kv_events``,
+    its scrape reads only that component's metrics prefix, and its
+    cluster index already filters donors by component. This class keeps
+    the set of inner services in lockstep with the fleet registry
+    (``ctl fleet add`` mid-traffic arms routing for the new model within
+    a watch delivery) and serves the same ``route``/``decisions``
+    endpoints, dispatching on the request's ``model`` field.
+
+    A request for an unregistered model is a typed 503 — the frontend's
+    :class:`~..remote.RemoteCoreEngine` catches it and falls back to
+    random dispatch over its own (model-correct) worker client, so a
+    registry lag costs prefix affinity, never correctness.
+    """
+
+    def __init__(self, drt: DistributedRuntime, namespace: str,
+                 block_size: int = 64):
+        self.drt = drt
+        self.namespace = namespace
+        self.block_size = block_size
+        self.routers: Dict[str, KvRouterService] = {}
+        self.registry = None
+        self.brownout = None        # shared BrownoutState (cli/router)
+        self._sync_tasks: set = set()
+        self._sync_lock = asyncio.Lock()
+
+    async def start(self) -> "FleetKvRouter":
+        from ...fleet.registry import FleetRegistry
+
+        self.registry = FleetRegistry(self.drt.store, self.namespace)
+
+        def on_change(name, spec):
+            # registry hook is sync; the (idempotent, lock-serialized)
+            # sync runs as a retained task
+            spawn(self._sync_model(name, spec),
+                  name=f"fleet-router-sync:{name}",
+                  store=self._sync_tasks)
+
+        self.registry.on_change = on_change
+        await self.registry.start()
+        # the snapshot fired on_change per record; wait for those syncs
+        # so start() returns with routing armed for the known fleet
+        for t in list(self._sync_tasks):
+            await t
+        return self
+
+    async def _sync_model(self, name: str, spec) -> None:
+        async with self._sync_lock:
+            cur = self.routers.get(name)
+            if spec is None:
+                if cur is not None:
+                    del self.routers[name]
+                    await cur.stop()
+                    log.info("fleet router: dropped model %s", name)
+                return
+            if cur is not None and cur.worker_component == spec.component:
+                return
+            if cur is not None:
+                await cur.stop()
+            svc = KvRouterService(self.drt, self.namespace, spec.component,
+                                  block_size=self.block_size, model=name)
+            svc.brownout = self.brownout
+            await svc.start()
+            self.routers[name] = svc
+            log.info("fleet router: routing model %s -> component %s",
+                     name, spec.component)
+
+    async def stop(self) -> None:
+        await cancel_all(self._sync_tasks)
+        for svc in list(self.routers.values()):
+            await svc.stop()
+        self.routers.clear()
+
+    # ------------------------------------------------------------------
+    def _pick(self, model: Optional[str]) -> Optional[KvRouterService]:
+        if model:
+            return self.routers.get(model)
+        if len(self.routers) == 1:
+            # single-model fleet: legacy clients that send no model
+            # field keep working
+            return next(iter(self.routers.values()))
+        return None
+
+    async def route(self, token_ids, lora_id: int = 0,
+                    model: Optional[str] = None, exclude=None) -> Dict:
+        svc = self._pick(model)
+        if svc is None:
+            raise EngineError(
+                f"router: model {model!r} has no routing pool "
+                f"(fleet registry: {sorted(self.routers) or 'empty'})",
+                503, stage="router", reason="unknown_model",
+                retry_after=1.0)
+        return await svc.route(token_ids, lora_id, exclude=exclude)
+
+    def decisions(self, limit: int = 0, model: Optional[str] = None):
+        """Merged audit across models (each entry carries its ``model``
+        stamp), or one model's ring when ``model`` is given."""
+        if model:
+            svc = self.routers.get(model)
+            return svc.decisions(limit) if svc else []
+        merged = [d for svc in self.routers.values()
+                  for d in svc.decisions(0)]
+        merged.sort(key=lambda d: d.get("at", 0.0))
+        return merged[-limit:] if limit else merged
+
+    async def serve(self, component: Component,
+                    endpoint_name: str = "route") -> None:
+        async def handler(request, ctx):
+            yield await self.route(request["token_ids"],
+                                   int(request.get("lora_id", 0)),
+                                   model=request.get("model"),
+                                   exclude=request.get("exclude"))
+
+        await component.endpoint(endpoint_name).serve(handler)
+
+        async def decisions_handler(request, ctx):
+            req = request or {}
+            yield {"decisions": self.decisions(
+                int(req.get("limit", 0) or 0), model=req.get("model"))}
 
         await component.endpoint("decisions").serve(decisions_handler)

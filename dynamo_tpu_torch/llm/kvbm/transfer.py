@@ -65,6 +65,7 @@ class CopyStream:
 
     def __init__(self):
         self._inflight: List[Tuple[torch.cuda.Event, list]] = []
+        self._param_stream = None       # h2d_param_slab's side stream
         self.d2h_bytes = 0
         self.d2h_seconds = 0.0
         self.h2d_bytes = 0
@@ -141,6 +142,45 @@ class CopyStream:
             self._keep_until_done(keep)
         self.h2d_bytes += k.nbytes + v.nbytes
         self.h2d_seconds += time.perf_counter() - t0
+
+    def h2d_param_slab(self, buf: torch.Tensor, start: int,
+                       vals: torch.Tensor) -> torch.Tensor:
+        """Overwrite the layer group ``buf[start:start + G]`` of a stacked
+        ``[L, ...]`` param leaf in place from the host chunk ``vals``
+        (``[G, ...]``; pinned on a card), and return ``buf``: no device
+        buffer is allocated, the leaf keeps its storage (the JAX package
+        donates the old buffer to a ``dynamic_update_slice`` instead).
+
+        On a card the copy runs on this stream's side stream. That stream
+        first waits on the compute stream: the chained decode window
+        enqueues ahead, so the last dispatch before a drain may still be
+        reading the old weights. The compute stream then waits on the
+        copy, so the first dispatch enqueued after it reads the new
+        weights. The source chunk stays referenced until its copy's event
+        has completed."""
+        t0 = time.perf_counter()
+        dst = buf[start:start + vals.shape[0]]
+        if tuple(dst.shape) != tuple(vals.shape):
+            raise ValueError(f"param slab {tuple(vals.shape)} does not fit "
+                             f"{tuple(buf.shape)} at layer {start}")
+        if buf.is_cuda:
+            compute = torch.cuda.current_stream(buf.device)
+            if self._param_stream is None:
+                self._param_stream = torch.cuda.Stream(buf.device)
+            side = self._param_stream
+            side.wait_stream(compute)
+            with torch.cuda.stream(side):
+                dst.copy_(vals, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(side)
+            compute.wait_event(ev)
+            self._retire()
+            self._inflight.append((ev, [vals]))
+        else:
+            dst.copy_(vals)
+        self.h2d_bytes += vals.numel() * vals.element_size()
+        self.h2d_seconds += time.perf_counter() - t0
+        return buf
 
     def scatter_blocks(self, k_pool: torch.Tensor, v_pool: torch.Tensor,
                        pages: Sequence[int], k_blocks: Sequence[torch.Tensor],

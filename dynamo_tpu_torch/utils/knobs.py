@@ -145,6 +145,21 @@ _ALL: List[Knob] = [
     _k("DYN_BOOT_WAIT_QUEUE", "int", "64", "multi_model",
        "max requests parked by queue-until-boot at once; beyond it "
        "requests get an immediate typed 503 (boot_queue_full)"),
+    _k("DYN_FLEET_PREEMPT_MARGIN", "float", "0.5", "multi_model",
+       "SLO-burn advantage a model needs before the chip arbiter "
+       "preempts another model's live replicas (hysteresis against "
+       "replica thrash; higher priority classes preempt regardless)"),
+    _k("DYN_WEIGHT_CACHE_BYTES", "int", str(32 << 30), "multi_model",
+       "per-worker pinned host-RAM weight cache budget (model "
+       "mobility): sibling checkpoints prefetch here while the "
+       "incumbent serves, so a hot-swap pays only the h2d stream"),
+    _k("DYN_SWAP_GROUP_LAYERS", "int", "4", "multi_model",
+       "layers per h2d group during a weight hot-swap (each group is "
+       "one donated in-place slab scatter on the engine's existing "
+       "device buffers)"),
+    _k("DYN_SWAP_DRAIN_TIMEOUT", "float", "120", "multi_model",
+       "seconds a swap command waits for in-flight streams to drain "
+       "before falling back to a counted full reload (never a hang)"),
     # ------------------------------------------------------------ engine
     _k("DYN_PROFILE_DIR", "str", "", "engine",
        "capture a torch.profiler Chrome trace of the first working "

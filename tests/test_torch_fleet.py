@@ -623,8 +623,8 @@ def test_worker_refuses_what_is_not_ported(monkeypatch):
     worker.check_ported(worker.parse_args([]))
     monkeypatch.delenv("DYN_KV_CLUSTER")
     worker.check_ported(worker.parse_args([]))
-    with pytest.raises(SystemExit):
-        router.parse_args(["--fleet"])
+    # the router's fleet mode is ported: it parses
+    assert router.parse_args(["--fleet"]).fleet is True
     # flags default from DYN_* as in the JAX worker (utils/dynconfig.py)
     monkeypatch.setenv("DYN_WORKER_ENGINE", "echo")
     monkeypatch.setenv("DYN_DEVICE", "cpu")

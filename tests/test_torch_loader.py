@@ -655,7 +655,8 @@ print(json.dumps({"code": code, "leaked": leaked}))
 @pytest.mark.parametrize("module", [
     "dynamo_tpu_torch.runtime.store_server", "dynamo_tpu_torch.cli.worker",
     "dynamo_tpu_torch.cli.router", "dynamo_tpu_torch.cli.http",
-    "dynamo_tpu_torch.cli.prefill_worker"])
+    "dynamo_tpu_torch.cli.prefill_worker", "dynamo_tpu_torch.cli.planner",
+    "dynamo_tpu_torch.cli.plannerctl"])
 def test_fleet_entry_points_run_without_the_libraries_the_card_lacks(module):
     """Each process of the fleet starts in an interpreter that cannot import
     any of ``BLOCKED`` (``msgpack`` and ``aiohttp`` among them): the module
