@@ -6041,6 +6041,542 @@ def fleet_plane_phase(torch, att, smi: str, params, serve: dict) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 17: a serving graph through cli.serve, and the operator tools
+# ---------------------------------------------------------------------------
+
+GRAPH_DIR = os.path.join(ROOT, "build", "dynamo_tpu_torch", "graph")
+GRAPH_ENTRY = "dynamo_tpu_torch.examples.llm_graphs:AggRouterGraph"
+GRAPH_START_S = 300           # cli.serve's bring-up: the 8B worker's build
+GRAPH_STOP_S = 90             # LocalServe's 60 s grace, the store's 10 s
+GRAPH_METRICS_S = 0.25        # the worker's metrics interval
+GRAPH_SEED = 1717
+GRAPH_PREFIX_TOKENS = 256     # each prime's full pages (4 of 64 tokens)
+GRAPH_PRIMES = 4
+GRAPH_BURST = 8
+GRAPH_BURSTS = 2
+GRAPH_BURST_TOKENS = 32
+GRAPH_LONG_TOKENS = 1536      # the request dyntop sees in flight
+GRAPH_MEM_SLACK = 256 << 20   # card bytes the stopped graph may leave
+PYTOK_REVERSE = ("async def generate(request, context):\n"
+                 "    for t in reversed(request.token_ids):\n"
+                 "        yield t\n")
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _tool(*argv: str, timeout: float = 120) -> str:
+    """One operator CLI of the port (``python -m``), its stdout; fails on
+    a non-zero exit."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-m", *argv], capture_output=True,
+                       text=True, timeout=timeout, cwd=ROOT, env=env)
+    if r.returncode != 0:
+        raise AssertionError(f"{argv[0]} exited {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    return r.stdout
+
+
+def _children(pid: int) -> dict:
+    """{pid: executable name} of ``pid``'s child processes (from /proc)."""
+    out = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid == pid:
+                out[int(d)] = os.path.basename(os.readlink(f"/proc/{d}/exe"))
+        except (OSError, ValueError, IndexError):
+            continue
+    return out
+
+
+def _graph_yaml(http: int) -> str:
+    """The graph's config, in the YAML subset ``cli.serve`` reads."""
+    page = ENGINE_ARGS["page_size"]
+    return "\n".join([
+        "# the KV-routed graph of the smoke's graph phase",
+        "Frontend:", "  host: 127.0.0.1", f"  port: {http}",
+        "  router_component: router",
+        "Router:", "  worker_component: backend", f"  block_size: {page}",
+        "Worker:", "  engine: torch", "  register_model: true",
+        f"  model_name: {PRESET}", f"  kv_block_size: {page}",
+        f"  metrics_interval: {GRAPH_METRICS_S}",
+        f"  extra_engine_args: '{json.dumps(ENGINE_ARGS)}'", ""])
+
+
+def _stream_held(port: int, body: dict, first: threading.Event,
+                 done: threading.Event, results: dict, key: str) -> None:
+    """A streamed completion that sets ``first`` at its first chunk and
+    hangs up once ``done`` is set (the frontend then stops it)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/completions",
+        data=json.dumps(dict(body, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    n = 0
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        results[key] = dict(status=resp.status)
+        for raw in resp:
+            if raw.startswith(b"data:") and b"[DONE]" not in raw:
+                n += 1
+                first.set()
+            if done.is_set():
+                break
+    results[key]["chunks"] = n
+
+
+async def _graph_requests(store_port: int, http: int, wid: int,
+                          serve_lone: dict) -> dict:
+    """(b), (c) and (d) against the live graph."""
+    import asyncio
+
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.kv_router.indexer import KvIndexer
+    from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent
+    from dynamo_tpu_torch.llm.recorder import KvRecorder
+    from dynamo_tpu_torch.llm.remote import RemoteCoreEngine
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+
+    page = ENGINE_ARGS["page_size"]
+    store = f"127.0.0.1:{store_port}"
+    row: dict = {}
+
+    async def post(body):
+        res: dict = {}
+        await asyncio.to_thread(http_post, http, "/v1/completions", body,
+                                res, "r")
+        return res["r"]
+
+    async def decisions():
+        st, raw = await asyncio.to_thread(http_get, http,
+                                          "/v1/router/decisions")
+        if st != 200:
+            raise AssertionError(f"/v1/router/decisions answered {st}")
+        d = json.loads(raw)
+        return d.get("decisions", d)
+
+    # (b) the serve phase's cold greedy stream, through the graph, after
+    # one warm-up request (the worker's first dispatch), as in the fleet
+    t0 = time.perf_counter()
+    warm = await post({"model": PRESET, "prompt": "warm up", "max_tokens": 4})
+    row["warm_up_s"] = time.perf_counter() - t0
+    if warm["status"] != 200:
+        raise AssertionError(f"the warm-up request failed: {warm}")
+    lone = await asyncio.to_thread(lone_stream, http)
+    # the token ids too (the byte tokenizer drops ids from 256 up): one
+    # seeded greedy request through the router and the worker's data plane
+    gdrt = await DistributedRuntime(store_port=store_port).connect()
+    try:
+        workers = await gdrt.namespace("dynamo").component("backend") \
+            .endpoint("generate").client().start()
+        router = await gdrt.namespace("dynamo").component("router") \
+            .endpoint("route").client().start()
+        await workers.wait_for_instances(1, timeout=60)
+        await router.wait_for_instances(1, timeout=60)
+        lone["greedy_ids"] = await greedy_ids(
+            RemoteCoreEngine(workers, router, model_name=PRESET))
+    finally:
+        await gdrt.close()
+    for key in ("text", "tokens", "greedy_ids"):
+        if lone[key] != serve_lone[key]:
+            raise AssertionError(f"the graph streamed {key} {lone[key]!r}, "
+                                 f"the in-process server "
+                                 f"{serve_lone[key]!r}")
+    row["lone_stream"] = dict(ttft_s=lone["ttft_s"], itl_ms=lone["itl_ms"],
+                              chunks=lone["chunks"])
+
+    # (d) a KvRecorder on the worker component from here on
+    rec_path = os.path.join(GRAPH_DIR, "kv_events.jsonl")
+    if os.path.exists(rec_path):
+        os.remove(rec_path)
+    drt = await DistributedRuntime(store_port=store_port).connect()
+    try:
+        rec = await KvRecorder(rec_path).attach(
+            drt.namespace("dynamo").component("backend"))
+        seq0 = max([d["seq"] for d in await decisions()] or [0])
+        rng = np.random.default_rng(GRAPH_SEED)
+        primes = [rng.integers(32, 127, GRAPH_PREFIX_TOKENS + k + 1).tolist()
+                  for k in range(GRAPH_PRIMES)]
+        prompts = {len(p): p for p in primes}
+        for p in primes:                     # one at a time, events landed
+            r = await post({"model": PRESET, "prompt": p, "max_tokens": 4,
+                            "temperature": 0.0})
+            if r["status"] != 200:
+                raise AssertionError(f"prime failed: {r}")
+            t0 = time.monotonic()
+            while True:
+                rec.flush()
+                idx = KvIndexer(page)
+                KvRecorder(rec_path).replay_into_indexer(idx)
+                if idx.find_matches_for_tokens(p).scores.get(wid, 0) \
+                        >= GRAPH_PREFIX_TOKENS // page:
+                    break
+                if time.monotonic() - t0 > 30:
+                    raise AssertionError("a prime's KV events did not "
+                                         "arrive")
+                await asyncio.sleep(0.05)
+        await asyncio.sleep(0.5)             # the router has them too
+        # (b) two bursts: every prompt a prime's pages and a suffix of a
+        # length of its own (the first is the worker's first 8-lane
+        # prefill)
+        row["bursts"] = []
+        for b in range(GRAPH_BURSTS):
+            burst = {}
+            for i in range(GRAPH_BURST):
+                p = (primes[i % GRAPH_PRIMES][:GRAPH_PREFIX_TOKENS]
+                     + rng.integers(32, 127, 10 + b + 5 * i).tolist())
+                prompts[len(p)] = p
+                # logprobs: a chunk a token (random weights' ids mostly
+                # decode to no text), so the first chunk times the first
+                # token
+                burst[f"b{i}"] = ("/v1/completions", {
+                    "model": PRESET, "prompt": p, "stream": True,
+                    "max_tokens": GRAPH_BURST_TOKENS, "ignore_eos": True,
+                    "temperature": 0.0, "logprobs": 1})
+            results: dict = {}
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=http_post, args=(
+                http, path, body, results, key))
+                for key, (path, body) in burst.items()]
+            for th in threads:
+                th.start()
+            for th in threads:
+                await asyncio.to_thread(th.join, 600)
+            wall = time.perf_counter() - t0
+            for key in burst:
+                r = results.get(key)
+                if r is None or r["status"] != 200 or not r.get("done") \
+                        or r["usage"]["completion_tokens"] \
+                        != GRAPH_BURST_TOKENS:
+                    raise AssertionError(f"burst {b} request {key} failed: "
+                                         f"{r}")
+            tokens = sum(r["usage"]["completion_tokens"]
+                         for r in results.values())
+            ttfts = sorted(r["ttft_s"] for r in results.values())
+            row["bursts"].append(dict(
+                requests=GRAPH_BURST, wall_s=wall, completion_tokens=tokens,
+                tok_s=tokens / wall, ttft_s_min=ttfts[0],
+                ttft_s_median=ttfts[len(ttfts) // 2], ttft_s_max=ttfts[-1],
+                first_rid=results["b0"]["rid"]))
+        await asyncio.sleep(0.5)
+        rec.close()
+    finally:
+        await drt.close()
+
+    # (d) replayed: each decision's overlap from the events recorded
+    # before it, and the whole capture through replay_into_indexer
+    events = []
+    with open(rec_path) as f:
+        for line in f:
+            d = json.loads(line)
+            events.append((d["ts"], d["event"]["payload"]))
+    live = [d for d in await decisions() if d["seq"] > seq0]
+    if len(live) != GRAPH_PRIMES + GRAPH_BURSTS * GRAPH_BURST:
+        raise AssertionError(f"{len(live)} decisions for "
+                             f"{GRAPH_PRIMES + GRAPH_BURSTS * GRAPH_BURST} "
+                             f"requests")
+    compared = []
+    for d in live:
+        toks = prompts[d["isl_tokens"]]
+        idx = KvIndexer(page)
+        for ts, payload in events:
+            if ts <= d["at"]:
+                idx.apply_sync(RouterEvent.from_dict(payload))
+        got = idx.find_matches_for_tokens(toks).scores.get(d["worker_id"], 0)
+        compared.append((d["isl_tokens"], d["overlap_blocks"], got))
+        if got != d["overlap_blocks"]:
+            raise AssertionError(f"replayed overlap {got} for the "
+                                 f"{d['isl_tokens']}-token prompt, the live "
+                                 f"router's {d['overlap_blocks']}: "
+                                 f"{compared}")
+    full = KvIndexer(page)
+    applied = KvRecorder(rec_path).replay_into_indexer(full)
+    prime_blocks = [full.find_matches_for_tokens(p).scores.get(wid, 0)
+                    for p in primes]
+    if applied != len(events) or prime_blocks != [
+            GRAPH_PREFIX_TOKENS // page] * GRAPH_PRIMES:
+        raise AssertionError(f"replay_into_indexer: {applied} of "
+                             f"{len(events)} events, primes {prime_blocks}")
+    row["replay"] = dict(events=len(events), decisions=len(live),
+                         overlaps=[c[1] for c in compared],
+                         prime_blocks=prime_blocks)
+
+    # (c) the operator tools against the live graph: dyntop while a long
+    # request holds a slot
+    first, done, held = threading.Event(), threading.Event(), {}
+    long_req = threading.Thread(target=_stream_held, args=(
+        http, {"model": PRESET, "prompt": primes[0], "ignore_eos": True,
+               "max_tokens": GRAPH_LONG_TOKENS, "temperature": 0.0,
+               "logprobs": 1},
+        first, done, held, "long"))
+    long_req.start()
+    try:
+        if not await asyncio.to_thread(first.wait, 120):
+            raise AssertionError("the long request streamed nothing")
+        t0 = time.monotonic()
+        calls = 0
+        while True:
+            calls += 1
+            top = await asyncio.to_thread(
+                _tool, "dynamo_tpu_torch.cli.dyntop", "--store", store,
+                "--once", "--plain")
+            rows = [line.split() for line in top.splitlines()
+                    if line.split()[:1] == [f"{wid:x}"]]
+            if rows and int(rows[0][2].split("/")[0]) >= 1 \
+                    and float(rows[0][3]) > 0:
+                seen_s = time.monotonic() - t0
+                break
+            if time.monotonic() - t0 > 60 or not long_req.is_alive():
+                raise AssertionError(f"dyntop never showed worker {wid:x} "
+                                     f"with slots and KV in use:\n{top}")
+            await asyncio.sleep(GRAPH_METRICS_S)
+    finally:
+        done.set()
+        await asyncio.to_thread(long_req.join, 600)
+    if held.get("long", {}).get("status") != 200:
+        raise AssertionError(f"the long request failed: {held}")
+    row["dyntop"] = dict(seen_s=seen_s, calls=calls,
+                         long_chunks=held["long"]["chunks"],
+                         text=top.splitlines())
+    emit({"phase": "graph", "part": "b_d_requests", **row})
+    listed = await asyncio.to_thread(_tool, "dynamo_tpu_torch.cli.ctl",
+                                     "--store", store, "http", "list")
+    if PRESET not in listed:
+        raise AssertionError(f"ctl http list does not name {PRESET}:\n"
+                             f"{listed}")
+    row["ctl_http_list"] = listed.strip().splitlines()
+    rid = row["bursts"][0]["first_rid"]
+    t0 = time.monotonic()
+    while True:
+        out = await asyncio.to_thread(
+            _tool, "dynamo_tpu_torch.cli.tracectl", rid, "--url",
+            f"http://127.0.0.1:{http}", "--json")
+        spans = json.loads(out).get("spans", [])
+        pids = {s["pid"] for s in spans}
+        comps = {s["component"] for s in spans}
+        if len(pids) >= 3 and {"http", "router", "decode_worker"} <= comps:
+            break
+        if time.monotonic() - t0 > 20:
+            raise AssertionError(f"tracectl {rid}: {len(spans)} spans from "
+                                 f"pids {pids}, components {comps}")
+        await asyncio.sleep(0.5)
+    row["tracectl"] = dict(rid=rid, spans=len(spans), pids=len(pids),
+                           components=sorted(comps))
+    return row
+
+
+def _metrics_scrape(fleet: Fleet, name: str, store: str, component: str,
+                    until, timeout: float = 60) -> dict:
+    """Start ``cli.metrics`` as ``name`` on ``component``; its /metrics
+    samples once ``until(samples)`` holds."""
+    import re
+
+    fleet.start(name, "dynamo_tpu_torch.cli.metrics", "--store", store,
+                "--component", component, "--port", "0",
+                "--scrape-interval", str(GRAPH_METRICS_S))
+    line = fleet.wait_line(name, r"metrics aggregator on :\d+", 60)
+    port = int(re.search(r":(\d+)", line).group(1))
+    t0 = time.monotonic()
+    while True:
+        sc = scrape(port)
+        if until(sc):
+            return sc
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"{name}: /metrics never showed what was "
+                                 f"wanted: {sorted(sc)[:40]}")
+        time.sleep(GRAPH_METRICS_S)
+
+
+def _cpu_engines(smi: str) -> dict:
+    """(f): ``cli.run`` with the CPU-level engines, and ``cli.mock_worker``
+    scraped by ``cli.metrics``, each a process on this machine."""
+    import re
+
+    fleet = Fleet(os.path.join(GRAPH_DIR, "cpu_engines"))
+    fleet.env["DYN_TOKEN_ECHO_DELAY_MS"] = "0"
+    pytok = os.path.join(fleet.root, "reverse.py")
+    with open(pytok, "w") as f:
+        f.write(PYTOK_REVERSE)
+    try:
+        fleet.start("store", "dynamo_tpu_torch.runtime.store_server",
+                    "--host", "127.0.0.1", "--port", "0")
+        for name, out in (("pytok", f"pytok:{pytok}"),
+                          ("echo_core", "echo_core")):
+            fleet.start(name, "dynamo_tpu_torch.cli.run", "in=http",
+                        f"out={out}", "--http-host", "127.0.0.1",
+                        "--http-port", "0", "--model-name", "m")
+        line = fleet.wait_line("store", r"listening on \S+:\d+", 60)
+        store = f"127.0.0.1:{line.rsplit(':', 1)[1]}"
+        fleet.start("mock_worker", "dynamo_tpu_torch.cli.mock_worker",
+                    "--store", store, "--component", "mock", "--period",
+                    "0.1", "--total-slots", "8", "--kv-total", "512")
+        texts = {}
+        for name, prompt, want in (("pytok", "abcdef", "fed"),
+                                   ("echo_core", "hello", "hello")):
+            line = fleet.wait_line(name, r"listening on :\d+", 120)
+            port = int(re.search(r":(\d+)", line).group(1))
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/v1/completions",
+                data=json.dumps({"model": "m", "prompt": prompt,
+                                 "max_tokens": len(want)}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                out = json.loads(resp.read())
+            texts[name] = out["choices"][0]["text"]
+            if texts[name] != want \
+                    or out["usage"]["completion_tokens"] != len(want):
+                raise AssertionError(f"out={name} answered {out} for "
+                                     f"{prompt!r}, want {want!r}")
+        sc = _metrics_scrape(
+            fleet, "metrics", store, "mock",
+            lambda s: _total(s, "llm_requests_total_slots",
+                             component="mock") == 8
+            and _total(s, "llm_kv_blocks_total", component="mock") == 512)
+        return dict(texts=texts,
+                    mock_gauges={k: v for k, v in sc.items()
+                                 if 'component="mock"' in k},
+                    card=smi)
+    finally:
+        fleet.stop()
+
+
+def graph_phase(torch, smi: str, serve: dict) -> dict:
+    """``python -m dynamo_tpu_torch.cli.serve`` brings up the KV-routed
+    graph (store, frontend, router, one Llama-3-8B worker on the card) as
+    a user would, from a YAML config; requests go through its frontend
+    (the serve phase's cold greedy stream, a burst); dyntop, ctl,
+    tracectl and cli.metrics read the live graph; a KvRecorder's capture
+    replays into the live router's overlaps; SIGTERM stops the graph and
+    frees the card; then the CPU-level engines of ``cli.run`` and the mock
+    worker run on this machine."""
+    import asyncio
+    import re
+
+    t_phase = time.perf_counter()
+    os.makedirs(GRAPH_DIR, exist_ok=True)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0] if DEVICE == "cuda" else None
+    http = _free_port()
+    cfg_path = os.path.join(GRAPH_DIR, "agg_router.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(_graph_yaml(http))
+    fleet = Fleet(GRAPH_DIR)
+    row: dict = dict(phase="graph", entry=GRAPH_ENTRY, card=smi,
+                     preset=PRESET, engine=ENGINE_ARGS)
+    try:
+        # (a) bring-up
+        t0 = time.perf_counter()
+        serve_proc = fleet.start(
+            "serve", "dynamo_tpu_torch.cli.serve", GRAPH_ENTRY, "--config",
+            cfg_path, "--platform", "cuda" if DEVICE == "cuda" else "cpu",
+            "--total-chips", "1")
+        line = fleet.wait_line("serve", r"serving \S+ \(store \S+\)",
+                               GRAPH_START_S)
+        row["bring_up_s"] = time.perf_counter() - t0
+        store_port = int(re.search(r"store \S+:(\d+)\)", line).group(1))
+        log = fleet.log("serve")
+        planes = {}
+        for svc, kind in re.findall(
+                r"^\[(\w+)\] .*data plane: (\w+) on port", log, re.M):
+            planes.setdefault(svc, set()).add(kind)
+        kids = _children(serve_proc.pid)
+        stores = [p for p, exe in kids.items() if exe.startswith("dynstore-")]
+        # as Fleet.planes: every data plane native, and the services that
+        # serve endpoints (the router, the worker) have one; the frontend
+        # serves none
+        if not {"router", "backend"} <= set(planes) \
+                or any(k != {"native"} for k in planes.values()) \
+                or len(stores) != 1 or len(kids) != 4:
+            raise AssertionError(f"graph children not on the native plane "
+                                 f"and store: planes {planes}, children "
+                                 f"{kids}")
+        wid = int(re.search(r"DYNAMO_SERVICE_READY backend worker=([0-9a-f]+)",
+                            log).group(1), 16)
+        row.update(children=sorted(kids.values()), worker=f"{wid:x}",
+                   planes={k: sorted(v) for k, v in planes.items()})
+        emit({"phase": "graph", "part": "a_bring_up",
+              "bring_up_s": row["bring_up_s"], "children": row["children"],
+              "planes": row["planes"]})
+        t0 = time.monotonic()
+        while PRESET not in http_get(http, "/v1/models")[1].decode():
+            if time.monotonic() - t0 > 60:
+                raise AssertionError("the graph's frontend never listed "
+                                     "the model")
+            time.sleep(0.1)
+        # the worker's counters before the requests, from cli.metrics
+        store = f"127.0.0.1:{store_port}"
+        sc0 = _metrics_scrape(fleet, "metrics", store, "backend",
+                              lambda s: f"{wid:x}" in _per_worker(
+                                  s, "dyn_engine_dispatches_total", "kind"))
+        mport = int(re.search(r"aggregator on :(\d+)",
+                              fleet.log("metrics")).group(1))
+        # (b)-(d)
+        row.update(asyncio.run(_graph_requests(store_port, http, wid,
+                                               serve["lone_stream"])))
+        from dynamo_tpu_torch.models.llama import preset
+
+        L = preset(PRESET).num_layers
+        on_card = DEVICE == "cuda"        # the wrappers count card launches
+        time.sleep(8 * GRAPH_METRICS_S)   # the last publish and scrape
+        sc = scrape(mport)
+        counts = _delta(_counts(sc0, f"{wid:x}"), _counts(sc, f"{wid:x}"))
+        if not (counts["prefill"] > 0 and counts["decode_step"] > 0
+                and counts["flash"] == L * counts["prefill"] * on_card
+                and counts["paged"] == L * counts["decode_step"] * on_card
+                and (counts["flash"] > 0) == on_card
+                and (counts["paged"] > 0) == on_card):
+            raise AssertionError(f"the graph worker's kernel launches do "
+                                 f"not account for its dispatches: {counts}")
+        row.update(counts=counts, flash_launches=counts["flash"],
+                   paged_launches=counts["paged"])
+        # (e) stop: SIGTERM to cli.serve, every child and the store gone
+        t0 = time.perf_counter()
+        serve_proc.terminate()
+        serve_proc.wait(timeout=GRAPH_STOP_S)
+        row["stop_s"] = time.perf_counter() - t0
+        if serve_proc.returncode != 0 or "serve stopped" not in fleet.log(
+                "serve"):
+            raise AssertionError(f"cli.serve exited {serve_proc.returncode}"
+                                 f":\n{fleet.log('serve')[-3000:]}")
+        alive = [p for p in kids if os.path.exists(f"/proc/{p}")]
+        if alive:
+            raise AssertionError(f"graph children still alive after stop: "
+                                 f"{alive}")
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            while torch.cuda.mem_get_info()[0] < free0 - GRAPH_MEM_SLACK:
+                if time.monotonic() - t0 > 30:
+                    raise AssertionError(
+                        f"the card holds {free0 - torch.cuda.mem_get_info()[0]}"
+                        f" bytes more than before the graph")
+                time.sleep(0.5)
+            row["card_free_bytes"] = dict(
+                before=free0, after=torch.cuda.mem_get_info()[0])
+        emit({"phase": "graph", "part": "e_stop", "stop_s": row["stop_s"],
+              "card_free_bytes": row.get("card_free_bytes")})
+    finally:
+        fleet.stop()
+    # (f) the CPU-level engines on this machine
+    row["cpu_engines"] = _cpu_engines(smi)
+    row.update(loop_wedges_s=fleet.wedges(),
+               phase_s=time.perf_counter() - t_phase)
+    emit(row)
+    return row
+
+
 def main() -> int:
     import gc
 
@@ -6133,6 +6669,7 @@ def main() -> int:
     spec = spec_phase(torch, att, smi, params)
     kvpage = kvpage_phase(torch, att, smi, params)
     fplane = fleet_plane_phase(torch, att, smi, params, serve)
+    graph = graph_phase(torch, smi, serve)
     del params      # the HTTP engine draws the same weights from the seed
     # the phases' engines sit in reference cycles with their weights:
     # collect them before the next engine draws its own
@@ -6161,6 +6698,7 @@ def main() -> int:
              moe_launches=moe["flash_launches"],
              kvpage_launches=sum(kvpage["launches"]["flash"].values()),
              fleet_plane_launches=fplane["flash_launches"],
+             graph_launches=graph["flash_launches"],
              verify_ms={"t5": verify5["ms"], "t2": verify2["ms"]},
              verify_bound_frac={"t5": verify5["bound_frac"],
                                 "t2": verify2["bound_frac"]},
@@ -6184,6 +6722,7 @@ def main() -> int:
              moe_launches=moe["paged_launches"],
              kvpage_launches=sum(kvpage["launches"]["paged"].values()),
              fleet_plane_launches=fplane["paged_launches"],
+             graph_launches=graph["paged_launches"],
              max_abs_err=paged["max_abs_err"], ms=paged["ms"],
              plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
              bound_by=paged["bound_by"], bound_frac=paged["bound_frac"],

@@ -47,11 +47,8 @@ PREFILL_COMPONENT = "prefill"   # stage-metrics component tag
 log = logging.getLogger("dynamo_tpu_torch.prefill_worker")
 
 
-async def build_engine(args):
-    """The prefill worker's torch engine, built on an executor thread; a
-    caller that can builds it before connecting to the store, so no lease
-    exists while the import and bring-up hold the event loop
-    (``cli.worker.build_engine``)."""
+def make_engine(args):
+    """The prefill worker's torch engine, built on the calling thread."""
     from ..engine.engine import TorchEngine, TorchEngineConfig
 
     if args.model_path:
@@ -61,9 +58,15 @@ async def build_engine(args):
     card.kv_block_size = args.kv_block_size
     extra = json.loads(args.extra_engine_args) if args.extra_engine_args else {}
     extra.setdefault("device", args.device)
-    cfg = TorchEngineConfig.from_card(card, **extra)
+    return TorchEngine(TorchEngineConfig.from_card(card, **extra))
+
+
+async def build_engine(args):
+    """:func:`make_engine` on an executor thread; a caller that can builds
+    it before connecting to the store, so no lease exists while the import
+    and bring-up hold the event loop (``cli.worker.build_engine``)."""
     return await asyncio.get_running_loop().run_in_executor(
-        None, lambda: TorchEngine(cfg))
+        None, lambda: make_engine(args))
 
 
 async def run_prefill_worker(args, *,

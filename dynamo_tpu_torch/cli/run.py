@@ -1,7 +1,8 @@
 """Single-binary style launcher: ``python -m dynamo_tpu_torch.cli.run in=... out=...``
 
-Input modes:  http | text | batch:<file.jsonl> | none
-Output modes: torch | echo_full | dyn://namespace.component.endpoint
+Input modes:  http | text | stdin | batch:<file.jsonl> | none
+Output modes: torch | echo_core | echo_full | pystr:<file.py> |
+pytok:<file.py> | dyn://namespace.component.endpoint
 
 ``out=torch`` serves a Llama-family model on the torch engine, on the card
 unless ``--device cpu`` is given; ``--extra-engine-args`` takes the engine
@@ -13,6 +14,12 @@ are random, made from the engine seed. A VLM preset (``tiny-gemma3-vlm``)
 takes ``image_url`` chat parts as PNG data URLs. ``out=dyn://ns.component.endpoint``
 drives a remote worker's core engine (``cli.worker``, torch or JAX) over
 the runtime's data plane, found through the store at ``--store``.
+``out=echo_core`` echoes the prompt's tokens through the preprocessor and
+backend, ``out=echo_full`` its text with no tokenizer at all.
+``out=pystr:file.py`` / ``out=pytok:file.py`` serve the ``async def
+generate(request, context)`` a user file defines, at the text or the token
+level (``llm/python_engine.py``). ``in=stdin`` sends all of standard input
+as one chat prompt and prints the answer.
 
 Reference capability: launch/dynamo-run (lib.rs:53-456, opt.rs, flags.rs,
 input/{http,text,batch}.rs) — the in=X out=Y matrix, model flags, and the
@@ -25,6 +32,7 @@ import argparse
 import asyncio
 import json
 import statistics
+import sys
 import time
 from typing import Any, Dict, List, Optional
 
@@ -99,9 +107,9 @@ def vlm_card_wiring(card: ModelDeploymentCard, model) -> None:
 
 def make_engines(args, card: ModelDeploymentCard):
     """Returns (chat_engine, completion_engine, core) at the OpenAI level;
-    ``core`` is the torch engine (None for echo)."""
+    ``core`` is the torch engine (None for the others)."""
     out = args.output
-    if out == "echo_full":
+    if out in ("echo_core", "echo_full"):
         return (build_chat_engine(card, out), build_completion_engine(card, out),
                 None)
     if out == "torch":
@@ -120,6 +128,13 @@ def make_engines(args, card: ModelDeploymentCard):
         core = TorchEngine(cfg)
         return (build_chat_engine(card, "core", core),
                 build_completion_engine(card, "core", core), core)
+    if out.startswith(("pystr:", "pytok:")):
+        from ..llm.python_engine import PythonEngineError, build_python_engines
+
+        try:
+            return (*build_python_engines(out, card), None)
+        except PythonEngineError as e:
+            raise SystemExit(str(e))
     if out.startswith("dyn://"):
         # async connect: handled by connect_remote_engines in amain
         raise AssertionError("dyn:// handled before make_engines")
@@ -206,6 +221,12 @@ async def run_text(args, card, chat_engine, _completion_engine) -> None:
             await _ask(chat_engine, card, line, args.max_tokens)
 
 
+async def run_stdin(args, card, chat_engine, _c) -> None:
+    data = sys.stdin.read()
+    if data.strip():
+        await _ask(chat_engine, card, data, args.max_tokens)
+
+
 async def run_batch(args, card, chat_engine, _c, path: str) -> Dict[str, Any]:
     """JSONL load generator: one {"text": ...} (or {"prompt": ...}) per line.
     Reports latency/throughput stats."""
@@ -276,6 +297,8 @@ async def amain(argv: Optional[List[str]] = None) -> None:
             await run_http(args, card, chat_engine, completion_engine)
         elif mode == "text":
             await run_text(args, card, chat_engine, completion_engine)
+        elif mode == "stdin":
+            await run_stdin(args, card, chat_engine, completion_engine)
         elif mode.startswith("batch:"):
             await run_batch(args, card, chat_engine, completion_engine,
                             mode.split(":", 1)[1])

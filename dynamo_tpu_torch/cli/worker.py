@@ -104,23 +104,26 @@ def _engine_cfg(args, card: ModelDeploymentCard):
     return TorchEngineConfig.from_card(card, **extra)
 
 
-async def build_engine(args, card: Optional[ModelDeploymentCard] = None):
-    """The worker's engine: a :class:`TorchEngine` (``--engine torch``) or
-    the echo engine, built on an executor thread. A caller that can builds
-    it before it connects to the store: the engine module's import (the
-    process's first ``import torch``) runs on the event loop and holds it
-    for seconds on a busy host, and the bring-up competes with the loop
-    for the interpreter lock; with no lease granted yet there is no
-    keepalive to starve."""
+def make_engine(args, card: Optional[ModelDeploymentCard] = None):
+    """The worker's engine, built on the calling thread: a
+    :class:`TorchEngine` (``--engine torch``) or the echo engine."""
     if args.engine != "torch":
         from ..llm.engines import EchoCoreEngine
 
         return EchoCoreEngine()
     from ..engine.engine import TorchEngine
 
-    cfg = _engine_cfg(args, card or _build_card(args))
+    return TorchEngine(_engine_cfg(args, card or _build_card(args)))
+
+
+async def build_engine(args, card: Optional[ModelDeploymentCard] = None):
+    """:func:`make_engine` on an executor thread. A caller that can builds
+    it before it connects to the store: the engine module's import (the
+    process's first ``import torch``) and the bring-up compete with the
+    event loop for the interpreter lock for seconds on a busy host; with
+    no lease granted yet there is no keepalive to starve."""
     return await asyncio.get_running_loop().run_in_executor(
-        None, lambda: TorchEngine(cfg))
+        None, lambda: make_engine(args, card))
 
 
 async def _connect_drt(args) -> DistributedRuntime:

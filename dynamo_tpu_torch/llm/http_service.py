@@ -314,76 +314,23 @@ async def _read_request(reader: asyncio.StreamReader,
 
 
 # ---------------------------------------------------------------------------
-# the service
+# the server and the service
 # ---------------------------------------------------------------------------
-class HttpService:
-    def __init__(self, manager: Optional[ModelManager] = None,
-                 host: str = "0.0.0.0", port: int = 8080, store=None,
-                 namespace: Optional[str] = None,
-                 router_decisions=None, admission=None, tenants=None):
-        self.manager = manager or ModelManager()
+class HttpServer:
+    """The HTTP/1.1 server under the port's HTTP surfaces: kept-alive
+    connections, pipelined requests answered in order, chunked bodies,
+    405 with ``Allow`` and 404 as aiohttp answers them. ``routes`` maps
+    ``(method, pattern)`` to an ``async (Request) -> Response`` handler; a
+    pattern's ``{name}`` segments land in ``req.match_info``. A handler
+    in ``_streaming`` also takes the connection's writer and may write the
+    response itself (returning the :class:`StreamResponse` it wrote)."""
+
+    def __init__(self, host: str = "0.0.0.0", port: int = 8080,
+                 routes: Optional[Dict] = None):
         self.host = host
         self.port = port
-        # overload control (utils/overload.py): admission gate (DYN_ADMIT_*
-        # knobs; inert when none are set) + this process's view of the
-        # fleet brownout level
-        self.admission = admission if admission is not None \
-            else overload.AdmissionController.from_env()
-        # per-tenant quotas (x-tenant header): DYN_TENANT_QUOTAS env table.
-        # Inert when no tenant has a quota.
-        self.tenants = tenants if tenants is not None \
-            else overload.TenantAdmission.from_env()
-        self.brownout = overload.BrownoutState()
-        # fleet plane hooks (the JAX package's discovery-mode frontend
-        # wires both): async () -> {model: status_dict} for GET /v1/models,
-        # and () -> set of registry model names, whose 404s are labelled
-        # and may park until a replica boots (queue-until-boot)
-        self.fleet_status = None
-        self.known_models = None
-        # optional store client: /v1/traces fetches spans published by
-        # other processes, /metrics and /v1/flows merge their stage dumps,
-        # /v1/incidents reads capture beacons — scoped to ``namespace``.
-        # The store-backed helpers arrive with the port's runtime; with
-        # store=None (the single-process CLI) every view is local-only.
-        self.store = store
-        self.namespace = namespace
-        # optional async callable ``(limit) -> list | None``: the KV
-        # router's decision-audit ring; unset without a router
-        self.router_decisions = router_decisions
-        # set when this frontend also publishes its own stage dump: the
-        # store scrape then skips that key
-        self.stage_worker_id: Optional[int] = None
-        # queue-until-boot (DYN_BOOT_WAIT): requests parked at ingress
-        self._boot_parked = 0
-        self.stage = stage_metrics()
-        self.registry = Registry()
-        m = self.registry
-        self.m_requests = m.counter(
-            "dyn_http_requests_total", "HTTP requests",
-            ("model", "endpoint", "status", "tenant"))
-        self.m_inflight = m.gauge(
-            "dyn_http_inflight_requests", "In-flight requests", ("model",))
-        self.m_duration = m.histogram(
-            "dyn_http_request_duration_seconds", "Request duration",
-            ("model", "endpoint"))
-        self.m_ttft = m.histogram(
-            "dyn_http_time_to_first_token_seconds", "Time to first streamed token",
-            ("model",))
-        self.m_tokens = m.counter(
-            "dyn_http_output_tokens_total", "Completion tokens produced", ("model",))
-        self._routes = {
-            ("POST", "/v1/chat/completions"): self._chat,
-            ("POST", "/v1/completions"): self._completions,
-            ("GET", "/v1/models"): self._models,
-            ("GET", "/v1/traces"): self._list_traces,
-            ("GET", "/v1/traces/{request_id}"): self._get_trace,
-            ("GET", "/v1/router/decisions"): self._router_decisions,
-            ("GET", "/v1/incidents"): self._list_incidents,
-            ("GET", "/v1/incidents/{incident_id}"): self._get_incident,
-            ("GET", "/v1/flows"): self._list_flows,
-            ("GET", "/health"): self._health,
-            ("GET", "/metrics"): self._metrics,
-        }
+        self._routes: Dict = dict(routes or {})
+        self._streaming: set = set()
         self._server: Optional[asyncio.base_events.Server] = None
         self._conns: set = set()
 
@@ -402,12 +349,6 @@ class HttpService:
         return self.port
 
     async def stop(self) -> None:
-        pub = getattr(self, "_stage_pub_task", None)
-        if pub is not None:          # discovery-mode stage publish loop
-            pub.cancel()
-        obs_h = getattr(self, "_obs_handle", None)
-        if obs_h is not None:        # discovery-mode flight-recorder plane
-            await obs_h.stop()
         server, self._server = self._server, None
         if server is not None:
             server.close()
@@ -499,13 +440,93 @@ class HttpService:
                 allowed.append(method)
                 continue
             req.match_info = match
-            if handler in (self._chat, self._completions):
+            if handler in self._streaming:
                 return await handler(req, writer)
             return await handler(req)
         if allowed:
             return _plain(405, "405: Method Not Allowed",
                           {"Allow": ",".join(allowed)})
         return _plain(404, "404: Not Found")
+
+
+class HttpService(HttpServer):
+    def __init__(self, manager: Optional[ModelManager] = None,
+                 host: str = "0.0.0.0", port: int = 8080, store=None,
+                 namespace: Optional[str] = None,
+                 router_decisions=None, admission=None, tenants=None):
+        super().__init__(host, port)
+        self.manager = manager or ModelManager()
+        # overload control (utils/overload.py): admission gate (DYN_ADMIT_*
+        # knobs; inert when none are set) + this process's view of the
+        # fleet brownout level
+        self.admission = admission if admission is not None \
+            else overload.AdmissionController.from_env()
+        # per-tenant quotas (x-tenant header): DYN_TENANT_QUOTAS env table.
+        # Inert when no tenant has a quota.
+        self.tenants = tenants if tenants is not None \
+            else overload.TenantAdmission.from_env()
+        self.brownout = overload.BrownoutState()
+        # fleet plane hooks (the JAX package's discovery-mode frontend
+        # wires both): async () -> {model: status_dict} for GET /v1/models,
+        # and () -> set of registry model names, whose 404s are labelled
+        # and may park until a replica boots (queue-until-boot)
+        self.fleet_status = None
+        self.known_models = None
+        # optional store client: /v1/traces fetches spans published by
+        # other processes, /metrics and /v1/flows merge their stage dumps,
+        # /v1/incidents reads capture beacons — scoped to ``namespace``.
+        # The store-backed helpers arrive with the port's runtime; with
+        # store=None (the single-process CLI) every view is local-only.
+        self.store = store
+        self.namespace = namespace
+        # optional async callable ``(limit) -> list | None``: the KV
+        # router's decision-audit ring; unset without a router
+        self.router_decisions = router_decisions
+        # set when this frontend also publishes its own stage dump: the
+        # store scrape then skips that key
+        self.stage_worker_id: Optional[int] = None
+        # queue-until-boot (DYN_BOOT_WAIT): requests parked at ingress
+        self._boot_parked = 0
+        self.stage = stage_metrics()
+        self.registry = Registry()
+        m = self.registry
+        self.m_requests = m.counter(
+            "dyn_http_requests_total", "HTTP requests",
+            ("model", "endpoint", "status", "tenant"))
+        self.m_inflight = m.gauge(
+            "dyn_http_inflight_requests", "In-flight requests", ("model",))
+        self.m_duration = m.histogram(
+            "dyn_http_request_duration_seconds", "Request duration",
+            ("model", "endpoint"))
+        self.m_ttft = m.histogram(
+            "dyn_http_time_to_first_token_seconds", "Time to first streamed token",
+            ("model",))
+        self.m_tokens = m.counter(
+            "dyn_http_output_tokens_total", "Completion tokens produced", ("model",))
+        self._routes = {
+            ("POST", "/v1/chat/completions"): self._chat,
+            ("POST", "/v1/completions"): self._completions,
+            ("GET", "/v1/models"): self._models,
+            ("GET", "/v1/traces"): self._list_traces,
+            ("GET", "/v1/traces/{request_id}"): self._get_trace,
+            ("GET", "/v1/router/decisions"): self._router_decisions,
+            ("GET", "/v1/incidents"): self._list_incidents,
+            ("GET", "/v1/incidents/{incident_id}"): self._get_incident,
+            ("GET", "/v1/flows"): self._list_flows,
+            ("GET", "/health"): self._health,
+            ("GET", "/metrics"): self._metrics,
+        }
+        self._streaming = {self._chat, self._completions}
+
+    async def stop(self) -> None:
+        pub = getattr(self, "_stage_pub_task", None)
+        if pub is not None:          # discovery-mode stage publish loop
+            pub.cancel()
+        obs_h = getattr(self, "_obs_handle", None)
+        if obs_h is not None:        # discovery-mode flight-recorder plane
+            await obs_h.stop()
+        await super().stop()
+
 
     # ------------------------------------------------------------------
     # observability routes

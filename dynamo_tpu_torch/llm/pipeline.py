@@ -188,23 +188,44 @@ class OpenAICompletionEngine(AsyncEngine[CompletionRequest, Dict[str, Any]]):
 
 class FullEngineAdapter(AsyncEngine):
     """Adapts a text-level full engine (streams plain text, e.g.
-    EchoFullEngine) to OpenAI chunk dicts for both chat and completions."""
+    EchoFullEngine or a pystr user engine) to OpenAI chunk dicts for both
+    chat and completions. With a ``tokenizer``, usage counts are derived
+    from the request/response text (full engines have no token stream of
+    their own)."""
 
-    def __init__(self, model: str, engine: AsyncEngine, kind: str = "chat"):
+    def __init__(self, model: str, engine: AsyncEngine, kind: str = "chat",
+                 tokenizer=None):
         self.model = model
         self.engine = engine
         self.kind = kind
+        self.tokenizer = tokenizer
 
     async def generate(self, request, context: Context):
         if self.kind == "chat":
             gen = ChatDeltaGenerator(self.model, request_id=f"chatcmpl-{context.id[:24]}")
         else:
             gen = CompletionDeltaGenerator(self.model, request_id=f"cmpl-{context.id[:24]}")
+        parts = []
         async with contextlib.aclosing(
                 self.engine.generate(request, context)) as stream:
             async for text in stream:
+                if self.tokenizer is not None:
+                    parts.append(text)
                 yield gen.text_chunk(text)
-        yield gen.finish_chunk(FinishReason.STOP)
+        chunk = gen.finish_chunk(FinishReason.STOP)
+        if self.tokenizer is not None:
+            if self.kind == "chat":
+                from .preprocessor import content_text
+
+                prompt_text = "".join(content_text(m.get("content"))
+                                      for m in request.messages)
+            else:
+                prompt_text = (request.prompt
+                               if isinstance(request.prompt, str) else "")
+            chunk["usage"] = usage_dict(
+                len(self.tokenizer.encode(prompt_text)),
+                len(self.tokenizer.encode("".join(parts))))
+        yield chunk
 
 
 def build_chat_engine(card: ModelDeploymentCard, kind: str,

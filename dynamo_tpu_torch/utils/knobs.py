@@ -391,6 +391,11 @@ _ALL: List[Knob] = [
     _k("DYN_TOKEN_ECHO_DELAY_MS", "float", "10", "llm",
        "echo-engine per-token pacing, milliseconds (0 = as fast as "
        "possible; test/bench fixture)"),
+    # --------------------------------------------------------------- sdk
+    _k("DYN_SERVICE_CONFIG", "json", "", "sdk",
+       "service-graph config JSON injected into sdk.serve children"),
+    _k("DYN_SERVICE_CONFIG_FILE", "str", "", "sdk",
+       "path to the service config JSON (set by deploy manifests)"),
 ]
 
 # The regional aggregator daemon (cli/aggregator.py) resolves its flags

@@ -561,7 +561,7 @@ def test_served_greedy_completions_match_jax_cli(hf_checkpoint, monkeypatch,
 
 BLOCKED = ("jax", "dynamo_tpu", "regex", "tokenizers", "transformers",
            "safetensors", "ml_dtypes", "huggingface_hub", "xxhash", "aiohttp",
-           "msgpack", "PIL")
+           "msgpack", "PIL", "yaml")
 
 GUARD = r'''
 import importlib, importlib.abc, json, pkgutil, sys
@@ -656,7 +656,10 @@ print(json.dumps({"code": code, "leaked": leaked}))
     "dynamo_tpu_torch.runtime.store_server", "dynamo_tpu_torch.cli.worker",
     "dynamo_tpu_torch.cli.router", "dynamo_tpu_torch.cli.http",
     "dynamo_tpu_torch.cli.prefill_worker", "dynamo_tpu_torch.cli.planner",
-    "dynamo_tpu_torch.cli.plannerctl"])
+    "dynamo_tpu_torch.cli.plannerctl", "dynamo_tpu_torch.cli.serve",
+    "dynamo_tpu_torch.cli.metrics", "dynamo_tpu_torch.cli.ctl",
+    "dynamo_tpu_torch.cli.dyntop", "dynamo_tpu_torch.cli.tracectl",
+    "dynamo_tpu_torch.cli.mock_worker", "dynamo_tpu_torch.sdk.serve_child"])
 def test_fleet_entry_points_run_without_the_libraries_the_card_lacks(module):
     """Each process of the fleet starts in an interpreter that cannot import
     any of ``BLOCKED`` (``msgpack`` and ``aiohttp`` among them): the module
