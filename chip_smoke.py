@@ -6135,42 +6135,30 @@ def _stream_held(port: int, body: dict, first: threading.Event,
     results[key]["chunks"] = n
 
 
-async def _graph_requests(store_port: int, http: int, wid: int,
-                          serve_lone: dict) -> dict:
-    """(b), (c) and (d) against the live graph."""
+async def _post(http: int, body: dict) -> dict:
     import asyncio
 
-    import numpy as np
+    res: dict = {}
+    await asyncio.to_thread(http_post, http, "/v1/completions", body,
+                            res, "r")
+    return res["r"]
 
-    from dynamo_tpu_torch.llm.kv_router.indexer import KvIndexer
-    from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent
-    from dynamo_tpu_torch.llm.recorder import KvRecorder
+
+async def _graph_greedy(store_port: int, http: int, serve_lone: dict,
+                        what: str = "the graph") -> dict:
+    """The serve phase's cold greedy stream through a KV-routed graph's
+    frontend, after one warm-up request (the worker's first dispatch), as
+    in the fleet; and its token ids through the router and the worker's
+    data plane. Fails unless all equal the in-process server's."""
+    import asyncio
+
     from dynamo_tpu_torch.llm.remote import RemoteCoreEngine
     from dynamo_tpu_torch.runtime.component import DistributedRuntime
 
-    page = ENGINE_ARGS["page_size"]
-    store = f"127.0.0.1:{store_port}"
-    row: dict = {}
-
-    async def post(body):
-        res: dict = {}
-        await asyncio.to_thread(http_post, http, "/v1/completions", body,
-                                res, "r")
-        return res["r"]
-
-    async def decisions():
-        st, raw = await asyncio.to_thread(http_get, http,
-                                          "/v1/router/decisions")
-        if st != 200:
-            raise AssertionError(f"/v1/router/decisions answered {st}")
-        d = json.loads(raw)
-        return d.get("decisions", d)
-
-    # (b) the serve phase's cold greedy stream, through the graph, after
-    # one warm-up request (the worker's first dispatch), as in the fleet
     t0 = time.perf_counter()
-    warm = await post({"model": PRESET, "prompt": "warm up", "max_tokens": 4})
-    row["warm_up_s"] = time.perf_counter() - t0
+    warm = await _post(http, {"model": PRESET, "prompt": "warm up",
+                              "max_tokens": 4})
+    warm_s = time.perf_counter() - t0
     if warm["status"] != 200:
         raise AssertionError(f"the warm-up request failed: {warm}")
     lone = await asyncio.to_thread(lone_stream, http)
@@ -6190,11 +6178,41 @@ async def _graph_requests(store_port: int, http: int, wid: int,
         await gdrt.close()
     for key in ("text", "tokens", "greedy_ids"):
         if lone[key] != serve_lone[key]:
-            raise AssertionError(f"the graph streamed {key} {lone[key]!r}, "
+            raise AssertionError(f"{what} streamed {key} {lone[key]!r}, "
                                  f"the in-process server "
                                  f"{serve_lone[key]!r}")
-    row["lone_stream"] = dict(ttft_s=lone["ttft_s"], itl_ms=lone["itl_ms"],
-                              chunks=lone["chunks"])
+    return dict(warm_up_s=warm_s, lone_stream=dict(
+        ttft_s=lone["ttft_s"], itl_ms=lone["itl_ms"], chunks=lone["chunks"]))
+
+
+async def _graph_requests(store_port: int, http: int, wid: int,
+                          serve_lone: dict) -> dict:
+    """(b), (c) and (d) against the live graph."""
+    import asyncio
+
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.kv_router.indexer import KvIndexer
+    from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent
+    from dynamo_tpu_torch.llm.recorder import KvRecorder
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+
+    page = ENGINE_ARGS["page_size"]
+    store = f"127.0.0.1:{store_port}"
+
+    async def post(body):
+        return await _post(http, body)
+
+    async def decisions():
+        st, raw = await asyncio.to_thread(http_get, http,
+                                          "/v1/router/decisions")
+        if st != 200:
+            raise AssertionError(f"/v1/router/decisions answered {st}")
+        d = json.loads(raw)
+        return d.get("decisions", d)
+
+    # (b) the serve phase's cold greedy stream, through the graph
+    row = await _graph_greedy(store_port, http, serve_lone)
 
     # (d) a KvRecorder on the worker component from here on
     rec_path = os.path.join(GRAPH_DIR, "kv_events.jsonl")
@@ -6577,6 +6595,448 @@ def graph_phase(torch, smi: str, serve: dict) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the graph deployed as an artifact by the port's operator
+# ---------------------------------------------------------------------------
+
+DEPLOY_DIR = os.path.join(ROOT, "build", "dynamo_tpu_torch", "deploy")
+DEPLOY_NAME = "llm"
+DEPLOY_MODULE = "smoke_graphs"      # the graph's module: only the bundle
+DEPLOY_RESYNC_S = 1.0
+DEPLOY_START_S = 300                 # apply to ready: the 8B worker's build
+
+
+def _deploy_resource(http: int, platform: str) -> str:
+    """The deployment, in the YAML subset ``deployctl -f`` reads: the
+    graph phase's services and engine arguments, the worker on one card."""
+    page = ENGINE_ARGS["page_size"]
+    return "\n".join([
+        "# the KV-routed Llama-3-8B graph, deployed from its artifact",
+        "apiVersion: dynamo.tpu/v1alpha1", "kind: DynamoDeployment",
+        "metadata:", f"  name: {DEPLOY_NAME}", "  namespace: default",
+        "spec:", f"  graph: artifact://llm/1#{DEPLOY_MODULE}:AggRouterGraph",
+        f"  platform: {platform}", "  services:",
+        "    frontend:", "      config:", "        host: 127.0.0.1",
+        f"        port: {http}", "        router_component: router",
+        "    router:", "      config:", "        worker_component: backend",
+        f"        block_size: {page}",
+        "    backend:", "      replicas: 1", "      gpus: 1", "      config:",
+        "        engine: torch", "        register_model: true",
+        f"        model_name: {PRESET}", f"        kv_block_size: {page}",
+        f"        metrics_interval: {GRAPH_METRICS_S}",
+        f"        extra_engine_args: '{json.dumps(ENGINE_ARGS)}'", ""])
+
+
+def _ctl(store: str, *argv: str):
+    """``deployctl --store <store> ...``: (exit code, stdout)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-m", "dynamo_tpu_torch.cli.deployctl",
+                        "--store", store, *argv], capture_output=True,
+                       text=True, timeout=120, cwd=ROOT, env=env)
+    return r.returncode, r.stdout
+
+
+def _deploy_status(store: str):
+    rc, out = _ctl(store, "status", DEPLOY_NAME)
+    return json.loads(out) if rc == 0 else None
+
+
+def _compute_pids() -> set:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+def _no_cuda_context(pid: int) -> dict:
+    """Whether ``pid`` holds no CUDA context: it maps no ``libcuda`` and
+    ``nvidia-smi`` lists no compute app of that pid (this process, which
+    holds one, tells whether the listing sees this pid namespace)."""
+    with open(f"/proc/{pid}/maps") as f:
+        libcuda = "libcuda.so" in f.read()
+    pids = _compute_pids() if DEVICE == "cuda" else set()
+    row = dict(libcuda_mapped=libcuda, listed=pid in pids,
+               listing_sees_this_process=os.getpid() in pids)
+    if libcuda or row["listed"]:
+        raise AssertionError(f"the operator (pid {pid}) holds a CUDA "
+                             f"context: {row}")
+    return row
+
+
+def _worker_of(op_pid: int):
+    """(pid, environ) of the operator's card worker."""
+    for pid in _children(op_pid):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+            if f"{DEPLOY_MODULE}:Worker".encode() in argv:
+                with open(f"/proc/{pid}/environ", "rb") as f:
+                    env = dict(kv.decode().split("=", 1)
+                               for kv in f.read().split(b"\0") if b"=" in kv)
+                return pid, env
+        except OSError:
+            continue
+    return None, None
+
+
+def _await_ready(fleet: Fleet, store: str, t0: float, old_pid=None) -> dict:
+    """Polls ``deployctl status`` until ``ready``; fails if it reads ready
+    before the card worker's ``DYNAMO_SERVICE_READY`` line."""
+    seen = []
+    while True:
+        st = _deploy_status(store)
+        state = st and st["state"]
+        if not seen or seen[-1] != state:
+            seen.append(state)
+        if state == "ready":
+            readies = fleet.log("operator").count(
+                "[backend] DYNAMO_SERVICE_READY backend")
+            if readies < (2 if old_pid else 1):
+                raise AssertionError(f"status ready before the worker's "
+                                     f"READY line: {st}")
+            return dict(seconds=time.perf_counter() - t0, states=seen,
+                        ready_replicas=st["readyReplicas"],
+                        conditions=[(c["type"], c["status"], c["message"])
+                                    for c in st["conditions"]])
+        if time.perf_counter() - t0 > DEPLOY_START_S:
+            raise AssertionError(f"deployment not ready in {DEPLOY_START_S} "
+                                 f"s: {st}\n{fleet.log('operator')[-3000:]}")
+        fleet.procs["operator"][0].poll()
+        if fleet.procs["operator"][0].returncode is not None:
+            raise AssertionError(f"the operator exited:\n"
+                                 f"{fleet.log('operator')[-3000:]}")
+        time.sleep(0.25)
+
+
+def _served_counts(mport: int, sc0: dict, wid: str, L: int) -> dict:
+    """The worker's dispatches and launches since ``sc0``; fails unless
+    flash = L x prefill dispatches and paged = L x decode steps."""
+    on_card = DEVICE == "cuda"
+    time.sleep(8 * GRAPH_METRICS_S)   # the last publish and scrape
+    counts = _delta(_counts(sc0, wid), _counts(scrape(mport), wid))
+    if not (counts["prefill"] > 0 and counts["decode_step"] > 0
+            and counts["flash"] == L * counts["prefill"] * on_card
+            and counts["paged"] == L * counts["decode_step"] * on_card):
+        raise AssertionError(f"the deployed worker's kernel launches do not "
+                             f"account for its dispatches: {counts}")
+    return counts
+
+
+def _kube_part(store: str, resource: str) -> dict:
+    """(e): the rendered manifests, and a reconcile through the REST
+    adapter against an apiserver double, scaled by cli.planner's kube
+    connector."""
+    import asyncio
+
+    from dynamo_tpu_torch.cli import planner as planner_cli
+    from dynamo_tpu_torch.deploy import artifacts
+    from dynamo_tpu_torch.deploy.crd import Deployment
+    from dynamo_tpu_torch.deploy.kube import (CR_KIND, FakeKubeApi,
+                                              KubeReconciler, serve_fake_api)
+    from dynamo_tpu_torch.deploy.operator import Operator
+    from dynamo_tpu_torch.deploy.rest_api import RestKubeApi
+    from dynamo_tpu_torch.runtime.store_client import StoreClient
+    from dynamo_tpu_torch.utils import yamlsubset
+
+    path = os.path.join(DEPLOY_DIR, "llm.yaml")
+    rc, text = _ctl(store, "render", "-f", path)
+    docs = [yamlsubset.loads(d) for d in text.split("---\n") if d.strip()]
+    pods = {d["metadata"]["name"]: d["spec"]["template"]["spec"]
+            for d in docs if d["kind"] == "Deployment"}
+    modules = sorted({c["command"][2] for p in pods.values()
+                      for c in p["containers"]})
+    limits = pods[f"{DEPLOY_NAME}-backend"]["containers"][0].get(
+        "resources", {}).get("limits")
+    if rc != 0 or limits != {"nvidia.com/gpu": 1} \
+            or "dynamo_tpu." in text \
+            or any(not m.startswith("dynamo_tpu_torch.") for m in modules):
+        raise AssertionError(f"deployctl render: rc {rc}, worker limits "
+                             f"{limits}, modules {modules}")
+    row: dict = dict(render=dict(kinds=[d["kind"] for d in docs],
+                                 worker_limits=limits, modules=modules))
+
+    artifacts.CACHE_DIR = os.path.join(DEPLOY_DIR, "cache")
+    host, port = store.split(":")
+
+    async def services():
+        client = await StoreClient(host, int(port)).connect()
+        try:
+            return Operator._collect_services(artifacts.load_entry(
+                *await artifacts.resolve(client, f"artifact://llm/1#"
+                                         f"{DEPLOY_MODULE}:AggRouterGraph")))
+        finally:
+            await client.close()
+
+    svc = asyncio.run(services())
+    fake = FakeKubeApi()
+    srv = serve_fake_api(fake)
+    try:
+        url = f"http://127.0.0.1:{srv.server_port}"
+        rec = KubeReconciler(RestKubeApi(url), svc)
+        args = planner_cli.parse_args([
+            "--connector", "kube", "--kube-url", url, "--kube-deployment",
+            DEPLOY_NAME, "--kube-namespace", "default"])
+        conn = planner_cli.build_connector(args, {"decode": "backend"})
+        if type(conn.api) is not RestKubeApi:
+            raise AssertionError(f"the kube connector's api: {conn.api}")
+        dep = Deployment.from_dict(yamlsubset.loads(resource))
+        steps = []
+        for target in (None, 2, 1):
+            if target is not None:
+                asyncio.run(conn.apply("decode", target, None))
+                dep = Deployment.from_dict(
+                    conn.api.get(CR_KIND, "default", DEPLOY_NAME))
+            status = rec.reconcile(dep)
+            child = conn.api.get("Deployment", "default",
+                                 f"{DEPLOY_NAME}-backend")
+            labels = child["spec"]["selector"]["matchLabels"]
+            running = [p for p in conn.api.list("Pod", "default", labels)
+                       if p["status"]["phase"] == "Running"]
+            want = target or 1
+            conds = {c["type"]: c["status"] for c in status["conditions"]}
+            if child["spec"]["replicas"] != want or len(running) != want \
+                    or status["services"]["backend"] != {"want": want,
+                                                         "ready": want} \
+                    or conds != {"Available": "True",
+                                 "Progressing": "False"}:
+                raise AssertionError(f"kube reconcile at {want}: {child}, "
+                                     f"{len(running)} pods, {status}")
+            steps.append(dict(replicas=want, pods=len(running),
+                              conditions=conds,
+                              services=status["services"]))
+        row["kube"] = dict(steps=steps, objects=len(fake.objects),
+                           applies=fake.apply_count)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    return row
+
+
+def deploy_phase(torch, smi: str, serve: dict) -> dict:
+    """The port's deploy layer on the card: a store, the api-store and
+    ``deployctl operator --platform cuda`` as processes; the graph phase's
+    KV-routed Llama-3-8B graph pushed as an artifact under a module name
+    only the bundle has, applied, served (the serve phase's greedy stream),
+    crash-restarted and deleted by the operator; its Kubernetes half on
+    this host; SIGTERM stops the operator with nothing left behind."""
+    import asyncio
+    import hashlib
+    import re
+    import shutil
+    import signal
+
+    from dynamo_tpu_torch.models.llama import preset
+    from dynamo_tpu_torch.runtime.store_client import StoreClient
+
+    t_phase = time.perf_counter()
+    L = preset(PRESET).num_layers
+    os.makedirs(DEPLOY_DIR, exist_ok=True)
+    for sub in ("cache", "objects"):
+        shutil.rmtree(os.path.join(DEPLOY_DIR, sub), ignore_errors=True)
+    on_card = DEVICE == "cuda"
+    platform = "cuda" if on_card else "cpu"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        free0 = torch.cuda.mem_get_info()[0]
+    fleet = Fleet(DEPLOY_DIR)
+    fleet.env["DYNAMO_ARTIFACT_CACHE"] = os.path.join(DEPLOY_DIR, "cache")
+    row: dict = dict(phase="deploy", card=smi, preset=PRESET,
+                     engine=ENGINE_ARGS)
+    try:
+        # (a) bring-up: store, api-store, operator
+        fleet.start("store", "dynamo_tpu_torch.runtime.store_server",
+                    "--host", "127.0.0.1", "--port", "0")
+        line = fleet.wait_line("store", r"listening on \S+:\d+", 60)
+        store = f"127.0.0.1:{line.rsplit(':', 1)[1]}"
+        store_port = int(store.rsplit(":", 1)[1])
+        fleet.start("api", "dynamo_tpu_torch.deploy.api_store", "--store",
+                    store, "--root", "file://" + os.path.join(DEPLOY_DIR,
+                                                              "objects"),
+                    "--port", "0")
+        api = fleet.wait_line("api", r"api-store on \S+", 60).split()[-1]
+        op = fleet.start("operator", "dynamo_tpu_torch.cli.deployctl",
+                         "--store", store, "operator", "--platform",
+                         platform, "--total-chips", "1", "--resync",
+                         str(DEPLOY_RESYNC_S))
+        fleet.wait_line("operator", r"operator watching .* 1 cards", 60)
+        row["operator_context"] = {"started": _no_cuda_context(op.pid)}
+        emit({"phase": "deploy", "part": "a_bring_up",
+              "planes": fleet.planes(), "operator": row["operator_context"]})
+
+        # (b) the artifact: llm_graphs.py as smoke_graphs.py
+        bundle = os.path.join(DEPLOY_DIR, f"{DEPLOY_MODULE}.py")
+        with open(os.path.join(ROOT, "dynamo_tpu_torch", "examples",
+                               "llm_graphs.py"), "rb") as f:
+            data = f.read()
+        with open(bundle, "wb") as f:
+            f.write(data)
+        rc, out = _ctl(store, "push", "llm", bundle, "--api",
+                       f"http://{api}")
+
+        async def descriptor():
+            client = await StoreClient("127.0.0.1", store_port).connect()
+            try:
+                return await client.get("deploy/artifacts/llm/00000001")
+            finally:
+                await client.close()
+
+        desc = json.loads(asyncio.run(descriptor()) or b"{}")
+        digest = hashlib.sha256(data).hexdigest()
+        if rc != 0 or not out.startswith("pushed llm v1 ") \
+                or desc.get("sha256") != digest \
+                or desc.get("size") != len(data):
+            raise AssertionError(f"push: rc {rc} {out!r}, descriptor {desc}")
+        row["artifact"] = dict(size=len(data), sha256=digest,
+                               url=desc["url"])
+        emit({"phase": "deploy", "part": "b_artifact", **row["artifact"]})
+
+        # (c) apply and serve
+        http = _free_port()
+        resource = _deploy_resource(http, platform)
+        with open(os.path.join(DEPLOY_DIR, "llm.yaml"), "w") as f:
+            f.write(resource)
+        t0 = time.perf_counter()
+        rc, out = _ctl(store, "apply", "-f",
+                       os.path.join(DEPLOY_DIR, "llm.yaml"))
+        if rc != 0:
+            raise AssertionError(f"deployctl apply: {rc} {out}")
+        row["apply"] = _await_ready(fleet, store, t0)
+        if "deploying" not in row["apply"]["states"]:
+            raise AssertionError(f"status went to ready without deploying: "
+                                 f"{row['apply']}")
+        row["operator_context"]["serving"] = _no_cuda_context(op.pid)
+        log = fleet.log("operator")
+        planes = {}
+        for svc, kind in re.findall(
+                r"^\[(\w+)\] .*data plane: (\w+) on port", log, re.M):
+            planes.setdefault(svc, set()).add(kind)
+        kids = _children(op.pid)
+        wpid, wenv = _worker_of(op.pid)
+        cache = os.path.join(DEPLOY_DIR, "cache", "llm", "1")
+        if not {"router", "backend"} <= set(planes) \
+                or any(k != {"native"} for k in planes.values()) \
+                or len(kids) != 3 or wpid is None \
+                or wenv.get("DYNAMO_ARTIFACT_PATH") != cache \
+                or wenv.get("CUDA_VISIBLE_DEVICES") != ("0" if on_card
+                                                        else "") \
+                or not os.path.exists(os.path.join(cache,
+                                                   f"{DEPLOY_MODULE}.py")):
+            raise AssertionError(f"deployed children: planes {planes}, "
+                                 f"{kids}, worker {wpid} env "
+                                 f"{ {k: wenv.get(k) for k in ('DYNAMO_ARTIFACT_PATH', 'CUDA_VISIBLE_DEVICES')} if wenv else None}")
+        wid = re.search(r"DYNAMO_SERVICE_READY backend worker=([0-9a-f]+)",
+                        log).group(1)
+        row.update(children=sorted(kids.values()), worker=wid,
+                   planes={k: sorted(v) for k, v in planes.items()},
+                   store_program=fleet.planes()["store"])
+        t0 = time.monotonic()
+        while PRESET not in http_get(http, "/v1/models")[1].decode():
+            if time.monotonic() - t0 > 60:
+                raise AssertionError("the frontend never listed the model")
+            time.sleep(0.1)
+        sc0 = _metrics_scrape(fleet, "metrics", store, "backend",
+                              lambda s: wid in _per_worker(
+                                  s, "dyn_engine_dispatches_total", "kind"))
+        mport = int(re.search(r"aggregator on :(\d+)",
+                              fleet.log("metrics")).group(1))
+        row["served"] = asyncio.run(_graph_greedy(
+            store_port, http, serve["lone_stream"], "the deployed graph"))
+        row["counts"] = _served_counts(mport, sc0, wid, L)
+        emit({"phase": "deploy", "part": "c_apply_serve",
+              "apply_to_ready_s": row["apply"]["seconds"],
+              "states": row["apply"]["states"], "planes": row["planes"],
+              "children": row["children"], "served": row["served"],
+              "counts": row["counts"], "operator": row["operator_context"]})
+
+        # (d) crash restart: SIGKILL the worker
+        t0 = time.perf_counter()
+        os.kill(wpid, signal.SIGKILL)
+        while (_deploy_status(store) or {}).get("state") == "ready":
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError("status stayed ready after the kill")
+            time.sleep(0.1)
+        left_s = time.perf_counter() - t0
+        row["restart"] = _await_ready(fleet, store, t0, old_pid=wpid)
+        row["restart"]["left_ready_s"] = left_s
+        npid, nenv = _worker_of(op.pid)
+        wid2 = re.findall(r"DYNAMO_SERVICE_READY backend worker=([0-9a-f]+)",
+                          fleet.log("operator"))[-1]
+        if npid in (None, wpid) or wid2 == wid \
+                or nenv.get("CUDA_VISIBLE_DEVICES") != wenv.get(
+                    "CUDA_VISIBLE_DEVICES"):
+            raise AssertionError(f"no new worker on the card: {npid} "
+                                 f"(was {wpid}), worker {wid2}")
+        sc1 = _metrics_scrape(fleet, "metrics2", store, "backend",
+                              lambda s: wid2 in _per_worker(
+                                  s, "dyn_engine_dispatches_total", "kind"))
+        mport2 = int(re.search(r"aggregator on :(\d+)",
+                               fleet.log("metrics2")).group(1))
+        row["restart"]["served"] = asyncio.run(_graph_greedy(
+            store_port, http, serve["lone_stream"],
+            "the restarted deployment"))
+        row["restart"]["counts"] = _served_counts(mport2, sc1, wid2, L)
+        row["restart"]["worker"] = wid2
+        emit({"phase": "deploy", "part": "d_crash_restart",
+              "kill_to_ready_s": row["restart"]["seconds"],
+              **{k: row["restart"][k] for k in ("left_ready_s", "states",
+                                                "served", "counts")}})
+
+        # (e) Kubernetes on this host
+        row.update(_kube_part(store, resource))
+        emit({"phase": "deploy", "part": "e_kube", "render": row["render"],
+              "kube": row["kube"]})
+
+        # (f) delete, then stop the operator
+        kids = _children(op.pid)
+        t0 = time.perf_counter()
+        rc, out = _ctl(store, "delete", f"default/{DEPLOY_NAME}")
+        if (rc, out) != (0, "deleted\n"):
+            raise AssertionError(f"deployctl delete: {rc} {out!r}")
+        while [p for p in kids if os.path.exists(f"/proc/{p}")] \
+                or _deploy_status(store) is not None:
+            if time.perf_counter() - t0 > GRAPH_STOP_S:
+                raise AssertionError(f"after delete: children "
+                                     f"{_children(op.pid)}, status "
+                                     f"{_deploy_status(store)}")
+            time.sleep(0.2)
+        row["delete_s"] = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            while torch.cuda.mem_get_info()[0] < free0 - GRAPH_MEM_SLACK:
+                if time.monotonic() - t0 > 30:
+                    raise AssertionError(
+                        f"the card holds "
+                        f"{free0 - torch.cuda.mem_get_info()[0]} bytes more "
+                        f"than before the deployment")
+                time.sleep(0.5)
+            row["card_free_bytes"] = dict(before=free0,
+                                          after=torch.cuda.mem_get_info()[0])
+        t0 = time.perf_counter()
+        op.send_signal(signal.SIGTERM)
+        op.wait(timeout=GRAPH_STOP_S)
+        row["operator_stop_s"] = time.perf_counter() - t0
+        if op.returncode != 0 or "operator stopped" not in fleet.log(
+                "operator") or _children(op.pid):
+            raise AssertionError(f"operator exited {op.returncode}:\n"
+                                 f"{fleet.log('operator')[-3000:]}")
+        emit({"phase": "deploy", "part": "f_delete",
+              "delete_s": row["delete_s"],
+              "card_free_bytes": row.get("card_free_bytes"),
+              "operator_stop_s": row["operator_stop_s"]})
+    finally:
+        fleet.stop()
+    row.update(flash_launches=row["counts"]["flash"]
+               + row["restart"]["counts"]["flash"],
+               paged_launches=row["counts"]["paged"]
+               + row["restart"]["counts"]["paged"],
+               loop_wedges_s=fleet.wedges(),
+               phase_s=time.perf_counter() - t_phase)
+    emit(row)
+    return row
+
+
 def main() -> int:
     import gc
 
@@ -6670,6 +7130,7 @@ def main() -> int:
     kvpage = kvpage_phase(torch, att, smi, params)
     fplane = fleet_plane_phase(torch, att, smi, params, serve)
     graph = graph_phase(torch, smi, serve)
+    deploy = deploy_phase(torch, smi, serve)
     del params      # the HTTP engine draws the same weights from the seed
     # the phases' engines sit in reference cycles with their weights:
     # collect them before the next engine draws its own
@@ -6699,6 +7160,7 @@ def main() -> int:
              kvpage_launches=sum(kvpage["launches"]["flash"].values()),
              fleet_plane_launches=fplane["flash_launches"],
              graph_launches=graph["flash_launches"],
+             deploy_launches=deploy["flash_launches"],
              verify_ms={"t5": verify5["ms"], "t2": verify2["ms"]},
              verify_bound_frac={"t5": verify5["bound_frac"],
                                 "t2": verify2["bound_frac"]},
@@ -6723,6 +7185,7 @@ def main() -> int:
              kvpage_launches=sum(kvpage["launches"]["paged"].values()),
              fleet_plane_launches=fplane["paged_launches"],
              graph_launches=graph["paged_launches"],
+             deploy_launches=deploy["paged_launches"],
              max_abs_err=paged["max_abs_err"], ms=paged["ms"],
              plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
              bound_by=paged["bound_by"], bound_frac=paged["bound_frac"],

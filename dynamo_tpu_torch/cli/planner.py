@@ -19,9 +19,10 @@ processes on cards granted through ``CUDA_VISIBLE_DEVICES`` (``--platform
 cuda``, the default; a torch worker gets one card unless ``--worker-chips``
 says otherwise), or on the CPU with ``--device cpu`` (``--platform cpu``,
 or a pool of zero cards a worker, as echo workers are by default).
-``--connector kube`` needs
-the Kubernetes REST adapter, which comes with the deploy slice (ROADMAP
-Queue 1 item 12e): it raises until then.
+``--connector kube`` patches a ``DynamoDeployment``'s replicas (or, with
+``--kube-mode deployment``, a child Deployment's) through the port's
+Kubernetes REST adapter (``deploy/rest_api.py``), at ``--kube-url`` with
+``--kube-token``, or from the kubeconfig.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ import asyncio
 import logging
 import signal
 
-from ..planner.connectors import LocalConnector, NullConnector, PoolSpec
+from ..planner.connectors import (KubeConnector, LocalConnector,
+                                  NullConnector, PoolSpec)
 from ..planner.loop import Planner, PlannerConfig
 from ..planner.policy import LoadPolicy, SlaPolicy
 from ..planner.profile import ProfileTable
@@ -153,12 +155,17 @@ def build_connector(args, pools):
     if args.connector == "kube":
         if not args.kube_deployment:
             raise SystemExit("--connector kube requires --kube-deployment")
-        # the KubeConnector takes any api with RestKubeApi's get/apply
-        # surface (tests inject one); the port's REST adapter itself is
-        # part of deploy/
-        raise NotImplementedError(
-            "--connector kube: the Kubernetes REST adapter (deploy/) is "
-            "not ported to dynamo_tpu_torch yet (ROADMAP Queue 1 item 12e)")
+        from ..deploy.rest_api import RestKubeApi
+
+        if args.kube_url:
+            api = RestKubeApi(args.kube_url, token=args.kube_token,
+                              insecure_skip_verify=args.kube_insecure)
+        else:
+            api = RestKubeApi.from_kubeconfig()
+        return KubeConnector(api, args.kube_deployment,
+                             kube_namespace=args.kube_namespace,
+                             mode=args.kube_mode,
+                             service_for_pool=dict(pools))
     return NullConnector()
 
 

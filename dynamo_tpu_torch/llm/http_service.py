@@ -60,8 +60,10 @@ from .protocols.openai import (
 
 log = logging.getLogger("dynamo_tpu_torch.http_service")
 
-_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
-            405: "Method Not Allowed", 413: "Payload Too Large",
+_REASONS = {200: "OK", 201: "Created", 204: "No Content",
+            400: "Bad Request", 404: "Not Found",
+            405: "Method Not Allowed", 409: "Conflict",
+            413: "Payload Too Large",
             429: "Too Many Requests", 500: "Internal Server Error",
             502: "Bad Gateway", 503: "Service Unavailable",
             504: "Gateway Timeout"}
@@ -233,8 +235,9 @@ async def _read_line(reader: asyncio.StreamReader) -> bytes:
         return b""
 
 
-async def _read_chunked(reader: asyncio.StreamReader) -> bytes:
-    """A ``Transfer-Encoding: chunked`` body, at most ``MAX_BODY`` bytes."""
+async def _read_chunked(reader: asyncio.StreamReader,
+                        max_body: int = MAX_BODY) -> bytes:
+    """A ``Transfer-Encoding: chunked`` body, at most ``max_body`` bytes."""
     parts = []
     total = 0
     while True:
@@ -250,7 +253,7 @@ async def _read_chunked(reader: asyncio.StreamReader) -> bytes:
         if size == 0:
             break
         total += size
-        if total > MAX_BODY:
+        if total > max_body:
             raise _BadRequest(413, "request body too large")
         parts.append(await reader.readexactly(size))
         if await reader.readexactly(2) != b"\r\n":
@@ -262,7 +265,8 @@ async def _read_chunked(reader: asyncio.StreamReader) -> bytes:
 
 
 async def _read_request(reader: asyncio.StreamReader,
-                        writer: asyncio.StreamWriter) -> Optional[Request]:
+                        writer: asyncio.StreamWriter,
+                        max_body: int = MAX_BODY) -> Optional[Request]:
     """The next request on the connection, or None at a clean close."""
     line = b""
     while not line.strip():                    # skip stray CRLFs
@@ -294,7 +298,7 @@ async def _read_request(reader: asyncio.StreamReader,
     if headers.get("expect", "").lower() == "100-continue":
         writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
     if "chunked" in headers.get("transfer-encoding", "").lower():
-        body = await _read_chunked(reader)
+        body = await _read_chunked(reader, max_body)
     else:
         try:
             length = int(headers.get("content-length", "0"))
@@ -302,7 +306,7 @@ async def _read_request(reader: asyncio.StreamReader,
             raise _BadRequest(400, "invalid Content-Length")
         if length < 0:
             raise _BadRequest(400, "negative Content-Length")
-        if length > MAX_BODY:
+        if length > max_body:
             raise _BadRequest(413, "request body too large")
         body = await reader.readexactly(length) if length else b""
     split = urllib.parse.urlsplit(target)
@@ -321,14 +325,17 @@ class HttpServer:
     connections, pipelined requests answered in order, chunked bodies,
     405 with ``Allow`` and 404 as aiohttp answers them. ``routes`` maps
     ``(method, pattern)`` to an ``async (Request) -> Response`` handler; a
-    pattern's ``{name}`` segments land in ``req.match_info``. A handler
-    in ``_streaming`` also takes the connection's writer and may write the
-    response itself (returning the :class:`StreamResponse` it wrote)."""
+    pattern's ``{name}`` segments land in ``req.match_info`` (a last
+    ``{name:.+}`` takes the rest of the path). A handler in ``_streaming``
+    also takes the connection's writer and may write the response itself
+    (returning the :class:`StreamResponse` it wrote). A body over
+    ``max_body`` bytes is answered 413."""
 
     def __init__(self, host: str = "0.0.0.0", port: int = 8080,
-                 routes: Optional[Dict] = None):
+                 routes: Optional[Dict] = None, max_body: int = MAX_BODY):
         self.host = host
         self.port = port
+        self.max_body = max_body
         self._routes: Dict = dict(routes or {})
         self._streaming: set = set()
         self._server: Optional[asyncio.base_events.Server] = None
@@ -385,7 +392,8 @@ class HttpServer:
         try:
             while True:
                 try:
-                    req = await _read_request(reader, writer)
+                    req = await _read_request(reader, writer,
+                                              self.max_body)
                 except _BadRequest as e:
                     await self._send(writer, _plain(e.code, str(e)), False)
                     return
@@ -1012,10 +1020,20 @@ class HttpService(HttpServer):
 
 def _match(pattern: str, path: str) -> Optional[Dict[str, str]]:
     """aiohttp's route match for a pattern with ``{name}`` segments (one
-    non-empty path segment each): the captured values, or None."""
+    non-empty path segment each) and a last ``{name:.+}`` (the non-empty
+    rest of the path): the captured values, or None."""
     if "{" not in pattern:
         return {} if pattern == path else None
     want, got = pattern.split("/"), path.split("/")
+    if want[-1].endswith(":.+}") and len(got) >= len(want):
+        rest = "/".join(got[len(want) - 1:])
+        if not rest:
+            return None
+        head = _match("/".join(want[:-1]), "/".join(got[:len(want) - 1]))
+        if head is None:
+            return None
+        head[want[-1][1:-4]] = rest
+        return head
     if len(want) != len(got):
         return None
     out: Dict[str, str] = {}

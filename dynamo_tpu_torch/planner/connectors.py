@@ -14,10 +14,9 @@
   plane: ``crd`` mode read-modify-writes ``spec.services[pool].replicas``
   on the DynamoDeployment resource (the reconciler does the rest), and
   ``deployment`` mode patches the child ``apps/v1`` Deployment directly.
-  Works against any api with the ``get``/``apply`` surface of the JAX
-  package's ``deploy.rest_api.RestKubeApi`` (a real apiserver) and
-  ``deploy.kube.FakeKubeApi`` (tests) identically; the port's own REST
-  adapter comes with its deploy slice (ROADMAP Queue 1 item 12e).
+  Works against any api with the ``get``/``apply`` surface of
+  ``deploy.rest_api.RestKubeApi`` (a real apiserver) and
+  ``deploy.kube.FakeKubeApi`` (tests) identically.
 - :class:`NullConnector` — observes-only (also what dry-run effectively
   does, but dry-run still records what WOULD have been applied).
 """

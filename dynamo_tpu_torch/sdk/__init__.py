@@ -22,9 +22,9 @@ classes, and the card allocator the local orchestrators share.
 
 Run locally with ``python -m dynamo_tpu_torch.cli.serve module:Frontend``
 (``sdk.serve.LocalServe``: one process per service worker, cards granted
-by :class:`CudaAllocator`). The JAX package's ``sdk``, decorators and graph
-order alike; the deploy half (manifests, artifacts, the operator) comes
-with ROADMAP Queue 1 item 12e.
+by :class:`CudaAllocator`), or deploy through ``dynamo_tpu_torch.deploy``
+(``cli.deployctl``: the operator, artifacts, Kubernetes manifests). The
+JAX package's ``sdk``, decorators and graph order alike.
 
 Reference capability: deploy/dynamo/sdk (service.py:32-120, decorators.py:
 26-101, dependency.py) re-expressed without the BentoML dependency.

@@ -9,6 +9,10 @@ native data plane unless ``DYNAMO_TPU_DATAPLANE`` says otherwise), wires
 @dynamo_endpoint on the service's component. Prints a READY line on stdout
 once all endpoints are registered (the orchestrator gates on it).
 
+An artifact-deployed graph's bundle directory comes in
+``DYNAMO_ARTIFACT_PATH`` and is appended to ``sys.path``
+(``deploy/artifacts.py``).
+
 The JAX package's ``dynamo_tpu/sdk/serve_child.py``, with two differences
 of the port's own:
 
@@ -31,6 +35,7 @@ import asyncio
 import contextvars
 import importlib
 import logging
+import os
 import sys
 from typing import Optional, Type
 
@@ -135,6 +140,14 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     init_logging()
     sys.path.insert(0, ".")
+    # artifact-deployed graphs: the operator extracts the bundle and hands
+    # its path down (deploy/artifacts.py)
+    apath = os.environ.get("DYNAMO_ARTIFACT_PATH")
+    if apath:
+        # appended, matching load_entry: bundles must not shadow framework
+        # or stdlib imports (and the worker must resolve the same code the
+        # operator resolved)
+        sys.path.append(apath)
     cls = load_class(args.service)
     shell = Worker()
     shell.execute(lambda token: run_service(cls, args.store, shell=shell))

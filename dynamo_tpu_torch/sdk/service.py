@@ -198,6 +198,13 @@ class ServiceConfig:
         return self.data.get(section, default if default is not None else {})
 
     def for_service(self, cls_or_name) -> Dict[str, Any]:
-        name = (cls_or_name if isinstance(cls_or_name, str)
-                else cls_or_name.__name__)
-        return dict(self.data.get(name, {}))
+        """A service's section: the one named after its class, else the
+        one named after its component (the operator and the Kubernetes
+        ConfigMap key a deployment's service config by component name)."""
+        if isinstance(cls_or_name, str):
+            return dict(self.data.get(cls_or_name, {}))
+        section = self.data.get(cls_or_name.__name__)
+        if section is None:
+            spec = getattr(cls_or_name, "_dynamo_spec", None)
+            section = self.data.get(spec.name) if spec is not None else None
+        return dict(section or {})

@@ -396,6 +396,10 @@ _ALL: List[Knob] = [
        "service-graph config JSON injected into sdk.serve children"),
     _k("DYN_SERVICE_CONFIG_FILE", "str", "", "sdk",
        "path to the service config JSON (set by deploy manifests)"),
+    # ------------------------------------------------- dynconfig (derived)
+    _k("DYN_HTTP_PORT", "int", "per-flag", "config",
+       "binary-scoped flag override (DYN_<PROG>_<FLAG>); set by deploy "
+       "manifests for the frontend port", derived=True),
 ]
 
 # The regional aggregator daemon (cli/aggregator.py) resolves its flags

@@ -1,12 +1,20 @@
-"""A reader of the block-mapping subset of YAML that serving configs use.
+"""A reader and a writer of the block subset of YAML that serving configs,
+deployment resources, kubeconfigs and Kubernetes manifests use.
 
 The configs ``cli.serve`` reads (``examples/configs/{agg,agg_router,disagg,
 disagg_router}.yaml``) are sections of ``key: value`` lines, a nested
-mapping or two (``resources:``), comments, and quoted and bare scalars. The
-card's machine has no PyYAML, so the port reads that subset itself:
+mapping or two (``resources:``), comments, and quoted and bare scalars; a
+kubeconfig adds block sequences of mappings (``clusters:``, ``users:``,
+``contexts:``). The card's machine has no PyYAML, so the port reads that
+subset itself (:func:`loads`):
 
 - block mappings at any depth, each level indented further than its key
-  (spaces only), keys unique within a mapping;
+  (spaces only), keys unique within a mapping; the document is a mapping;
+- block sequences as a key's value, their ``- `` items at the key's
+  indent or further: each item a scalar, a mapping whose first key shares
+  the ``- `` line, or a nested sequence;
+- the empty flow collections ``{}`` and ``[]`` as values (a kubeconfig's
+  ``preferences: {}``);
 - plain scalars, resolved as YAML 1.1 (PyYAML's ``safe_load``) resolves
   them: ``~``/``null``/empty to None, ``true``/``yes``/``on`` (and their
   capitalised forms) and the ``false`` set to bools, decimal integers,
@@ -16,12 +24,20 @@ card's machine has no PyYAML, so the port reads that subset itself:
   backslash escapes) on one line, always strings;
 - ``#`` comments on a line of their own or after a value.
 
-Everything else is refused with its line number: sequences, flow
-collections, block scalars (``|``, ``>``), anchors, aliases, tags,
-directives, document markers, multi-line scalars, merge keys, tabs in
-indentation, and the plain forms YAML 1.1 reads in ways easy to misread
-(octal, hex, binary, underscores, sexagesimal, dates). A config outside the
-subset fails loudly; it is never read differently from ``yaml.safe_load``.
+Everything else is refused with its line number: a document that is a
+sequence, flow collections that are not empty, block scalars (``|``, ``>``), anchors,
+aliases, tags, directives, document markers, multi-line scalars, merge
+keys, tabs in indentation, and the plain forms YAML 1.1 reads in ways easy
+to misread (octal, hex, binary, underscores, sexagesimal, dates). A config
+outside the subset fails loudly; it is never read differently from
+``yaml.safe_load``.
+
+:func:`dumps` writes mappings, lists, strings, numbers, bools and None in
+that block style (PyYAML's layout: a sequence at its key's indent), a
+string plain only where the reader and ``yaml.safe_load`` both read it back
+as that string and double-quoted otherwise, an empty mapping or list as
+``{}`` or ``[]``: :func:`loads` reads what it writes as ``yaml.safe_load``
+does.
 """
 
 from __future__ import annotations
@@ -175,6 +191,126 @@ def _split_key(body: str, line: int) -> Tuple[str, str]:
     return key, body[m.end():]
 
 
+_EMPTY = re.compile(r"(\{\}|\[\])(?:[ \t]+#.*)?[ \t]*\Z")
+
+
+def _is_seq_item(body: str) -> bool:
+    return body == "-" or body.startswith(("- ", "-\t"))
+
+
+def _is_key(body: str, line: int) -> bool:
+    """Whether ``body`` starts a ``key: value`` entry (else a scalar)."""
+    if body[0] in "'\"":
+        _, rest = _quoted(body, line)
+        rest = rest.lstrip(" \t")
+        return rest.startswith(":") and rest[1:2] in ("", " ", "\t")
+    m = re.search(r":(?:[ \t]|\Z)", body)
+    hash_at = re.search(r"[ \t]#", body)
+    return m is not None and (hash_at is None or m.start() < hash_at.start())
+
+
+def _scalar(body: str, line: int) -> Any:
+    """The value on the rest of a line (a quoted or a plain scalar, or an
+    empty ``{}`` / ``[]``)."""
+    empty = _EMPTY.match(body)
+    if empty:
+        return {} if empty.group(1) == "{}" else []
+    if body[0] in "'\"":
+        value, after = _quoted(body, line)
+        _after_quoted(after, line)
+        return value
+    return _resolve(_plain(body, line, "value"), line)
+
+
+class _Lines:
+    """The content lines, (line number, indent, body) each; a sequence
+    item's content is re-read in place as a line of its own at the column
+    it starts on."""
+
+    def __init__(self, content: List[Tuple[int, int, str]]):
+        self.items = content
+        self.i = 0
+
+    def peek(self) -> Optional[Tuple[int, int, str]]:
+        return self.items[self.i] if self.i < len(self.items) else None
+
+
+def _block(lines: _Lines, indent: int) -> Any:
+    """The mapping or sequence whose first line is the next one, at
+    ``indent``."""
+    if _is_seq_item(lines.peek()[2]):
+        return _sequence(lines, indent)
+    return _mapping(lines, indent)
+
+
+def _value_after_key(lines: _Lines, indent: int) -> Any:
+    """A ``key:`` with nothing after it: the block below it (more indented,
+    or a sequence at the key's own indent), else None."""
+    nxt = lines.peek()
+    if nxt is None:
+        return None
+    if nxt[1] > indent:
+        return _block(lines, nxt[1])
+    if nxt[1] == indent and _is_seq_item(nxt[2]):
+        return _sequence(lines, indent)
+    return None
+
+
+def _mapping(lines: _Lines, indent: int) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    while True:
+        cur = lines.peek()
+        if cur is None or cur[1] < indent:
+            return out
+        n, ind, body = cur
+        if ind > indent:
+            raise YamlSubsetError(n, "indentation matches no enclosing "
+                                     "mapping (or continues a scalar over "
+                                     "lines)")
+        if _is_seq_item(body):
+            # an item where a key belongs: the caller decides whether a
+            # sequence may continue here
+            return out
+        lines.i += 1
+        key, rest = _split_key(body, n)
+        if key in out:
+            raise YamlSubsetError(n, f"duplicate key {key!r}")
+        value_s = rest.lstrip(" \t")
+        if not value_s or value_s.startswith("#"):
+            out[key] = _value_after_key(lines, indent)
+        else:
+            out[key] = _scalar(value_s, n)
+
+
+def _sequence(lines: _Lines, indent: int) -> List[Any]:
+    out: List[Any] = []
+    while True:
+        cur = lines.peek()
+        if cur is None or cur[1] != indent or not _is_seq_item(cur[2]):
+            if cur is not None and cur[1] > indent:
+                raise YamlSubsetError(cur[0], "indentation matches no "
+                                              "enclosing sequence item")
+            return out
+        n, _, body = cur
+        rest = body[1:].lstrip(" ")
+        if rest.startswith("\t"):
+            raise YamlSubsetError(n, "tabs in indentation")
+        if not rest or rest.startswith("#"):
+            lines.i += 1
+            nxt = lines.peek()
+            out.append(_block(lines, nxt[1]) if nxt is not None
+                       and nxt[1] > indent else None)
+            continue
+        column = indent + len(body) - len(rest)
+        if _is_seq_item(rest) or _is_key(rest, n):
+            # the item's content is a line of its own at its column
+            lines.items[lines.i] = (n, column, rest)
+            out.append(_block(lines, column))
+        else:
+            lines.i += 1
+            out.append(_scalar(rest, n))
+
+
 def loads(text: str) -> Dict[str, Any]:
     """The mapping a config in the subset holds ({} for an empty one)."""
     if text.startswith("\ufeff"):
@@ -194,40 +330,126 @@ def loads(text: str) -> Dict[str, Any]:
             raise YamlSubsetError(n, "directives and document markers are "
                                      "outside the subset")
         content.append((n, indent, body))
-    root: Dict[str, Any] = {}
     if not content:
-        return root
-    # stack of (indent, mapping); a key awaiting a nested mapping is
-    # ``pending`` = (its indent, its mapping, the key)
-    stack: List[Tuple[int, Dict[str, Any]]] = [(content[0][1], root)]
-    pending: Optional[Tuple[int, Dict[str, Any], str]] = None
-    for n, indent, body in content:
-        if pending is not None:
-            p_indent, p_map, p_key = pending
-            pending = None
-            if indent > p_indent:
-                child: Dict[str, Any] = {}
-                p_map[p_key] = child
-                stack.append((indent, child))
-        while stack and indent < stack[-1][0]:
-            stack.pop()
-        if not stack or indent != stack[-1][0]:
-            raise YamlSubsetError(n, "indentation matches no enclosing "
-                                     "mapping (or continues a scalar over "
-                                     "lines)")
-        mapping = stack[-1][1]
-        key, rest = _split_key(body, n)
-        if key in mapping:
-            raise YamlSubsetError(n, f"duplicate key {key!r}")
-        value_s = rest.lstrip(" \t")
-        if not value_s or value_s.startswith("#"):
-            mapping[key] = None
-            pending = (indent, mapping, key)
-        elif value_s[0] in "'\"":
-            value, after = _quoted(value_s, n)
-            _after_quoted(after, n)
-            mapping[key] = value
-        else:
-            mapping[key] = _resolve(_plain(value_s, n, "value"), n)
+        return {}
+    if _is_seq_item(content[0][2]):
+        raise YamlSubsetError(content[0][0], "the document is a sequence: "
+                                             "a config is a mapping")
+    lines = _Lines(content)
+    root = _mapping(lines, content[0][1])
+    left = lines.peek()
+    if left is not None:
+        raise YamlSubsetError(left[0], "indentation matches no enclosing "
+                                       "mapping (or a sequence item where "
+                                       "no key opens one)")
     return root
 
+
+# ---------------------------------------------------------------------------
+# the writer
+# ---------------------------------------------------------------------------
+_PLAIN_OK = re.compile(r"[A-Za-z0-9_./][A-Za-z0-9_./@:+=-]*\Z")
+# what PyYAML's reader accepts in a stream (its NON_PRINTABLE complement)
+_PRINTABLE = re.compile("[\x09\x0a\x0d\x20-\x7e\x85\xa0-\ud7ff"
+                        "\ue000-\ufffd\U00010000-\U0010ffff]")
+
+
+def _plain_ok(s: str) -> bool:
+    """Whether ``s`` written bare reads back as the string ``s``."""
+    if not _PLAIN_OK.match(s) or ": " in s or s.endswith(":"):
+        return False
+    try:
+        return _resolve(_plain(s, 0, "value"), 0) == s
+    except YamlSubsetError:
+        return False
+
+
+def _quote(s: str) -> str:
+    out = ['"']
+    for c in s:
+        if c in '"\\':
+            out.append("\\" + c)
+        elif c in "\n\t\r":
+            out.append({"\n": "\\n", "\t": "\\t", "\r": "\\r"}[c])
+        elif _PRINTABLE.match(c):
+            out.append(c)
+        elif ord(c) <= 0xff:
+            out.append(f"\\x{ord(c):02x}")
+        elif ord(c) <= 0xffff:
+            out.append(f"\\u{ord(c):04x}")
+        else:
+            out.append(f"\\U{ord(c):08x}")
+    out.append('"')
+    return "".join(out)
+
+
+def _dump_scalar(v: Any) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v)
+        if "e" in r and "." not in r:          # YAML 1.1 floats need a point
+            r = r.replace("e", ".0e")
+        return r
+    if isinstance(v, str):
+        return v if _plain_ok(v) else _quote(v)
+    raise TypeError(f"cannot write {type(v).__name__} as YAML")
+
+
+def _dump_map(d: Dict[str, Any], indent: int) -> List[str]:
+    pad = " " * indent
+    lines: List[str] = []
+    for k, v in d.items():
+        if not isinstance(k, str):
+            raise TypeError(f"mapping key {k!r} is not a string")
+        head = f"{pad}{_dump_scalar(k)}:"
+        if isinstance(v, dict) and v:
+            lines.append(head)
+            lines.extend(_dump_map(v, indent + 2))
+        elif isinstance(v, (list, tuple)) and v:
+            lines.append(head)
+            lines.extend(_dump_seq(v, indent))
+        else:
+            lines.append(f"{head} {_dump_value(v)}")
+    return lines
+
+
+def _dump_seq(items, indent: int) -> List[str]:
+    pad = " " * indent
+    lines: List[str] = []
+    for v in items:
+        if isinstance(v, dict) and v:
+            sub = _dump_map(v, indent + 2)
+        elif isinstance(v, (list, tuple)) and v:
+            sub = _dump_seq(v, indent + 2)
+        else:
+            lines.append(f"{pad}- {_dump_value(v)}")
+            continue
+        lines.append(f"{pad}- {sub[0][indent + 2:]}")
+        lines.extend(sub[1:])
+    return lines
+
+
+def _dump_value(v: Any) -> str:
+    if isinstance(v, dict):
+        return "{}"
+    if isinstance(v, (list, tuple)):
+        return "[]"
+    return _dump_scalar(v)
+
+
+def dumps(obj: Dict[str, Any]) -> str:
+    """``obj`` (a mapping) as a block YAML document, ending in a newline."""
+    if not isinstance(obj, dict):
+        raise TypeError("the document must be a mapping")
+    if not obj:
+        return "{}\n"
+    return "\n".join(_dump_map(obj, 0)) + "\n"

@@ -256,15 +256,18 @@ def test_local_connector_argv_names_the_device_of_each_grant(tmp_path):
 
 
 def test_kube_connector_patches_the_jax_fake_api_alike():
-    from dynamo_tpu.deploy.kube import FakeKubeApi
+    """The JAX connector on the JAX ``FakeKubeApi`` and the port's on the
+    port's: the same objects after the same patches."""
+    from dynamo_tpu.deploy.kube import FakeKubeApi as JApi
     from dynamo_tpu.planner.connectors import KubeConnector as JKube
+    from dynamo_tpu_torch.deploy.kube import FakeKubeApi as TApi
     from dynamo_tpu_torch.planner.connectors import KubeConnector as TKube
 
     class D:
         current = 1
 
     objs = []
-    for Kube in (JKube, TKube):
+    for Kube, FakeKubeApi in ((JKube, JApi), (TKube, TApi)):
         api = FakeKubeApi()
         api.apply({"apiVersion": "dynamo.tpu/v1alpha1",
                    "kind": "DynamoDeployment",
@@ -309,9 +312,20 @@ def test_planner_cli_parses_port_flags_and_refuses_kube():
          "cuda"]), {"decode": "backend"})
     assert conn.pools["decode"].engine == "torch"
     assert conn.allocator.device(conn.pools["decode"].chips) == "cuda"
-    with pytest.raises(NotImplementedError, match="item 12e"):
-        cli.build_connector(cli.parse_args(
-            ["--connector", "kube", "--kube-deployment", "agg"]), {})
+    # kube without a deployment to patch is refused; with --kube-url the
+    # connector drives the port's own REST adapter
+    with pytest.raises(SystemExit):
+        cli.build_connector(cli.parse_args(["--connector", "kube"]), {})
+    from dynamo_tpu_torch.deploy.rest_api import RestKubeApi
+
+    conn = cli.build_connector(cli.parse_args(
+        ["--connector", "kube", "--kube-deployment", "agg", "--kube-url",
+         "https://10.0.0.1:6443/", "--kube-token", "t", "--kube-insecure",
+         "--kube-namespace", "prod"]), {"decode": "backend"})
+    assert type(conn.api) is RestKubeApi
+    assert (conn.api.base_url, conn.api.token, conn.deployment,
+            conn.kube_namespace, conn.mode, conn._service("decode")) == (
+        "https://10.0.0.1:6443", "t", "agg", "prod", "crd", "backend")
 
 
 def test_bare_planner_grants_torch_workers_a_card():

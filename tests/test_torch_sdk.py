@@ -319,6 +319,11 @@ def test_cli_serve_runs_the_echo_router_graph_and_stops_on_sigterm(tmp_path):
                     body = r.read().decode()
             except OSError:
                 time.sleep(0.2)
+        # the frontend may answer once one worker is up; cli.serve prints
+        # its "serving" line only after every worker's READY line
+        while time.monotonic() < deadline and not re.search(
+                r"^serving ", (tmp_path / "serve.log").read_text(), re.M):
+            time.sleep(0.1)
         out = (tmp_path / "serve.log").read_text()
         assert body is not None and "[DONE]" in body, out
         assert out.count("DYNAMO_SERVICE_READY backend") == 2
