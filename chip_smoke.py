@@ -67,6 +67,17 @@ with a traceback and prints no result:
                steady-state decode enqueue under
                ``torch.cuda.set_sync_debug_mode("error")``: no host sync,
                with the stage metrics, heartbeats and goodput accounting on.
+   lint      — the port's static analysis held against the card:
+               ``python -m dynamo_tpu_torch.cli.dynalint`` exits 0 here
+               (files, rules, seconds) and gives its ``host-sync``
+               inventory; then an engine sharing the served weights runs
+               admission, a chunked prefill, unchained and chained decode
+               dispatches and the token reads under
+               ``torch.cuda.set_sync_debug_mode("warn")``. Every sync the
+               card reports, at its innermost frame in
+               ``dynamo_tpu_torch/``, must be a site of the inventory; the
+               chained enqueue reports none. Syncs per prefill dispatch and
+               per decode step, with their sites.
 8. default   — the CLI's default model, tiny-byte (Dh=16, no preset
                given), served over HTTP through the same entry point:
                completions and chat, streamed and not, all 200 with tokens
@@ -785,6 +796,7 @@ def serve_phase(torch, att, smi: str):
         row["chain"] = chain_sync_phase(torch, c)
         row["chain_writethrough"] = chain_sync_phase(torch, c,
                                                      writethrough=True)
+        row["lint"] = lint_phase(torch, att, c, smi)
         row["lone_stream"] = lone_stream(port)
         row["lone_stream"]["greedy_ids"] = asyncio.run_coroutine_threadsafe(
             greedy_ids(core), loop).result(600)
@@ -1697,6 +1709,190 @@ def chain_sync_phase(torch, served, writethrough: bool = False,
     emit(row)
     if not ok:
         raise AssertionError(f"chained enqueue check failed: {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# lint: the port's static analysis against the card's own sync report
+# ---------------------------------------------------------------------------
+
+SYNC_WARNING = "called a synchronizing CUDA operation"
+LINT_PROMPTS = {"long": 1100, "short": 40}     # 3 chunks of 512, and 1
+LINT_TOKENS = 32                                # 4 dispatches of 8 steps
+
+
+def dynalint(*args: str) -> dict:
+    """``python -m dynamo_tpu_torch.cli.dynalint --json *args`` in a child
+    process; its JSON, with the child's exit code and wall seconds."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "dynamo_tpu_torch.cli.dynalint",
+                        "--json", *args], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"dynalint {' '.join(args)} exited "
+                             f"{r.returncode}:\n{r.stdout[-4000:]}\n"
+                             f"{r.stderr[-4000:]}")
+    out = json.loads(r.stdout)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def innermost_port_frame(frame) -> str:
+    """``path:line`` of the innermost frame under ``dynamo_tpu_torch/``
+    (repo-relative), or "" when no frame of the port is on the stack."""
+    pkg = os.path.join(ROOT, "dynamo_tpu_torch") + os.sep
+    while frame is not None:
+        path = os.path.abspath(frame.f_code.co_filename)
+        if path.startswith(pkg):
+            return f"{os.path.relpath(path, ROOT)}:{frame.f_lineno}"
+        frame = frame.f_back
+    return ""
+
+
+@contextlib.contextmanager
+def card_sync_report(torch, on_sync):
+    """``torch.cuda.set_sync_debug_mode("warn")``, each report handed to
+    ``on_sync(site)`` from a ``warnings.showwarning`` hook (``always``, so
+    no repeat is folded), the site being the innermost port frame."""
+    import warnings
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING in str(message):
+            on_sync(innermost_port_frame(sys._getframe(1)))
+        else:
+            shown(message, category, filename, lineno, file, line)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+        warnings.showwarning = hook
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def lint_phase(torch, att, served, smi: str) -> dict:
+    """(a) The port's dynalint on this machine: exit 0, and the
+    ``host-sync`` inventory. (b) On a core sharing the served weights, two
+    requests through admission, a chunked prefill (a 1100-token prompt in
+    three 512-token chunks), unchained and chained decode dispatches and
+    the token reads, with the card reporting every sync. Each report is
+    charged to the core method it ran under and to its innermost frame in
+    ``dynamo_tpu_torch/``; a site the inventory lacks is a false negative
+    of the ``host-sync`` rule, and fails the phase."""
+    import collections
+    import dataclasses
+
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.engine import EngineCore
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+
+    t_phase = time.perf_counter()
+    lint = dynalint()
+    if lint["failed"] or lint["findings"] or lint["grandfathered"]:
+        raise AssertionError(f"dynalint is not clean here: {lint}")
+    inv = dynalint("--report", "host-sync")
+    sites = {f"{s['path']}:{s['line']}": s for s in inv["sites"]}
+
+    cfg = dataclasses.replace(served.cfg, max_batch=2, num_pages=None,
+                              host_cache_blocks=0,
+                              cluster_writethrough=False)
+    core = EngineCore(cfg, served.params)
+    rng = np.random.default_rng(19)
+    for sid, n in LINT_PROMPTS.items():
+        core.submit(sid, BackendInput(
+            token_ids=[int(t) for t in rng.integers(1000, 30000, n)],
+            stop=StopConditions(max_tokens=LINT_TOKENS, ignore_eos=True)))
+    # each sync is charged to the core method it ran under
+    where = ["step"]
+    syncs = collections.defaultdict(collections.Counter)
+
+    def charged(name, fn, kind=None):
+        def run(*a, **kw):
+            outer = where[0]
+            where[0] = kind(core) if kind else name
+            try:
+                return fn(*a, **kw)
+            finally:
+                where[0] = outer
+        return run
+
+    core._admit_one = charged("admission", core._admit_one)
+    core._prefill_dispatch = charged("prefill", core._prefill_dispatch)
+    core._dispatch_decode = charged(
+        "", core._dispatch_decode,
+        lambda c: "decode_chained" if c._inflight else "decode_unchained")
+    core._process_oldest_inflight = charged("token_read",
+                                            core._process_oldest_inflight)
+    _reset_launches(att)
+    n0 = (core.prefill_dispatches, core.decode_dispatches,
+          core.decode_chained, core.decode_steps_run)
+    tokens = collections.Counter()
+    t0 = time.perf_counter()
+    with card_sync_report(torch, lambda site: syncs[where[0]].update(
+            [site])):
+        for _ in range(200):
+            for so in core.step():
+                tokens[so.seq_id] += 1
+            if not core.has_work:
+                break
+    drive_s = time.perf_counter() - t0
+    launches = dict(flash=att.flash_attention.launches,
+                    paged=att.paged_attention.launches)
+    prefill_n = core.prefill_dispatches - n0[0]
+    decode_n = core.decode_dispatches - n0[1]
+    chained_n = core.decode_chained - n0[2]
+    steps_n = core.decode_steps_run - n0[3]
+    L = cfg.model.num_layers
+    by_kind = {k: dict(v) for k, v in syncs.items()}
+    reported = collections.Counter()
+    for v in syncs.values():
+        reported.update(v)
+    unknown = sorted(s for s in reported if s not in sites)
+    decode_syncs = sum(sum(syncs[k].values()) for k in (
+        "decode_unchained", "decode_chained", "token_read"))
+    row = dict(
+        phase="lint", card=smi, dynalint_s=lint["elapsed_s"],
+        dynalint_wall_s=lint["wall_s"], files=lint["files"],
+        rules=len(lint["rules"]), suppressed=len(lint["suppressed"]),
+        host_sync_sites=len(sites), host_sync_open=inv["open"],
+        prefill_dispatches=prefill_n, decode_dispatches=decode_n,
+        chained_dispatches=chained_n, decode_steps=steps_n,
+        tokens=dict(tokens), drive_s=drive_s, launches=launches,
+        syncs=by_kind,
+        syncs_per_prefill_dispatch=sum(syncs["prefill"].values())
+        / max(1, prefill_n),
+        syncs_per_decode_step=decode_syncs / max(1, steps_n),
+        sites={s: {"count": n, "key": sites[s]["key"] if s in sites
+                   else None,
+                   "reason": sites[s]["reason"] if s in sites else None}
+               for s, n in sorted(reported.items())},
+        not_in_inventory=unknown, phase_s=time.perf_counter() - t_phase)
+    emit(row)
+    if unknown:
+        raise AssertionError(
+            f"the card reported syncs the host-sync inventory lacks (a "
+            f"false negative of the rule): {unknown}")
+    if "" in reported:
+        raise AssertionError("a sync the card reported had no frame of "
+                             "the port on its stack")
+    if syncs["decode_chained"]:
+        raise AssertionError(f"the chained enqueue synced: "
+                             f"{dict(syncs['decode_chained'])}")
+    if not (prefill_n >= 3 and chained_n >= 1 and decode_n > chained_n
+            and tokens == {k: LINT_TOKENS for k in LINT_PROMPTS}
+            and not core.has_work):
+        raise AssertionError(f"the lint drive did not cover its path: {row}")
+    if not (launches["flash"] == L * prefill_n > 0
+            and launches["paged"] == L * steps_n > 0):
+        raise AssertionError(f"lint: kernel launches do not account for the "
+                             f"dispatches: {launches}, {L} layers, "
+                             f"{prefill_n} prefill, {steps_n} decode steps")
     return row
 
 
@@ -2901,6 +3097,9 @@ async def _fleet_drain(fleet: Fleet, store_port: int, http_port: int,
                                 1).split()[1], 16)
     store = await StoreClient(port=store_port).connect()
     try:
+        # dynalint: ok(store-key-drift) the smoke lists every endpoint
+        # registration of the namespace: a namespace-wide scan that no single-
+        # endpoint keyspace helper builds
         keys = [k for k, _ in await store.get_prefix("dynamo/components/")]
         keys += [k for k, _ in await store.get_prefix("models/")]
         mine = [k for k in keys if k.endswith(f":{lease:x}")
@@ -2913,6 +3112,8 @@ async def _fleet_drain(fleet: Fleet, store_port: int, http_port: int,
         rc = await asyncio.to_thread(proc.wait, 120)
         exit_s = time.monotonic() - t0
         await asyncio.sleep(0.5)      # the deletes reach every watcher
+        # dynalint: ok(store-key-drift) the same namespace-wide endpoint scan
+        # after the drain
         keys = [k for k, _ in await store.get_prefix("dynamo/components/")]
         keys += [k for k, _ in await store.get_prefix("models/")]
         left = [k for k in keys if f"{lease:x}" in k]
@@ -7150,6 +7351,7 @@ def main() -> int:
              launches=serve["flash_launches"],
              reuse_launches=sum(r["flash_launches"]
                                 for r in serve["reuse"]["runs"]),
+             lint_launches=serve["lint"]["launches"]["flash"],
              checkpoint_launches=ckpt["flash_launches"],
              fleet_launches=fleet["flash_launches"],
              disagg_launches=disagg["flash_launches"],
@@ -7175,6 +7377,7 @@ def main() -> int:
              launches=serve["paged_launches"], splits=paged["splits"],
              reuse_launches=sum(r["paged_launches"]
                                 for r in serve["reuse"]["runs"]),
+             lint_launches=serve["lint"]["launches"]["paged"],
              checkpoint_launches=ckpt["paged_launches"],
              fleet_launches=fleet["paged_launches"],
              disagg_launches=disagg["paged_launches"],

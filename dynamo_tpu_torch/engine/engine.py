@@ -399,6 +399,9 @@ class EngineCore:
                                        self._wt_stage):
                     stage[:1].copy_(pool.index_select(2, idx)
                                     .permute(2, 0, 1, 3, 4))
+                # dynalint: ok(host-sync) construction, once: the write-through
+                # gather's first launch loads its kernels here instead of on a
+                # step
                 torch.cuda.synchronize(self.device)
         # placement-driven h2d prefetch: seq_hash -> (k, v, event) blocks
         # uploaded by stage_prefetch (an executor thread) on a side stream
@@ -617,6 +620,9 @@ class EngineCore:
             paged_attention(q[:, 0], self.k_pool[0], self.v_pool[0],
                             torch.zeros((1, 1), dtype=torch.int32, device=d),
                             torch.ones(1, dtype=torch.int32, device=d), **kw)
+        # dynalint: ok(host-sync) construction, once: the probe launches
+        # complete here so a build or launch fault raises before the first
+        # request
         torch.cuda.synchronize(d)
 
     # ------------------------------------------------------------------
@@ -752,6 +758,9 @@ class EngineCore:
             host.append(h)
         ev = torch.cuda.Event()
         ev.record()
+        # dynalint: ok(host-sync) disagg KV export (extract_kv,
+        # prefill_extract): one event wait for a whole batch of pinned copies,
+        # off the decode enqueue
         ev.synchronize()       # the pinned buffers are read after this
         return [to_host_array(h) for h in host]
 
@@ -1129,15 +1138,21 @@ class EngineCore:
         wt = self._take_ready_writethrough()
         buf = list(dict.fromkeys(self._evict_buf + wt))
         self._evict_buf = []
+        from ..obs.flows import record_flow
+
         t0 = time.perf_counter()
         k, v = self.copy_stream.d2h_pages(self.k_pool, self.v_pool,
                                           [p for _, p in buf])
+        # the whole batch on the ledger, as the JAX engine records it: the
+        # evicted pages and the write-through mirrors riding the same copy
+        record_flow("d2h_writethrough", k.nbytes + v.nbytes,
+                    time.perf_counter() - t0)
         for i, (seq_hash, _) in enumerate(buf):
             self.tiered.offload(seq_hash, k[i], v[i])
         if wt:
             nbytes = len(wt) * (k[0].nbytes + v[0].nbytes)
             secs = (time.perf_counter() - t0) * len(wt) / len(buf)
-            self._count_writethrough(len(wt), nbytes, secs)
+            self._count_writethrough(len(wt), nbytes, secs, record=False)
 
     # ------------------------------------------------------------------
     # cluster write-through: mirror sealed blocks once their KV is written
@@ -1231,6 +1246,9 @@ class EngineCore:
             end = rec["end"]
             if end is not None:
                 if wait:
+                    # dynalint: ok(host-sync) only with wait=True
+                    # (flush_writethrough: an idle engine); the step boundary
+                    # polls the event with query() instead
                     end.synchronize()
                 elif not end.query():
                     return
@@ -1245,13 +1263,16 @@ class EngineCore:
                                      k.nbytes + v.nbytes, secs)
 
     def _count_writethrough(self, blocks: int, nbytes: int,
-                            seconds: float) -> None:
+                            seconds: float, record: bool = True) -> None:
+        """The mirror counters, and the ledger unless the caller already
+        recorded these bytes with a larger batch."""
         from ..obs.flows import record_flow
 
         self.writethrough_blocks += blocks
         self.writethrough_bytes += nbytes
         self.writethrough_seconds += seconds
-        record_flow("d2h_writethrough", nbytes, seconds)
+        if record:
+            record_flow("d2h_writethrough", nbytes, seconds)
 
     def flush_writethrough(self) -> int:
         """Mirror every pending block whose KV is written and wait for the
@@ -1627,6 +1648,8 @@ class EngineCore:
             logits_idx=to_device(last_i, d), **mm_kw)
         tok, logp = sample(logits[:, 0], temp, top_p, top_k,
                            to_device(uniforms, d))
+        # dynalint: ok(host-sync) the prefill dispatch's designed fetch: every
+        # lane's (token, logprob) in one packed read a dispatch
         packed = torch.stack([tok.float(), logp], -1).cpu().numpy()  # 1 fetch
         elapsed = time.perf_counter() - t0
         for ev in self._vision_events:    # complete: the fetch synced
@@ -1768,14 +1791,24 @@ class EngineCore:
         else:
             tok = to_device(np.asarray([s.last_token for _, s, _ in active],
                                        np.int64), d)
-            for i, slot, _ in active:
-                if self._decode_seen.get(i) != slot.seq_id:
-                    # a sequence entering decode restarts its penalty
-                    # counts at one-hot(first generated token); a chained
-                    # dispatch has the same sequences, so never here
+            # a sequence entering decode restarts its penalty counts at
+            # one-hot(first generated token); a chained dispatch has the
+            # same sequences, so never here. The rows and columns go up
+            # pinned: a Python-scalar setitem (`counts[i, t] = 1`) would
+            # wait on a pageable copy of its value
+            fresh = [(i, slot) for i, slot, _ in active
+                     if self._decode_seen.get(i) != slot.seq_id]
+            if fresh:
+                for i, slot in fresh:
                     self._decode_seen[i] = slot.seq_id
-                    self.gen_counts[i].zero_()
-                    self.gen_counts[i, slot.last_token] = 1
+                rows = to_device(np.asarray([i for i, _ in fresh],
+                                            np.int64), d)
+                cols = to_device(np.asarray([s.last_token for _, s in fresh],
+                                            np.int64), d)
+                self.gen_counts.index_fill_(0, rows, 0)
+                self.gen_counts.index_put_(
+                    (rows, cols), torch.ones(len(fresh), device=d,
+                                             dtype=self.gen_counts.dtype))
         lane = to_device(np.asarray(idx, np.int64), d)
         temp, top_p, top_k = self._lane_tensors(idx)
         freq = to_device(self.freq_pen[idx], d)
@@ -1827,7 +1860,12 @@ class EngineCore:
         dropped."""
         rec = self._inflight.popleft()
         if rec["ready"] is not None:
+            # dynalint: ok(host-sync) the decode window's designed wait: the
+            # event behind the oldest dispatch's pinned copy, taken with the
+            # next dispatch already enqueued
             rec["ready"].synchronize()
+        # dynalint: ok(host-sync) a view of the pinned host copy the event wait
+        # above completed (host memory on the CPU path): no transfer of its own
         packed = rec["packed"].numpy()                  # [N, Ba, 2]
         # the JAX engine's decode_step reading: dispatch to results on the
         # host, which overlaps between chained dispatches; here the dispatch
@@ -1976,6 +2014,8 @@ class EngineCore:
         cf = self.gen_counts[lane].float()[:, None, :]
         lg = logits - freq * cf - pres * (cf > 0).float()
         packed = spec_verify(lg, tok_d[:, 1:], temp, top_p, top_k, uniforms)
+        # dynalint: ok(host-sync) the verify round's designed fetch: one packed
+        # read a round (spec decode is synchronous by round)
         r = spec_unpack(packed.cpu().numpy(), K)      # ONE host fetch
         elapsed = time.perf_counter() - t_v
         self.spec_dispatch_total += 1

@@ -134,6 +134,9 @@ class _Stage:
     def _block(self, nbytes: int) -> torch.Tensor:
         k, self.k = self.k, self.k ^ 1
         if self.done[k] is not None:
+            # dynalint: ok(host-sync) weight load: a staging block is refilled
+            # only once the upload that read it completed (two blocks in
+            # flight)
             self.done[k].synchronize()
             self.done[k] = None
         if self.blocks[k].numel() < nbytes:
@@ -191,6 +194,9 @@ def _place(leaf: torch.Tensor, name: str, src: Source,
           else contextlib.nullcontext()) as f:
         for r0 in range(0, n_rows, step):
             r1 = min(n_rows, r0 + step)
+            # dynalint: ok(flow-accounting) the staged upload of one leaf;
+            # load_llama_params meters the whole tree as one weight_prefetch
+            # flow (a GGUF cold load stays unmetered, as in the JAX package)
             chunk = stage.rows(src, f, r0, r1, row)
             if name in _TRANSPOSED:
                 dst[:, r0:r1].copy_(chunk.T)
@@ -297,6 +303,8 @@ def load_llama_params(path: str, cfg: LlamaConfig,
     t0 = time.perf_counter()
     params = _load(path, cfg, dev)
     if dev.type == "cuda":
+        # dynalint: ok(host-sync) cold load, once: the weight_prefetch flow is
+        # timed to the device's completion
         torch.cuda.synchronize(dev)
     record_flow("weight_prefetch", _tree_nbytes(params),
                 time.perf_counter() - t0)

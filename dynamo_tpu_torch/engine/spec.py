@@ -297,6 +297,8 @@ class DraftModelProposer:
             toks.append(tok)
             ln = ln + 1
         self.steps_run += k
+        # dynalint: ok(host-sync) the draft proposer's designed fetch: one read
+        # of the k drafts a round
         return torch.cat(toks).tolist()     # ONE fetch of the k drafts
 
     def _sync_chunk(self, seq_id: str, ctx: List[int], start: int,

@@ -243,6 +243,8 @@ class MobilityAgent:
         if model_path:
             self.cache.pin(model_path)
         try:
+            # dynalint: ok(lock-discipline) _execute_locked runs only inside
+            # _execute's `async with self._lock`, so this write holds the lock
             self._drained = True
             await self.drt.prepare_drain()
             drained = await self._wait_drained()

@@ -201,6 +201,8 @@ def hot_swap(core, host_params, new_cfg, group_layers: Optional[int] = None
     # ---- barrier: weights resident before the first new-model token --
     if core.device.type == "cuda":
         # the swap cutover's one host sync, never on a request
+        # dynalint: ok(host-sync) the swap's one cutover barrier: every slab
+        # landed before the new weights serve
         torch.cuda.current_stream(core.device).synchronize()
     # one flow for the whole weight stream: the barrier bounds it, so
     # bytes/seconds is the swap's real h2d rate

@@ -99,6 +99,9 @@ class CopyStream:
                   pages: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
         """Copy pages out to host. Returns (k, v) [n, L, Hkv, page, Dh]."""
         t0 = time.perf_counter()
+        # dynalint: ok(host-sync) the batch's page ids uploaded from a list (a
+        # small pageable copy); eviction offload waits on the event below
+        # anyway
         idx = torch.as_tensor(list(pages), dtype=torch.long,
                               device=k_pool.device)
         out = []
@@ -114,6 +117,9 @@ class CopyStream:
         if k_pool.is_cuda:
             ev = torch.cuda.Event()
             ev.record()
+            # dynalint: ok(host-sync) the tier reads the pinned buffers after
+            # this: one wait an eviction batch (tier offload, never on a
+            # chained enqueue without pool pressure)
             ev.synchronize()       # the pinned buffers are read after this
         k, v = to_host_array(out[0]), to_host_array(out[1])
         self.d2h_bytes += k.nbytes + v.nbytes
@@ -126,6 +132,8 @@ class CopyStream:
         """Upload [n, L, Hkv, page, Dh] host blocks into device pages, in
         place, on the current stream."""
         t0 = time.perf_counter()
+        # dynalint: ok(host-sync) the batch's page ids uploaded from a list (a
+        # small pageable copy) once a tier restore, at admission
         idx = torch.as_tensor(list(pages), dtype=torch.long,
                               device=k_pool.device)
         keep = []
@@ -187,6 +195,8 @@ class CopyStream:
                        v_blocks: Sequence[torch.Tensor]) -> None:
         """Scatter [L, Hkv, page, Dh] blocks already on the pool's device
         into pool pages, in place (device to device)."""
+        # dynalint: ok(host-sync) the batch's page ids uploaded from a list (a
+        # small pageable copy) once a staged-prefetch restore, at admission
         idx = torch.as_tensor(list(pages), dtype=torch.long,
                               device=k_pool.device)
         k_pool.index_copy_(2, idx, torch.stack(list(k_blocks), 2))

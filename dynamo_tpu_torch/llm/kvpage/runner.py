@@ -546,6 +546,8 @@ class PagedEngine:
                      or len(free) >= STAGE_RING):
             hs = free.popleft()
             if hs.done is not None:
+                # dynalint: ok(host-sync) waits only when every slot of the
+                # staging ring is still in flight (STAGE_RING uploads)
                 hs.done.synchronize()
             return hs
         t = torch.empty(self._slot_shape(B), dtype=self.core.k_pool.dtype,
@@ -611,6 +613,8 @@ class PagedEngine:
         """Page-in totals; waits for the uploads still in flight."""
         while self._timing:
             a, b = self._timing.popleft()
+            # dynalint: ok(host-sync) a statistics read after the run, not on a
+            # step
             b.synchronize()
             self.upload_seconds += a.elapsed_time(b) / 1e3
         return {"bytes": float(self.pagein_bytes),
@@ -806,6 +810,8 @@ class PagedEngine:
             to_device(self._pres[ln:ln + 1], d),
             torch.ones(1, dtype=torch.bool, device=d))
         # the lane's designed fetch: the prefill tail's (token, logprob)
+        # dynalint: ok(host-sync) the paging lane's prefill-tail fetch: one
+        # (token, logprob) a prompt
         arr = packed.cpu().numpy()
         return int(arr[0, 0]), float(arr[0, 1])
 
@@ -982,6 +988,8 @@ class PagedEngine:
                 tok_d = tok[:, None]
             # the lane's designed fetch: one packed (token, logprob)
             # [N, B, 2] for the whole window, every lane at once
+            # dynalint: ok(host-sync) the paging lane's window fetch: one
+            # packed [N, B, 2] read for a whole chained window
             arr = torch.stack(packed_list).cpu().numpy()
         except Exception as e:  # noqa: BLE001 - window-fatal
             # a failure inside the batched chain cannot be pinned on one

@@ -475,14 +475,20 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
 def _to_torch(a, device: torch.device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
+        # dynalint: ok(host-sync) weight placement at construction (tests, JAX
+        # trees): a blocking upload, once
         return a.to(device)
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:
         a = a.copy()   # torch.from_numpy shares memory, and needs it writable
     if a.dtype.name == "bfloat16":
         # ml_dtypes bfloat16: same bits as torch.bfloat16
+        # dynalint: ok(host-sync) weight placement at construction (tests, JAX
+        # trees): a blocking upload, once
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
             device)
+    # dynalint: ok(host-sync) weight placement at construction (tests, JAX
+    # trees): a blocking upload, once
     return torch.from_numpy(a).to(device)
 
 

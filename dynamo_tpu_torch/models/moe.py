@@ -59,6 +59,9 @@ def _sorted_dispatch(x: torch.Tensor,            # [B, T, D]
     xs = xf[tok]                                           # [N*K, D]
     # the one host read of this layer: E segment sizes (a grouped GEMM
     # over device-side counts would drop it; ROADMAP Speed work)
+    # dynalint: ok(host-sync) the MoE layer's one host read, E segment sizes
+    # (bincount reads the max too); a grouped GEMM over device-side counts
+    # would drop it
     counts = torch.bincount(flat_e, minlength=E).tolist()
     y = torch.empty((N * K, D), dtype=x.dtype, device=x.device)
     lo = 0

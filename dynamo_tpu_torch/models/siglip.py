@@ -207,6 +207,8 @@ def params_from_hf(tensors: Mapping[str, Any], cfg: SiglipVisionConfig,
         return _to_torch(tensors[prefix + name], torch.device("cpu"))
 
     def put(t: torch.Tensor, dtype) -> torch.Tensor:
+        # dynalint: ok(host-sync) vision-tower weight placement at
+        # construction: a blocking upload, once
         return t.to(device=device, dtype=dtype).contiguous()
 
     # Conv2d weight [D, C, ph, pw] -> unfolded [(ph pw C), D]
@@ -248,7 +250,10 @@ def projector_from_hf(tensors: Mapping[str, Any], cfg: SiglipVisionConfig,
     cpu = torch.device("cpu")
     norm = _to_torch(tensors[prefix + "mm_soft_emb_norm.weight"], cpu)
     proj = _to_torch(tensors[prefix + "mm_input_projection_weight"], cpu)
+    # dynalint: ok(host-sync) projector weight placement at construction: a
+    # blocking upload, once
     return {"norm": norm.to(device=device, dtype=torch.float32),
+            # dynalint: ok(host-sync) the same placement, once
             "proj": proj.to(device=device, dtype=cfg.dtype)}
 
 

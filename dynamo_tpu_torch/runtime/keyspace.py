@@ -6,13 +6,18 @@ prefix family registered here: its owner subsystem, its lifecycle
 work queue), the module that defines its helper/constant, and a one-line
 description. The store server labels its per-op telemetry with
 :func:`classify_key`, so a JAX store and the port's store report the same
-families for the same keys. The JAX package's copy also renders
-``docs/keyspace.md`` and feeds its lint rules; the port keeps the registry
-and the classifier only.
+families for the same keys. The port's ``store-key-drift`` dynalint rule
+gates the registry two-way — every store API call site of the port must
+resolve (through the def-use layer) to a registered family, and every
+family must still have call sites — and the port's keyspace document is
+generated from it::
+
+    python -m dynamo_tpu_torch.runtime.keyspace --write
 
 Key families whose *literal* prefix starts with a placeholder (endpoint
 registrations live under ``{namespace}/components/...``) cannot be
-grepped; they are resolvable only through their registered helpers.
+grepped; they are resolvable only through their registered helpers,
+which is exactly why the gate is dataflow-based.
 """
 
 from __future__ import annotations
@@ -110,6 +115,10 @@ _ALL: List[KeyFamily] = [
         prefix="metrics_stage/_store/", constants=("STORE_STAGE_PREFIX",),
         shard=SHARD_TELEMETRY),
     KeyFamily(
+        # dynalint: ok(store-key-drift) no module of the port writes this
+        # family (the JAX package's fleet soak does); it stays registered so
+        # the port's store labels a mixed fleet's beacon keys as the JAX store
+        # does
         name="fleet-soak",
         pattern="fleet/{ns}/beacon",
         owner="scripts/fleet_soak.py", lifecycle=PERSISTENT,
@@ -286,6 +295,19 @@ PREFIXES: List[Tuple[str, KeyFamily]] = sorted(
     ((f.prefix, f) for f in _ALL if f.prefix),
     key=lambda p: -len(p[0]))
 
+HELPER_INDEX: Dict[str, KeyFamily] = {
+    h: f for f in _ALL for h in f.helpers}
+CONSTANT_INDEX: Dict[str, KeyFamily] = {
+    c: f for f in _ALL for c in f.constants}
+
+
+def family_for_literal(head: str) -> Optional[KeyFamily]:
+    """The registered family a literal key head belongs to, if any (a
+    partial head matches too: the lint resolver sees f-string heads)."""
+    for prefix, fam in PREFIXES:
+        if head.startswith(prefix) or prefix.startswith(head):
+            return fam
+    return None
 
 
 def families_for_prefix(prefix: str) -> List[str]:
@@ -305,6 +327,7 @@ def families_for_prefix(prefix: str) -> List[str]:
     if not out:
         out.append("other")
     return out
+
 
 def classify_key(key: str) -> str:
     """Family name for a FULL key/queue name (the store's own per-op
@@ -326,3 +349,92 @@ def classify_key(key: str) -> str:
     if key.endswith(".prefill") or key.endswith(".prefill.batch"):
         return "prefill-queue"
     return "other"
+
+
+#: the generated document, relative to the repository root
+DOC_REL = "dynamo_tpu_torch/docs/keyspace.md"
+
+
+def render_markdown(wire_fields: Optional[Dict[str, str]] = None) -> str:
+    """The generated body of the port's keyspace document (store families
+    + the wire control-header field registry — the two distributed-protocol
+    surfaces its dynalint gates).
+
+    ``wire_fields`` defaults to importing ``wire.WIRE_FIELDS`` — the lint
+    rule passes its AST-extracted copy instead, so a dynalint run never
+    imports wire.py (and thus msgpack) on analysis-only machines."""
+    if wire_fields is None:
+        from .wire import WIRE_FIELDS as wire_fields
+
+    out = [
+        "# Keyspace & wire protocol registry (PyTorch port)",
+        "",
+        "<!-- GENERATED FILE — do not edit by hand. "
+        "Regenerate: python -m dynamo_tpu_torch.runtime.keyspace --write -->",
+        "",
+        "The two cross-process protocol surfaces of `dynamo_tpu_torch`,",
+        "generated from their central registries and gated two-way by the",
+        "port's dynalint (`store-key-drift`, `wire-field-drift`; run",
+        "`python -m dynamo_tpu_torch.cli.dynalint`): every producer/consumer",
+        "call site must resolve to a registered entry, every entry must",
+        "still be used, and this file must match the registries",
+        "byte-for-byte.",
+        "",
+        "## Store keyspace (`dynamo_tpu_torch/runtime/keyspace.py`)",
+        "",
+        "Lifecycle: **lease** keys vanish with their owner's session lease;",
+        "**persistent** keys live until an explicit delete; **ttl** keys",
+        "ride a short no-keepalive lease; **queue** names address dynstore",
+        "work queues rather than KV keys.",
+        "",
+        "The **shard** column is the family's ownership group when the",
+        "store is split across dynstore processes: a `DYN_STORE_SHARDS`",
+        "token may name a group to route all of its families to one",
+        "shard. Unrouted families (and the `other` fallback) stay on the",
+        "default store.",
+        "",
+        "| family | key pattern | owner | lifecycle | shard | "
+        "description |",
+        "|---|---|---|---|---|---|",
+    ]
+    for f in sorted(_ALL, key=lambda f: f.name):
+        out.append(f"| `{f.name}` | `{f.pattern}` | {f.owner} | "
+                   f"{f.lifecycle} | {f.shard} | {f.description} |")
+    out.extend([
+        "",
+        f"{len(_ALL)} key families registered.",
+        "",
+        "## Wire control-header fields (`dynamo_tpu_torch/runtime/wire.py`)",
+        "",
+        "Every field name that may appear in a two-part frame's control",
+        "header. Producers/consumers must spell these through the",
+        "registry constants — planes that drop unknown fields degrade",
+        "gracefully, but a misspelled field is a silent protocol fork.",
+        "",
+        "| field | description |",
+        "|---|---|",
+    ])
+    for name in sorted(wire_fields):
+        out.append(f"| `{name}` | {wire_fields[name]} |")
+    out.extend(["", f"{len(wire_fields)} wire fields registered.", ""])
+    return "\n".join(out)
+
+
+def _main(argv: List[str]) -> int:
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    target = os.path.join(repo, DOC_REL)
+    if "--write" in argv:
+        os.makedirs(os.path.dirname(target), exist_ok=True)
+        with open(target, "w", encoding="utf-8") as f:
+            f.write(render_markdown())
+        print(f"wrote {target} ({len(KEYSPACE)} key families)")
+    else:
+        print(render_markdown())
+    return 0
+
+
+if __name__ == "__main__":          # pragma: no cover - trivial shell
+    import sys
+    sys.exit(_main(sys.argv[1:]))

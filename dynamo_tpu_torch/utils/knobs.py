@@ -4,9 +4,9 @@ The port's copy of the JAX package's ``utils/knobs.py``: the same
 :func:`env_float` parse policy and :class:`Knob` records, with an entry for
 each knob a module of ``dynamo_tpu_torch`` reads (type, default, owning
 subsystem and description as in the JAX registry, which the tests hold it
-to). The JAX package also generates ``docs/configuration.md`` from its
-registry and lints it against the code; those gates cover the JAX package
-only.
+to). The port's ``knob-drift`` dynalint rule gates it two-way against the
+port's code, and the port's configuration document is generated from it
+(``python -m dynamo_tpu_torch.utils.knobs --write``).
 
 This module is stdlib-only and import-light on purpose.
 """
@@ -62,6 +62,8 @@ _DOCS = {
     "disagg": "docs/disagg_serving.md",
     "spec": "docs/speculative.md",
     "kvpage": "docs/long_context.md",
+    "sdk": "docs/architecture.md",
+    "config": "docs/architecture.md",
 }
 
 
@@ -419,3 +421,68 @@ _ALL.extend(
 KNOBS: Dict[str, Knob] = {k.name: k for k in _ALL}
 if len(KNOBS) != len(_ALL):
     raise RuntimeError("duplicate knob registration")
+
+
+#: the generated document, relative to the repository root
+DOC_REL = "dynamo_tpu_torch/docs/configuration.md"
+
+
+def render_markdown() -> str:
+    """The generated body of the port's configuration document."""
+    out = [
+        "# Configuration — the `DYN_*` environment knobs of the PyTorch "
+        "port",
+        "",
+        "<!-- GENERATED FILE — do not edit by hand. "
+        "Regenerate: python -m dynamo_tpu_torch.utils.knobs --write -->",
+        "",
+        "Every environment variable `dynamo_tpu_torch` reads, generated",
+        "from the central registry in `dynamo_tpu_torch/utils/knobs.py` and",
+        "gated two-way against it by the port's `knob-drift` rule",
+        "(`python -m dynamo_tpu_torch.cli.dynalint`). Add a knob by",
+        "registering it there, then regenerate this file. Each section",
+        "names the JAX package's document for the subsystem.",
+        "",
+        "Knobs marked *derived* are materialized from CLI flags by the",
+        "`utils/dynconfig.py` layering (`DYN_<PROG>_<FLAG>` beats",
+        "`DYN_<FLAG>` beats the built-in default); the rest are read",
+        "directly by the owning subsystem.",
+        "",
+    ]
+    by_sub: Dict[str, List[Knob]] = {}
+    for k in KNOBS.values():
+        by_sub.setdefault(k.subsystem, []).append(k)
+    for sub in sorted(by_sub):
+        knobs = sorted(by_sub[sub], key=lambda k: k.name)
+        out.append(f"## {sub} (`{_DOCS[sub]}`)")
+        out.append("")
+        out.append("| knob | type | default | description |")
+        out.append("|---|---|---|---|")
+        for k in knobs:
+            d = k.default if k.default != "" else "*(unset)*"
+            desc = k.description + (" *(derived)*" if k.derived else "")
+            out.append(f"| `{k.name}` | {k.type} | `{d}` | {desc} |")
+        out.append("")
+    out.append(f"{len(KNOBS)} knobs registered.")
+    out.append("")
+    return "\n".join(out)
+
+
+def _main(argv: List[str]) -> int:
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    target = os.path.join(repo, DOC_REL)
+    if "--write" in argv:
+        os.makedirs(os.path.dirname(target), exist_ok=True)
+        with open(target, "w", encoding="utf-8") as f:
+            f.write(render_markdown())
+        print(f"wrote {target} ({len(KNOBS)} knobs)")
+    else:
+        print(render_markdown())
+    return 0
+
+
+if __name__ == "__main__":          # pragma: no cover - trivial shell
+    import sys
+    sys.exit(_main(sys.argv[1:]))

@@ -384,10 +384,13 @@ class _Procs:
         self.tmp, self.env, self.procs = tmp_path, env, {}
 
     def start(self, name, *argv):
+        # a session of its own: stop() reaps the workers an operator
+        # spawned along with it, even when the operator is killed first
         log = open(self.tmp / f"{name}.log", "w")
         self.procs[name] = subprocess.Popen(
             [sys.executable, "-m", *argv], stdout=log,
-            stderr=subprocess.STDOUT, cwd=str(ROOT), env=self.env)
+            stderr=subprocess.STDOUT, cwd=str(ROOT), env=self.env,
+            start_new_session=True)
         return self.procs[name]
 
     def log(self, name):
@@ -412,9 +415,11 @@ class _Procs:
 
     def stop(self):
         for p in self.procs.values():
-            if p.poll() is None:
-                p.kill()
-            p.wait()
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait(timeout=30)
 
 
 def _status(procs, store, name):
