@@ -268,6 +268,26 @@ with a traceback and prints no result:
                and scale-from-zero TTFT, ``fleet_status`` and
                ``/v1/models`` before and after.
 
+17. tp       — tensor parallelism (runs right after deploy, beside the
+               serve phase's weights): ``cli.run in=http out=torch
+               --tensor-parallel-size 2 --dist-backend gloo --devices 0,0``
+               serving Llama-3-8B at full width and depth with the serve
+               phase's engine arguments, the leader in this process and its
+               follower a ``cli.worker`` process on the same card (NCCL
+               refuses two ranks on one GPU; NCCL across two cards is not
+               run). An HTTP burst and three greedy requests; each rank's
+               flash launches one a layer a prefill dispatch and paged ones
+               one a layer a decode step, both ranks the same dispatches,
+               the worker's ``dyn_kernel_launches_total`` both kernels for
+               both ranks; the greedy streams within TP_MARGIN_LIMIT of a
+               tp=1 teacher-forced prefill's top logit, which the streams
+               shifted by a token must break; each rank's weight bytes and
+               peak memory; the follower exits 0 at the leader's shutdown.
+               Then the same server as a process of its own: its follower
+               SIGKILLed, the leader exits non-zero within TP_EXIT_S and
+               the card's free bytes come back. The kernels phase holds
+               both kernels at one rank's heads (Hq=16, Hkv=4).
+
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2.
 """
@@ -7238,6 +7258,265 @@ def deploy_phase(torch, smi: str, serve: dict) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 17: tensor parallelism, two ranks sharing this card
+# ---------------------------------------------------------------------------
+
+TP_ARGS = ["--tensor-parallel-size", "2", "--dist-backend", "gloo",
+           "--devices", "0,0"]
+TP_SEED = 2020
+TP_PROMPTS = (600, 200, 40)      # greedy requests, one 600-token 2-chunk
+TP_TOKENS = 24
+TP_MARGIN_LIMIT = 1.5            # PR 15's failover margin
+TP_EXIT_S = 15                   # the leader's exit after its follower's
+TP_FREE_S = 30                   # the card's memory back after the exit
+TP_BUDGET_S = 180
+
+
+def _settled_rank_stats(core, timeout: float = 30.0) -> list:
+    """Every rank's counters from a gather the leader began after this
+    call, once it caught up with the leader's own dispatches
+    (``EngineCore.rank_stats``: the followers' from their processes)."""
+    seq = core.rank_stats_begun
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        st = [dict(r) for r in core.rank_stats]
+        if core.rank_stats_seq > seq and st \
+                and st[0]["prefill_dispatches"] == core.prefill_dispatches \
+                and st[0]["decode_steps"] == core.decode_steps_run:
+            return st
+        time.sleep(0.1)
+    raise AssertionError("the tp ranks' counters did not settle")
+
+
+async def _greedy_streams(engine, prompts, n: int) -> list:
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    async def one(p):
+        ids = []
+        async for out in engine.generate(BackendInput(
+                token_ids=list(p), stop=StopConditions(
+                    max_tokens=n, ignore_eos=True)), Context()):
+            ids += out.token_ids
+        return ids
+
+    import asyncio
+
+    return list(await asyncio.gather(*(one(p) for p in prompts)))
+
+
+def tp_kill_step(torch, engine_args: dict) -> dict:
+    """``cli.run --tensor-parallel-size 2`` as a process of its own: it
+    serves, its follower is SIGKILLed, the leader must exit non-zero
+    within TP_EXIT_S and the card's free bytes come back to what they were
+    before it started within TP_FREE_S."""
+    import gc
+    import signal
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    port = _free_port()
+    log = open(os.path.join(ROOT, "build", "dynamo_tpu_torch",
+                            "tp_kill.log"), "w")
+    t0 = time.perf_counter()
+    leader = subprocess.Popen(
+        [sys.executable, "-m", "dynamo_tpu_torch.cli.run", "in=http",
+         "out=torch", "--model-name", PRESET, "--http-port", str(port),
+         "--http-host", "127.0.0.1", *TP_ARGS, "--extra-engine-args",
+         json.dumps(engine_args)], cwd=ROOT, stdout=log,
+        stderr=subprocess.STDOUT, env=dict(os.environ, PYTHONPATH=ROOT))
+    try:
+        res: dict = {}
+        deadline = time.monotonic() + 150
+        while True:
+            if leader.poll() is not None:
+                raise AssertionError(f"tp leader exited {leader.returncode} "
+                                     f"during bring-up")
+            try:
+                http_post(port, "/v1/completions",
+                          {"model": PRESET, "prompt": [11, 12, 13],
+                           "max_tokens": 4}, res, "warm")
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise AssertionError("tp leader did not serve within "
+                                         "150 s")
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        if res["warm"]["usage"]["completion_tokens"] != 4:
+            raise AssertionError(f"tp leader's answer: {res['warm']}")
+        followers = _children(leader.pid)
+        if len(followers) != 1:
+            raise AssertionError(f"tp leader's children: {followers}")
+        free_up = torch.cuda.mem_get_info()[0]
+        os.kill(next(iter(followers)), signal.SIGKILL)
+        t1 = time.perf_counter()
+        try:
+            rc = leader.wait(TP_EXIT_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"tp leader still up {TP_EXIT_S} s after "
+                                 f"its follower's SIGKILL")
+        exit_s = time.perf_counter() - t1
+        while torch.cuda.mem_get_info()[0] < free0 \
+                and time.perf_counter() - t1 < TP_FREE_S:
+            time.sleep(0.2)
+        free1 = torch.cuda.mem_get_info()[0]
+    finally:
+        if leader.poll() is None:
+            leader.kill()
+            leader.wait()
+        for pid in _children(leader.pid):
+            os.kill(pid, signal.SIGKILL)
+        log.close()
+    row = dict(bring_up_s=up_s, leader_exit_code=rc, leader_exit_s=exit_s,
+               free_before=free0, free_serving=free_up, free_after=free1,
+               free_back_s=time.perf_counter() - t1)
+    emit({"phase": "tp", "step": "follower_killed", **row})
+    if rc == 0 or free1 < free0:
+        raise AssertionError(f"tp follower death: {row}")
+    return row
+
+
+def tp_phase(torch, att, smi: str, params) -> dict:
+    """Tensor parallelism on one card: ``cli.run in=http out=torch
+    --tensor-parallel-size 2`` serving Llama-3-8B (full width and depth,
+    random bf16 weights from the seed, the serve phase's engine arguments;
+    at tp=2 prefix reuse is off and the tiers 0), both ranks on cuda:0
+    over gloo: the leader in this process, its follower a ``cli.worker``
+    process replaying its dispatch frames. NCCL would refuse two ranks on
+    one GPU; NCCL across two cards is not run here.
+
+    An HTTP burst and greedy requests through the engine; each rank's
+    counters (gathered by the leader between dispatches) must show flash
+    launches one a layer a prefill dispatch and paged ones one a layer a
+    decode step, the same dispatches on both ranks, and the worker's
+    ``dyn_kernel_launches_total`` both kernels for both ranks. The greedy
+    streams are held to tp=1 (the serve phase's weights, this process) by
+    teacher-forced logits: every token within TP_MARGIN_LIMIT of its step's
+    top logit, which the streams shifted by one token must break (bf16
+    sums the ranks' partial products in another order than one card, so
+    token identity is not the bar). Each rank's weight bytes and peak
+    memory; the follower exits 0 at the leader's orderly shutdown. Then
+    :func:`tp_kill_step`. Both ranks time-slice one card: no tokens/s of
+    this phase says anything about tensor parallelism."""
+    import asyncio
+    import types
+
+    import numpy as np
+
+    from dynamo_tpu_torch.cli.worker import engine_counters
+    from dynamo_tpu_torch.engine.engine import TorchEngineConfig
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    # this process holds the serve phase's weights: the leader's own peak
+    # is its process's above them
+    base = torch.cuda.memory_allocated()
+    rng = np.random.default_rng(TP_SEED)
+    prompts = [[int(t) for t in rng.integers(1, 256, n)] for n in TP_PROMPTS]
+    reqs = {
+        "c0": ("/v1/completions", {"model": PRESET, "prompt": prompts[0],
+                                   "max_tokens": 16}),
+        "c1": ("/v1/completions", {"model": PRESET, "prompt": prompts[1],
+                                   "max_tokens": 16, "stream": True}),
+        "chat": ("/v1/chat/completions", {
+            "model": PRESET, "max_tokens": 16,
+            "messages": [{"role": "user", "content": "Say hi twice."}]}),
+    }
+    with served(["--model-name", PRESET, *TP_ARGS, "--extra-engine-args",
+                 json.dumps(ENGINE_ARGS)]) as (eng, loop, port, _, init_s,
+                                               _m):
+        core = eng.core
+        if core.tp != 2 or core.k_pool.shape[1] \
+                != core.cfg.model.num_kv_heads // 2:
+            raise AssertionError(f"tp engine: tp={core.tp}, pool "
+                                 f"{tuple(core.k_pool.shape)}")
+        ranks = eng.plane.ranks
+        L = core.cfg.model.num_layers
+        # the leader's counts from 0; the follower's read as differences
+        att.flash_attention.launches = 0
+        att.paged_attention.launches = 0
+        st0 = _settled_rank_stats(core)
+        b = burst(att, eng, port, reqs, "tp")
+        t0 = time.perf_counter()
+        got = asyncio.run_coroutine_threadsafe(
+            _greedy_streams(eng, prompts, TP_TOKENS), loop).result(600)
+        greedy_s = time.perf_counter() - t0
+        st1 = _settled_rank_stats(core)
+        counters = engine_counters(core, 0)
+    follower_rc = [p.returncode for p in ranks.procs]
+    # the leader's engine is shut down: let its tensors go before the kill
+    # step measures the card's free bytes
+    eng = core = None
+    delta = [{k: b1[k] - a1[k] for k in a1} for a1, b1 in zip(st0, st1)]
+    series = counters["dyn_kernel_launches_total"]["series"]
+    per_rank_kernels = {w: {k: v for (ww, k), v in
+                            ((tuple(key.split("\x1f")), val)
+                             for key, val in series.items()) if ww == w}
+                        for w in ("0", "0/rank1")}
+    # teacher-forced tp=1 logits on this process's copy of the weights
+    ref = types.SimpleNamespace(
+        params=params, device=torch.device(DEVICE),
+        page_size=ENGINE_ARGS["page_size"],
+        cfg=TorchEngineConfig.from_card(
+            ModelDeploymentCard.synthetic(PRESET), **ENGINE_ARGS,
+            device=DEVICE))
+
+    def margins(prompt, stream):
+        lg = _stream_logits(torch, ref, prompt, stream)
+        idx = torch.arange(len(stream), device=lg.device)
+        chosen = lg[idx, torch.tensor(stream, device=lg.device)]
+        return (lg.max(-1).values - chosen).tolist()
+
+    sound = [margins(p, g) for p, g in zip(prompts, got)]
+    fault = [margins(p, g[1:] + g[:1]) for p, g in zip(prompts, got)]
+    row = dict(
+        init_s=init_s, greedy_s=greedy_s, burst_wall_s=b["wall_s"],
+        prefill_dispatches=delta[0]["prefill_dispatches"],
+        decode_steps=delta[0]["decode_steps"],
+        rank_launches=[{"flash": d["flash_launches"],
+                        "paged": d["paged_launches"]} for d in delta],
+        rank_dispatches=[{"prefill": d["prefill_dispatches"],
+                          "decode": d["decode_dispatches"],
+                          "decode_steps": d["decode_steps"]} for d in delta],
+        dyn_kernel_launches_total=per_rank_kernels,
+        rank_weight_bytes=[s["weight_bytes"] for s in st1],
+        rank_peak_bytes=[st1[0]["device_memory_peak_bytes"] - base]
+        + [s["device_memory_peak_bytes"] for s in st1[1:]],
+        leader_process_base_bytes=base,
+        follower_exit_codes=follower_rc, margin_limit=TP_MARGIN_LIMIT,
+        worst_margin=max(max(m) for m in sound),
+        fault_worst_margin=[max(m) for m in fault], streams=got,
+        margins=sound, note="two ranks time-slice one card over gloo: "
+        "the times here say nothing about tensor parallelism")
+    emit({"phase": "tp", "step": "serve", "nvidia_smi": smi, **row})
+    ok = (all(d["flash_launches"] == L * d["prefill_dispatches"] > 0
+              and d["paged_launches"] == L * d["decode_steps"] > 0
+              for d in delta)
+          and row["rank_dispatches"][0] == row["rank_dispatches"][1]
+          and all(v.get("flash_attention", 0) > 0
+                  and v.get("paged_attention", 0) > 0
+                  for v in per_rank_kernels.values())
+          and follower_rc == [0]
+          and row["worst_margin"] <= TP_MARGIN_LIMIT
+          and all(w > TP_MARGIN_LIMIT for w in row["fault_worst_margin"]))
+    if not ok:
+        raise AssertionError(f"tp phase: {row}")
+    row["kill"] = tp_kill_step(torch, ENGINE_ARGS)
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "tp", "step": "summary", "phase_s": row["phase_s"]})
+    if row["phase_s"] > TP_BUDGET_S:
+        raise AssertionError(f"tp phase took {row['phase_s']:.0f} s, over "
+                             f"its {TP_BUDGET_S} s")
+    return dict(row, flash_launches=delta[0]["flash_launches"],
+                paged_launches=delta[0]["paged_launches"])
+
+
 def main() -> int:
     import gc
 
@@ -7320,6 +7599,10 @@ def main() -> int:
     paged, paged16 = paged_rows["llama3-8b"], paged_rows["tiny-byte"]
     paged64 = paged_rows["llama-3.2-1b-draft"]
     paged256 = paged_rows["gemma3-4b"]
+    # one tp=2 rank's heads at Llama-3-8B: Hq 32/2, Hkv 8/2 (the tp phase)
+    flash_tp = flash_case(torch, att, "llama3-8b-tp2-rank",
+                          *flash_inputs(torch, 2, 512, 1024, 16, 4, 128))
+    paged_tp = paged_case(torch, att, "llama3-8b-tp2-rank", Hq=16, Hkv=4)
 
     serve, _, params = serve_phase(torch, att, smi)
     default = serve_default_phase(torch, att, smi)
@@ -7332,6 +7615,9 @@ def main() -> int:
     fplane = fleet_plane_phase(torch, att, smi, params, serve)
     graph = graph_phase(torch, smi, serve)
     deploy = deploy_phase(torch, smi, serve)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = tp_phase(torch, att, smi, params)
     del params      # the HTTP engine draws the same weights from the seed
     # the phases' engines sit in reference cycles with their weights:
     # collect them before the next engine draws its own
@@ -7363,6 +7649,7 @@ def main() -> int:
              fleet_plane_launches=fplane["flash_launches"],
              graph_launches=graph["flash_launches"],
              deploy_launches=deploy["flash_launches"],
+             tp_launches=tp["flash_launches"],
              verify_ms={"t5": verify5["ms"], "t2": verify2["ms"]},
              verify_bound_frac={"t5": verify5["bound_frac"],
                                 "t2": verify2["bound_frac"]},
@@ -7389,6 +7676,7 @@ def main() -> int:
              fleet_plane_launches=fplane["paged_launches"],
              graph_launches=graph["paged_launches"],
              deploy_launches=deploy["paged_launches"],
+             tp_launches=tp["paged_launches"],
              max_abs_err=paged["max_abs_err"], ms=paged["ms"],
              plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
              bound_by=paged["bound_by"], bound_frac=paged["bound_frac"],
@@ -7454,6 +7742,29 @@ def main() -> int:
              plain_ms=paged256["plain_ms"], bound_ms=paged256["bound_ms"],
              bound_by=paged256["bound_by"],
              bound_frac=paged256["bound_frac"], library_ms=None),
+        # one tp=2 rank's instances (Hq=16, Hkv=4 at Dh=128): the tp
+        # phase's leader's launches; its follower's under rank_launches
+        dict(name="flash_attention_tp2_rank", route="cuda",
+             source=src + "flash_attention.cu",
+             replaces="dynamo_tpu/ops/attention.py:166",
+             launches=tp["flash_launches"],
+             rank_launches=[r["flash"] for r in tp["rank_launches"]],
+             max_abs_err=flash_tp["max_abs_err"], ms=flash_tp["ms"],
+             plain_ms=flash_tp["plain_ms"], bound_ms=flash_tp["bound_ms"],
+             bound_by=flash_tp["bound_by"],
+             bound_frac=flash_tp["bound_frac"],
+             library_ms=flash_tp["library_ms"]),
+        dict(name="paged_attention_tp2_rank", route="cuda",
+             source=src + "paged_attention.cu",
+             replaces="dynamo_tpu/ops/attention.py:400",
+             also_replaces="dynamo_tpu/ops/attention.py:552",
+             launches=tp["paged_launches"],
+             rank_launches=[r["paged"] for r in tp["rank_launches"]],
+             splits=paged_tp["splits"],
+             max_abs_err=paged_tp["max_abs_err"], ms=paged_tp["ms"],
+             plain_ms=paged_tp["plain_ms"], bound_ms=paged_tp["bound_ms"],
+             bound_by=paged_tp["bound_by"],
+             bound_frac=paged_tp["bound_frac"], library_ms=None),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

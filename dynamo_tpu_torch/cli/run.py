@@ -14,6 +14,11 @@ are random, made from the engine seed. A VLM preset (``tiny-gemma3-vlm``)
 takes ``image_url`` chat parts as PNG data URLs. ``out=dyn://ns.component.endpoint``
 drives a remote worker's core engine (``cli.worker``, torch or JAX) over
 the runtime's data plane, found through the store at ``--store``.
+``--tensor-parallel-size N`` serves ``out=torch`` over N tensor-parallel
+ranks, one process each: this process is the leader and starts the others
+as ``cli.worker`` followers (``--devices`` lists each rank's card, which
+may repeat over ``--dist-backend gloo``; NCCL refuses two ranks on one
+GPU); prefix reuse is off and the host and disk tiers are 0 at N > 1.
 ``out=echo_core`` echoes the prompt's tokens through the preprocessor and
 backend, ``out=echo_full`` its text with no tokenizer at all.
 ``out=pystr:file.py`` / ``out=pytok:file.py`` serve the ``async def
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import statistics
 import sys
@@ -64,6 +70,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "JSON if the value starts with '{'")
     p.add_argument("--device", default="cuda",
                    help="torch device of out=torch (cuda | cpu)")
+    p.add_argument("--tensor-parallel-size", type=int, default=1,
+                   help="tensor-parallel ranks of out=torch, one process "
+                        "each")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="collectives' backend at --tensor-parallel-size > 1 "
+                        "(nccl on a card, gloo on --device cpu)")
+    p.add_argument("--devices", default=None,
+                   help="comma list of each rank's CUDA device (default: "
+                        "rank j on cuda:j; a card may repeat over gloo)")
     p.add_argument("--store", default="127.0.0.1:4222",
                    help="dynstore host:port (out=dyn:// remote mode)")
     p.add_argument("--connect-timeout", type=float, default=30.0,
@@ -123,9 +138,13 @@ def make_engines(args, card: ModelDeploymentCard):
                 with open(args.extra_engine_args) as f:
                     extra = json.load(f)
         extra.setdefault("device", args.device)
-        cfg = TorchEngineConfig.from_card(card, **extra)
-        vlm_card_wiring(card, cfg.model)
-        core = TorchEngine(cfg)
+        tp = args.tensor_parallel_size
+        if tp <= 1:
+            cfg = TorchEngineConfig.from_card(card, **extra)
+            vlm_card_wiring(card, cfg.model)
+            core = TorchEngine(cfg)
+        else:
+            core = _tp_engine(args, card, extra)
         return (build_chat_engine(card, "core", core),
                 build_completion_engine(card, "core", core), core)
     if out.startswith(("pystr:", "pytok:")):
@@ -139,6 +158,31 @@ def make_engines(args, card: ModelDeploymentCard):
         # async connect: handled by connect_remote_engines in amain
         raise AssertionError("dyn:// handled before make_engines")
     raise SystemExit(f"unknown out={out}")
+
+
+def _tp_engine(args, card: ModelDeploymentCard, extra: Dict[str, Any]):
+    """The leader of ``--tensor-parallel-size`` ranks: start the others as
+    ``cli.worker`` followers with this engine's arguments, then build the
+    rank-0 engine, which returns once every follower joined."""
+    from ..engine.engine import TorchEngine, TorchEngineConfig
+    from .worker import RankLayout, start_ranks, tp_extra
+
+    tp = args.tensor_parallel_size
+    extra = tp_extra(tp, dict(extra))
+    cfg = TorchEngineConfig.from_card(card, **extra)
+    # the followers' cards lack this process's --context-length: they take
+    # the resolved max_context
+    plane = start_ranks(
+        RankLayout(tp, args.device, args.dist_backend, args.devices),
+        model_path=args.model_path, model_name=args.model_name,
+        kv_block_size=args.kv_block_size,
+        engine_args=json.dumps(dict(extra, max_context=cfg.max_context)))
+    try:
+        return TorchEngine(dataclasses.replace(cfg, tp=tp, mesh=plane.mesh),
+                           plane=plane)
+    except BaseException:
+        plane.close()
+        raise
 
 
 async def connect_remote_engines(args, card: ModelDeploymentCard):

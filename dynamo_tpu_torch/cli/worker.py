@@ -39,8 +39,23 @@ component — or, on a typed refusal, rebuilds the engine cold after freeing
 the old one's device memory. Either way the rebuild runs while the worker
 holds no lease.
 
+With ``--tp N`` the worker is tensor-parallel over N ranks, one process a
+rank (``parallel/``, the JAX multi-host worker's model): this process is
+rank 0, the leader, which builds its engine, starts the host's other
+``N / --num-nodes`` ranks as follower processes of this same module
+(``--local-rank``), waits for them on the dispatch channel, and only then
+takes its lease and serves. A node of ``--node-rank`` above 0 serves
+nothing: it runs its ranks as followers of the leader at
+``--coordinator``. ``--devices`` lists the card of each local rank (a card
+may repeat: ranks then share it over ``--dist-backend gloo``; NCCL refuses
+two ranks on one GPU). At tp > 1 prefix reuse is off and the host and
+disk tiers are 0, as the JAX multi-host worker sets them; disaggregation,
+cluster KV sharing, speculative decoding, KV paging, image models and
+weight swaps are refused, naming ROADMAP Queue 1 item 11c.
+
 Not ported yet, and refused at start instead of ignored: ``--num-nodes``
-above 1 (ROADMAP Queue 1 item 11).
+above 1 with ranks that are not tp ranks (pp, sp, ep across nodes: ROADMAP
+Queue 1 item 11b).
 """
 
 from __future__ import annotations
@@ -50,7 +65,8 @@ import asyncio
 import json
 import logging
 import time
-from typing import Optional
+from dataclasses import dataclass
+from typing import List, Optional
 
 from ..llm.disagg import (DisaggConfig, DisaggRouter, PrefillQueue,
                           RemotePrefillRequest)
@@ -73,10 +89,196 @@ log = logging.getLogger("dynamo_tpu_torch.worker")
 def check_ported(args) -> None:
     """Raise, naming the ROADMAP item, for options whose JAX code paths the
     port does not have yet."""
-    if getattr(args, "num_nodes", 1) > 1:
+    tp, nodes = getattr(args, "tp", 1), getattr(args, "num_nodes", 1)
+    if nodes > 1 and (tp < nodes or tp % nodes):
         raise NotImplementedError(
-            "--num-nodes above 1: multi-node serving (parallel/) is not "
-            "ported to dynamo_tpu_torch yet (ROADMAP Queue 1 item 11)")
+            f"--num-nodes {nodes} with --tp {tp}: the ranks of a multi-node "
+            f"worker are tp ranks, tp/num-nodes on each node; other axes "
+            f"across nodes (pp, sp, ep) are not ported to dynamo_tpu_torch "
+            f"yet (ROADMAP Queue 1 item 11b)")
+    if tp > 1 and getattr(args, "enable_disagg", False):
+        raise NotImplementedError(
+            "--enable-disagg at --tp above 1: the KV transfers are not "
+            "mirrored across tensor-parallel ranks yet (ROADMAP Queue 1 "
+            "item 11c)")
+    if tp > 1 and getattr(args, "engine", "torch") != "torch":
+        raise ValueError("--tp above 1 needs --engine torch")
+    from ..llm import kv_cluster
+
+    if tp > 1 and kv_cluster.enabled():
+        raise NotImplementedError(
+            "DYN_KV_CLUSTER at --tp above 1: cluster KV write-through is not "
+            "mirrored across tensor-parallel ranks yet (ROADMAP Queue 1 item "
+            "11c)")
+
+
+@dataclass
+class RankLayout:
+    """Where one worker's tp ranks run and how they meet: the fields of
+    the worker's tp flags (``--tp``, ``--device``, ``--dist-backend``,
+    ``--devices``, ``--num-nodes``, ``--node-rank``, ``--local-rank``,
+    ``--coordinator``, ``--dispatch-port``). ``cli.run`` fills the first
+    four for one node."""
+
+    tp: int
+    device: str = "cuda"
+    backend: Optional[str] = None
+    devices: Optional[str] = None
+    num_nodes: int = 1
+    node_rank: int = 0
+    local_rank: int = 0
+    coordinator: Optional[str] = None
+    dispatch_port: Optional[int] = None
+
+    @classmethod
+    def of(cls, args) -> "RankLayout":
+        return cls(args.tp, args.device, args.dist_backend, args.devices,
+                   args.num_nodes, args.node_rank, args.local_rank,
+                   args.coordinator, args.dispatch_port)
+
+    @property
+    def local_ranks(self) -> int:
+        """Ranks each node runs."""
+        return max(1, self.tp // max(1, self.num_nodes))
+
+    @property
+    def rank(self) -> int:
+        """This process's global rank."""
+        return self.node_rank * self.local_ranks + self.local_rank
+
+    @property
+    def dist_backend(self) -> str:
+        """``--dist-backend``, else NCCL on a card and gloo on the CPU."""
+        if self.backend:
+            return self.backend
+        return "gloo" if self.device == "cpu" else "nccl"
+
+    @property
+    def device_list(self) -> Optional[List[int]]:
+        return ([int(x) for x in self.devices.split(",")] if self.devices
+                else None)
+
+    def rendezvous(self) -> str:
+        """The process group's ``host:port`` (one node: a free local port,
+        chosen once)."""
+        if not self.coordinator:
+            if self.num_nodes > 1:
+                raise SystemExit("--num-nodes above 1 needs --coordinator "
+                                 "host:port (rank 0's node)")
+            from ..parallel.multihost import free_port
+
+            self.coordinator = f"127.0.0.1:{free_port()}"
+        return self.coordinator
+
+    def channel_port(self) -> int:
+        """The leader's dispatch port (one node: a free port, chosen
+        once)."""
+        if self.dispatch_port is None:
+            if self.num_nodes > 1:
+                raise SystemExit("--num-nodes above 1 needs --dispatch-port")
+            from ..parallel.multihost import free_port
+
+            self.dispatch_port = free_port()
+        return self.dispatch_port
+
+    def join(self):
+        """Join the process group on this rank's device; its mesh."""
+        from ..parallel.mesh import rank_device, serving_mesh
+        from ..parallel.multihost import init_distributed
+
+        devices = self.device_list
+        init_distributed(self.rendezvous(), self.tp, self.rank,
+                         self.dist_backend,
+                         device=rank_device(self.device, self.local_rank,
+                                            devices))
+        return serving_mesh(self.tp, rank=self.rank,
+                            local_rank=self.local_rank, device=self.device,
+                            devices=devices)
+
+
+def _check_rank_devices(p, args) -> None:
+    """The local ranks' cards, at parse time: a usage error rather than a
+    fault in a spawned rank."""
+    if args.tp <= 1 or args.engine != "torch" or args.device == "cpu":
+        return
+    layout = RankLayout.of(args)
+    n, devs = layout.local_ranks, layout.device_list
+    if devs is not None:
+        if len(devs) < n:
+            p.error(f"--devices lists {len(devs)} card(s) for {n} local "
+                    f"ranks")
+        if layout.dist_backend == "nccl" and len(set(devs[:n])) < n:
+            p.error("NCCL refuses two ranks on one GPU; share a card over "
+                    "--dist-backend gloo")
+        return
+    import torch
+
+    have = torch.cuda.device_count()
+    if have < n:
+        p.error(f"--tp {args.tp} runs {n} ranks on this node but it has "
+                f"{have} CUDA device(s); list the cards with --devices "
+                f"(e.g. --devices 0,0 --dist-backend gloo puts two ranks on "
+                f"one card)")
+
+
+def follower_argv(layout: RankLayout, *, model_path: Optional[str],
+                  model_name: Optional[str], kv_block_size: int,
+                  engine_args: Optional[str]) -> list:
+    """The ``cli.worker`` arguments of this node's other ranks: the same
+    model, engine, layout and rendezvous as this process."""
+    argv = ["--engine", "torch", "--device", layout.device,
+            "--tp", str(layout.tp), "--num-nodes", str(layout.num_nodes),
+            "--node-rank", str(layout.node_rank),
+            "--coordinator", layout.rendezvous(),
+            "--dispatch-port", str(layout.channel_port()),
+            "--dist-backend", layout.dist_backend,
+            "--kv-block-size", str(kv_block_size)]
+    if layout.devices:
+        argv += ["--devices", layout.devices]
+    if model_path:
+        argv += ["--model-path", model_path]
+    if model_name:
+        argv += ["--model-name", model_name]
+    if engine_args:
+        argv += ["--extra-engine-args", engine_args]
+    return argv
+
+
+def start_ranks(layout: RankLayout, *, model_path: Optional[str] = None,
+                model_name: Optional[str] = None, kv_block_size: int = 64,
+                engine_args: Optional[str] = None):
+    """The leader's side of bring-up (rank 0, before its engine): start
+    this node's other ranks on the model and engine arguments given, join
+    the process group, open the dispatch channel. Returns the
+    :class:`~..parallel.multihost.LeaderPlane` whose ``mesh`` the engine
+    takes."""
+    from ..parallel.multihost import (DispatchPublisher, LeaderPlane,
+                                      spawn_local_followers)
+
+    argv = follower_argv(layout, model_path=model_path,
+                         model_name=model_name, kv_block_size=kv_block_size,
+                         engine_args=engine_args)
+    ranks = spawn_local_followers(argv, range(1, layout.local_ranks))
+    try:
+        mesh = layout.join()
+        # one node: the followers dial loopback
+        publisher = DispatchPublisher(
+            layout.channel_port(), layout.tp - 1,
+            host="127.0.0.1" if layout.num_nodes == 1 else "0.0.0.0")
+    except BaseException:
+        for p in ranks.procs:
+            p.kill()
+        raise
+    return LeaderPlane(mesh, publisher, ranks)
+
+
+def tp_extra(tp: int, extra: dict) -> dict:
+    """At tp > 1, what the JAX multi-host worker forces off: prefix reuse
+    and the host and disk tiers."""
+    if tp > 1:
+        extra.update(enable_prefix_reuse=False, host_cache_blocks=0,
+                     disk_cache_blocks=0)
+    return extra
 
 
 def _build_card(args) -> ModelDeploymentCard:
@@ -88,7 +290,7 @@ def _build_card(args) -> ModelDeploymentCard:
     return card
 
 
-def _engine_cfg(args, card: ModelDeploymentCard):
+def _engine_cfg(args, card: ModelDeploymentCard, mesh=None):
     from ..engine.engine import TorchEngineConfig
 
     extra = json.loads(args.extra_engine_args) if args.extra_engine_args \
@@ -101,19 +303,62 @@ def _engine_cfg(args, card: ModelDeploymentCard):
         # (write-through) so peers can fetch prefixes that never saw
         # device eviction pressure; a no-op when host_cache_blocks=0
         extra.setdefault("cluster_writethrough", True)
-    return TorchEngineConfig.from_card(card, **extra)
+    tp = getattr(args, "tp", 1)
+    return TorchEngineConfig.from_card(card, tensor_parallel=tp, mesh=mesh,
+                                       **tp_extra(tp, extra))
 
 
 def make_engine(args, card: Optional[ModelDeploymentCard] = None):
     """The worker's engine, built on the calling thread: a
-    :class:`TorchEngine` (``--engine torch``) or the echo engine."""
+    :class:`TorchEngine` (``--engine torch``) or the echo engine. At
+    ``--tp`` above 1 this is the leader's: its ranks are started first
+    (:func:`start_ranks`) and it returns once every follower joined."""
     if args.engine != "torch":
         from ..llm.engines import EchoCoreEngine
 
         return EchoCoreEngine()
     from ..engine.engine import TorchEngine
 
-    return TorchEngine(_engine_cfg(args, card or _build_card(args)))
+    card = card or _build_card(args)
+    if getattr(args, "tp", 1) <= 1:
+        return TorchEngine(_engine_cfg(args, card))
+    plane = start_ranks(RankLayout.of(args), model_path=args.model_path,
+                        model_name=args.model_name,
+                        kv_block_size=args.kv_block_size,
+                        engine_args=args.extra_engine_args)
+    try:
+        return TorchEngine(_engine_cfg(args, card, plane.mesh), plane=plane)
+    except BaseException:
+        plane.close()
+        raise
+
+
+def run_follower(args) -> None:
+    """A follower rank (``--node-rank`` above 0, or ``--local-rank``
+    above 0): join the process group, build this rank's engine, replay the
+    leader's dispatches until it shuts down (exit 0) or is lost (raises).
+    The first rank of a follower node starts the node's other ranks."""
+    from ..engine.engine import EngineCore
+    from ..parallel.multihost import FollowerLoop, spawn_local_followers
+
+    layout = RankLayout.of(args)
+    ranks = None
+    if layout.local_rank == 0:
+        ranks = spawn_local_followers(
+            follower_argv(layout, model_path=args.model_path,
+                          model_name=args.model_name,
+                          kv_block_size=args.kv_block_size,
+                          engine_args=args.extra_engine_args),
+            range(1, layout.local_ranks))
+    mesh = layout.join()
+    core = EngineCore(_engine_cfg(args, _build_card(args), mesh))
+    leader_host = layout.rendezvous().rsplit(":", 1)[0]
+    log.info("tp rank %d/%d on %s: following the leader at %s:%d",
+             layout.rank, layout.tp, mesh.device, leader_host,
+             layout.channel_port())
+    FollowerLoop(core, leader_host, layout.channel_port()).run()
+    if ranks is not None:
+        ranks.close()
 
 
 async def build_engine(args, card: Optional[ModelDeploymentCard] = None):
@@ -292,7 +537,11 @@ def engine_counters(core, worker_id: int) -> dict:
     count on the card only), on the card its peak device memory
     (``dyn_device_memory_peak_bytes``), and with cluster write-through the
     mirrors' blocks, bytes, seconds and host enqueue seconds
-    (``dyn_kv_writethrough_*_total``).
+    (``dyn_kv_writethrough_*_total``). A tensor-parallel worker adds each
+    follower rank's dispatches, launches and peak memory, and every
+    rank's weight bytes (``dyn_weight_bytes``), from the counters the
+    leader last gathered (``EngineCore.rank_stats``), under the worker
+    label ``{worker}/rank{r}``.
     Port-only series: the JAX worker publishes none of them."""
     from ..ops import attention as att
     from ..utils.prometheus import Registry
@@ -310,6 +559,20 @@ def engine_counters(core, worker_id: int) -> dict:
                   "started", ("worker", "kernel"))
     k.inc(wid, "flash_attention", amount=att.flash_attention.launches)
     k.inc(wid, "paged_attention", amount=att.paged_attention.launches)
+    ranks = core.rank_stats[1:] if core.tp > 1 else []
+    for rank, st in enumerate(ranks, start=1):
+        rid = f"{wid}/rank{rank}"
+        d.inc(rid, "prefill", amount=st["prefill_dispatches"])
+        d.inc(rid, "decode", amount=st["decode_dispatches"])
+        d.inc(rid, "decode_step", amount=st["decode_steps"])
+        k.inc(rid, "flash_attention", amount=st["flash_launches"])
+        k.inc(rid, "paged_attention", amount=st["paged_launches"])
+    if core.tp > 1:
+        w = r.gauge("dyn_weight_bytes", "Weight bytes on this rank's device",
+                    ("worker",))
+        for rank, st in enumerate(core.rank_stats):
+            w.set(wid if rank == 0 else f"{wid}/rank{rank}",
+                  value=st["weight_bytes"])
     if core.cfg.cluster_writethrough:
         r.counter("dyn_kv_writethrough_blocks_total",
                   "Sealed blocks mirrored to the host tier (cluster "
@@ -327,10 +590,14 @@ def engine_counters(core, worker_id: int) -> dict:
     if core.device.type == "cuda":
         import torch
 
-        r.gauge("dyn_device_memory_peak_bytes",
-                "Peak device memory allocated by this worker's process",
-                ("worker",)).set(wid, value=float(
-                    torch.cuda.max_memory_allocated(core.device)))
+        peak = r.gauge("dyn_device_memory_peak_bytes",
+                       "Peak device memory allocated by this worker's "
+                       "process", ("worker",))
+        peak.set(wid, value=float(torch.cuda.max_memory_allocated(
+            core.device)))
+        for rank, st in enumerate(ranks, start=1):
+            peak.set(f"{wid}/rank{rank}",
+                     value=st["device_memory_peak_bytes"])
     return r.state_dump()
 
 
@@ -452,7 +719,12 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
     # --- model mobility agent (simple path only) ---------------------
     mobility = None
     stopped = asyncio.Event()     # set when a failed swap ends the worker
-    if engine_ref is not None:
+    if engine_ref is not None and core.tp > 1:
+        # a swap or a cold reload would rebuild the leader alone
+        log.warning("model mobility off at tp=%d: weight swaps are not "
+                    "mirrored across tensor-parallel ranks yet (ROADMAP "
+                    "Queue 1 item 11c)", core.tp)
+    elif engine_ref is not None:
         from ..fleet.mobility import MobilityAgent
 
         async def _reregister(payload):
@@ -636,10 +908,30 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "locally")
     p.add_argument("--extra-engine-args", default=None,
                    help="inline JSON engine kwargs")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks, one process each")
     p.add_argument("--num-nodes", type=int, default=1,
-                   help="multi-node worker (above 1 raises until the "
-                        "multi-GPU slice)")
-    return p.parse_args(argv)
+                   help="nodes the tp ranks span (tp/num-nodes a node)")
+    p.add_argument("--node-rank", type=int, default=0,
+                   help="this node's index; node 0 holds the leader")
+    p.add_argument("--local-rank", type=int, default=0,
+                   help="the rank within this node (set by the node's first "
+                        "rank for the ranks it starts)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of the process group's rendezvous on "
+                        "node 0 (one node: a free local port)")
+    p.add_argument("--dispatch-port", type=int, default=None,
+                   help="the leader's dispatch channel port (one node: a "
+                        "free port)")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="collectives' backend (nccl on a card, gloo on "
+                        "--device cpu); gloo lets ranks share a card")
+    p.add_argument("--devices", default=None,
+                   help="comma list of each local rank's CUDA device "
+                        "(default: rank j on cuda:j; a card may repeat)")
+    args = p.parse_args(argv)
+    _check_rank_devices(p, args)
+    return args
 
 
 def main() -> None:
@@ -648,6 +940,9 @@ def main() -> None:
     init_logging()
     args = parse_args()
     check_ported(args)
+    if args.node_rank > 0 or args.local_rank > 0:
+        run_follower(args)
+        return
     # Worker shell: SIGINT/SIGTERM cancel the root token; the runtime
     # deregisters first (lease revoke), in-flight requests get the grace
     # window, then stop and kill; the engine shuts down last

@@ -77,8 +77,23 @@ Architecture:
   sealed blocks into the pinned host tier and streams them back per
   layer, one unit of its work at the head of every ``step``.
 
+- Tensor parallelism, Megatron-sharded, one process a rank
+  (:mod:`..parallel`): a rank holds its cut of the weights and a pool of
+  its kv heads, and the forwards sum the row-parallel products over the tp
+  group. Rank 0 schedules; each dispatch is a host plan that only it
+  makes and a device program (``_run_prefill_program``,
+  ``_run_decode_program``) that every rank runs: ``dispatch_hook``
+  receives each program's host inputs before it runs, and a follower
+  replays them through :meth:`EngineCore.mirror_dispatch` (the JAX
+  engine's multi-host model). Every state change a program makes comes
+  from its frame, the lanes' uniforms included (the port's lane streams
+  are host generators, so the frame carries their draws where the JAX
+  engine's carries seeds). What a program cannot mirror yet raises at
+  construction (``TP_GAP``); prefix reuse is off at tp > 1, as the JAX
+  multi-host worker turns it off.
+
 Not ported yet (the JAX engine has them): MoE checkpoints (neither
-package's loader maps expert tensors) and tp/pp/sp/ep.
+package's loader maps expert tensors) and pp/sp/ep.
 
 Reference capability: the role vLLM/TRT-LLM play behind the reference's
 adapters (continuous batching, paged KV, streaming detached tokens), per
@@ -97,7 +112,7 @@ import random
 import tempfile
 import threading
 import time
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 from typing import (Any, AsyncIterator, Callable, Deque, Dict, List,
                     Optional, Tuple)
 
@@ -119,7 +134,7 @@ from ..utils.prometheus import stage_metrics
 from . import multimodal as mm
 from .cache import OutOfPages, PagePool
 from .loader import MOE_CHECKPOINT_GAP
-from .sampling import (STATIC_K, apply_penalties, draw_uniforms,
+from .sampling import (STATIC_K, apply_penalties, host_uniforms,
                        lane_generator, resume_seed, sample, spec_accept,
                        spec_uniforms, spec_unpack, spec_verify)
 from .spec import SeqSpecState, build_proposer, resolve_spec
@@ -133,7 +148,22 @@ WT_STAGE_BLOCKS = 16
 # JAX engine options this engine does not implement yet: asking for one
 # raises instead of silently serving a different engine
 _NOT_PORTED = frozenset({
-    "tp", "sp", "ep", "pp", "prefill_lanes", "attn_impl", "warmup"})
+    "sp", "ep", "pp", "prefill_lanes", "attn_impl", "warmup"})
+
+#: the counters each tp rank contributes to ``EngineCore.rank_stats``
+RANK_STATS = ("flash_launches", "paged_launches", "prefill_dispatches",
+              "decode_dispatches", "decode_steps", "weight_bytes",
+              "device_memory_peak_bytes")
+
+#: what a tensor-parallel engine cannot mirror on its followers yet
+TP_GAP = "not mirrored across tensor-parallel ranks yet (ROADMAP Queue 1 item 11c)"
+
+#: why tp > 1 needs a mesh: there is no single-controller SPMD in PyTorch
+TP_NEEDS_RANKS = (
+    "tp > 1 in one process: the port has no single-controller SPMD; each "
+    "tensor-parallel rank is a process of its own with a mesh "
+    "(parallel.mesh.serving_mesh). Serve with cli.worker --tp or cli.run "
+    "--tensor-parallel-size, which start the ranks")
 
 
 @dataclass
@@ -177,9 +207,14 @@ class TorchEngineConfig:
     kvpage_prefetch: Optional[int] = None    # segments prefetched ahead
     kvpage_max_context: Optional[int] = None  # paged context ceiling
     kvpage_batch: Optional[int] = None       # concurrent decode lanes
+    # tensor parallelism: ranks, and this rank's mesh
+    # (parallel.mesh.ServingMesh; its device replaces ``device``)
+    tp: int = 1
+    mesh: Optional[Any] = None
 
     @classmethod
-    def from_card(cls, card: ModelDeploymentCard,
+    def from_card(cls, card: ModelDeploymentCard, tensor_parallel: int = 1,
+                  mesh: Optional[Any] = None,
                   **extra) -> "TorchEngineConfig":
         gguf = _gguf_file(card.path) if card.path else None
         if card.model_config:
@@ -209,8 +244,10 @@ class TorchEngineConfig:
         else:
             mcfg = llama.preset("tiny-byte")
         kw: Dict[str, Any] = dict(model=mcfg, page_size=card.kv_block_size,
-                                  params_path=card.path)
-        names = {f.name for f in fields(cls)} - {"model", "params_path"}
+                                  params_path=card.path, tp=tensor_parallel,
+                                  mesh=mesh)
+        names = {f.name for f in fields(cls)} - {"model", "params_path",
+                                                 "mesh"}
         for k, v in extra.items():
             if k in names:
                 kw[k] = v
@@ -221,6 +258,8 @@ class TorchEngineConfig:
             else:
                 raise ValueError(f"unknown engine arg {k!r}")
         cfg = cls(**kw)
+        if cfg.tp > 1 and cfg.mesh is None:
+            raise NotImplementedError(TP_NEEDS_RANKS)
         cfg.max_context = min(cfg.max_context, card.context_length)
         return cfg
 
@@ -300,13 +339,36 @@ class EngineCore:
                                                Dict[str, Any]]] = None):
         self.cfg = cfg
         m = cfg.model
-        self.device = resolve_device(cfg.device)
+        self.tp = cfg.tp
+        self.mesh = cfg.mesh
+        if self.tp > 1 and (self.mesh is None or self.mesh.tp != self.tp):
+            raise NotImplementedError(TP_NEEDS_RANKS)
+        self.rank = self.mesh.tp_rank if self.tp > 1 else 0
+        self.group = self.mesh.tp_group if self.tp > 1 else None
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(cfg.device))
         if self.device.type == "cuda":
             # the JAX engine's construction-time kernel check, without its
             # fallback: a model the CUDA kernels lack raises ValueError
             check_kernel_support(m.head_dim, m.dtype)
         self.page_size = cfg.page_size
         self.spec = resolve_spec(cfg)
+        if self.tp > 1:
+            self._check_tp()
+        # prefix reuse restores blocks with device copies of the leader's
+        # own: off across ranks, as the JAX multi-host worker turns it off
+        self.enable_prefix_reuse = cfg.enable_prefix_reuse and self.tp == 1
+        # every dispatch's device program: a hook receives its host inputs
+        # before it runs (the leader's DispatchPublisher.hook)
+        self.dispatch_hook: Optional[Callable[[str, Dict[str, Any],
+                                               Dict[str, np.ndarray]],
+                                              None]] = None
+        # frames handed to the hook: a step that fails after one went out
+        # has followers that may wait on a collective it will not run
+        self.frames_out = 0
+        # the previous decode program's sampled tokens, on the device: a
+        # chained decode program's input
+        self._chain_tok: Optional[torch.Tensor] = None
         # a dispatch may overshoot a finishing sequence by up to
         # decode_steps tokens (or, under spec decode, k_max drafts + 1
         # bonus token): they land in its own pre-allocated pages
@@ -319,27 +381,35 @@ class EngineCore:
         num_pages = cfg.num_pages or (cfg.max_batch * self.max_pages_per_seq
                                       + 1)
         self.pool = PagePool(num_pages, cfg.page_size)
+        tp, rank = self.tp, self.rank
         with torch.no_grad():
             if params is None and cfg.params_path and _has_safetensors(
                     cfg.params_path):
                 from .loader import load_llama_params
 
-                params = load_llama_params(cfg.params_path, m, self.device)
+                params = load_llama_params(cfg.params_path, m, self.device,
+                                           tp, rank)
             elif params is None and cfg.params_path and (
                     gguf := _gguf_file(cfg.params_path)):
                 from ..llm.gguf import load_llama_params_gguf
 
                 _, params = load_llama_params_gguf(
-                    gguf, cfg=m, device=self.device, dtype=m.dtype)
+                    gguf, cfg=m, device=self.device, dtype=m.dtype, tp=tp,
+                    rank=rank)
             elif params is None:
                 gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-                params = llama.init_params(m, gen, self.device)
+                params = llama.init_params(m, gen, self.device, tp, rank)
+                if self.device.type == "cuda":
+                    # hand the draw's f32 transients back to the driver:
+                    # tp ranks may share the card
+                    torch.cuda.empty_cache()
             self.params = params
             self._build_vision_tower(vision_params)
             # head-major [L, Hkv, n_pages, page, Dh]: pool[l] is directly
-            # the paged kernel's layout; page 0 is the scratch page
-            pool_shape = (m.num_layers, m.num_kv_heads, num_pages,
-                          cfg.page_size, m.head_dim)
+            # the paged kernel's layout; page 0 is the scratch page. A tp
+            # rank's pool holds its kv heads
+            pool_shape = (m.num_layers, llama.local_kv_heads(m, tp),
+                          num_pages, cfg.page_size, m.head_dim)
             self.k_pool = torch.zeros(pool_shape, dtype=m.dtype,
                                       device=self.device)
             self.v_pool = torch.zeros(pool_shape, dtype=m.dtype,
@@ -463,11 +533,26 @@ class EngineCore:
                 torch.cuda.get_device_name(self.device), "cuda")
         else:
             peaks = roofline.detect_peaks("cpu", "cpu")
-        self.costs = roofline.model_costs(m, weight_bytes=float(
-            _tree_nbytes(self.params)))
+        if tp > 1:
+            # the whole model's work against tp devices' peaks, as the JAX
+            # engine's global arrays account it
+            peaks = replace(peaks, flops=peaks.flops * tp,
+                            hbm_bytes=peaks.hbm_bytes * tp)
+        # the loaded tree's bytes; a rank's shard holds replicated leaves,
+        # so tp > 1 prices the whole model analytically
+        self.costs = roofline.model_costs(m, weight_bytes=None if tp > 1
+                                          else float(_tree_nbytes(
+                                              self.params)))
         self.goodput = roofline.GoodputMeter(self.costs, peaks)
+        # each rank's counters, gathered by refresh_rank_stats (tp > 1):
+        # rank_stats_seq numbers the gather they come from, in the order
+        # the gathers began (rank_stats_begun)
+        self.rank_stats: List[Dict[str, float]] = []
+        self.rank_stats_seq = self.rank_stats_begun = 0
         if self.device.type == "cuda":
             self._probe_kernels()
+        if tp > 1:
+            self._check_ranks_agree()
 
         # --- speculative decoding: proposer, per-sequence state, counters
         self.proposer = (build_proposer(self.spec, cfg, self.device)
@@ -601,16 +686,74 @@ class EngineCore:
         soft = self._encode_images(px)
         return spans, soft.reshape(-1, soft.shape[-1]), digest
 
+    def _check_tp(self) -> None:
+        """Construction checks of a tensor-parallel rank: the model shards
+        (heads, FFN), each rank's heads form an integral GQA group for the
+        kernels (there is no fallback path), and every option whose device
+        work the followers cannot mirror yet raises, naming its item."""
+        cfg, m = self.cfg, self.cfg.model
+        llama.validate_tp(m, self.tp)
+        if not llama.kernel_tp_ok(m, self.tp):
+            raise ValueError(
+                f"tp={self.tp}: a rank's {m.num_heads // self.tp} query "
+                f"heads do not form whole GQA groups over its "
+                f"{llama.local_kv_heads(m, self.tp)} kv heads; the attention "
+                f"kernels have no layout for it")
+        llama.kv_head_range(m, self.tp, self.rank)  # straddling groups raise
+        from ..llm.kvpage.runner import PagedConfig
+
+        refused = [
+            ("speculative decoding", self.spec is not None),
+            ("the host and disk KV tiers",
+             cfg.host_cache_blocks > 0 or cfg.disk_cache_blocks > 0),
+            ("cluster KV write-through", cfg.cluster_writethrough),
+            ("KV paging", PagedConfig.resolve(cfg) is not None),
+            ("image requests (a VLM model)", m.vision is not None),
+        ]
+        for what, on in refused:
+            if on:
+                raise NotImplementedError(f"tp={self.tp}: {what} is "
+                                          f"{TP_GAP}")
+
+    def _check_ranks_agree(self) -> None:
+        """Every rank must build the same engine, or its page tables and
+        lanes index a different pool: the leader broadcasts a digest of
+        its model and geometry, and every rank raises on a mismatch."""
+        import hashlib
+
+        from ..parallel import collectives
+
+        c, m = self.cfg, self.cfg.model
+        key = repr((sorted((k, repr(v)) for k, v in m.__dict__.items()),
+                    c.page_size, c.max_batch, c.max_context,
+                    c.prefill_chunk, self.pool.num_pages, c.decode_steps,
+                    c.seed, c.params_path, self.tp))
+        mine = int.from_bytes(hashlib.blake2b(
+            key.encode(), digest_size=7).digest(), "little")
+        digest = to_device(np.asarray([mine], np.int64), self.device)
+        collectives.broadcast(digest, self.group)
+        # dynalint: ok(host-sync) construction, once: the leader's digest
+        leader = int(digest.cpu()[0])
+        bad = to_device(np.asarray([float(leader != mine)], np.float32),
+                        self.device)
+        collectives.all_reduce_(bad, self.group)
+        # dynalint: ok(host-sync) construction, once: any rank's mismatch
+        if float(bad.cpu()[0]):
+            raise ValueError(
+                f"tp rank {self.rank}: the ranks' engines differ (model, "
+                f"geometry, seed or weights path); start every rank with "
+                f"the same engine arguments")
+
     def _probe_kernels(self) -> None:
         """Build both CUDA kernels and launch each once at this engine's
-        head shapes, so that a build or launch fault raises at construction
-        instead of failing the first request."""
+        head shapes (a tp rank's own), so that a build or launch fault
+        raises at construction instead of failing the first request."""
         m, d, page = self.cfg.model, self.device, self.page_size
         kw = dict(scale=m.attn_scale, softcap=m.attn_logit_softcap,
                   window=m.sliding_window)
-        q = torch.zeros((1, 1, m.num_heads, m.head_dim), dtype=m.dtype,
-                        device=d)
-        kv = torch.zeros((1, page, m.num_kv_heads, m.head_dim),
+        q = torch.zeros((1, 1, m.num_heads // self.tp, m.head_dim),
+                        dtype=m.dtype, device=d)
+        kv = torch.zeros((1, page, self.k_pool.shape[1], m.head_dim),
                          dtype=m.dtype, device=d)
         k_pos = torch.arange(page, dtype=torch.int32, device=d)[None]
         with torch.no_grad():
@@ -624,6 +767,10 @@ class EngineCore:
         # complete here so a build or launch fault raises before the first
         # request
         torch.cuda.synchronize(d)
+
+    def _refuse_at_tp(self, what: str) -> None:
+        if self.tp > 1:
+            raise NotImplementedError(f"tp={self.tp}: {what} is {TP_GAP}")
 
     # ------------------------------------------------------------------
     # public API (engine thread)
@@ -794,6 +941,7 @@ class EngineCore:
         The caller owns queue/transfer; this runs on the engine thread."""
         from dataclasses import replace
 
+        self._refuse_at_tp("disaggregated prefill (prefill_extract)")
         prompt = list(request.token_ids)
         if len(prompt) + 1 >= self.cfg.max_context:
             # typed 400 (not a bare ValueError): the disagg frontend's
@@ -839,6 +987,7 @@ class EngineCore:
         """Receive a remotely-prefilled sequence: write its prompt KV into
         this pool and enter it straight into decode (prefill_done=len).
         ``k``/``v``: [L, T, Hkv, Dh] for the prompt tokens."""
+        self._refuse_at_tp("disaggregated decode (inject_prefilled)")
         if None not in self.slots:
             raise RuntimeError("no free slot for injected sequence")
         prompt = list(request.token_ids)
@@ -912,6 +1061,7 @@ class EngineCore:
         still on the wire. The pages stay UNSEALED (no hash registration,
         no stored events) until :meth:`finish_stream_inject` — a torn
         stream releases them with nothing ever having referenced them."""
+        self._refuse_at_tp("layer-streamed KV ingest (KvIngest)")
         prompt = list(request.token_ids)
         if None not in self.slots:
             raise RuntimeError("no free slot for streamed sequence")
@@ -1496,7 +1646,7 @@ class EngineCore:
         self.by_seq[seq_id] = slot
         self.pool.create(seq_id, lora_id=chain_salt)
         matched = 0
-        if self.cfg.enable_prefix_reuse:
+        if self.enable_prefix_reuse:
             matched = self._restore_prefix(seq_id, prompt)
             slot.prefill_done = slot.kv_written = matched
         self.last_prefix_hit = matched
@@ -1624,7 +1774,6 @@ class EngineCore:
         t0 = time.perf_counter()
         d = self.device
         idx = [w[0] for w in work]
-        temp, top_p, top_k = self._lane_tensors(idx)
         mm_kw: Dict[str, Any] = {}
         if image_wave:
             ov_vals = torch.zeros((Bp, C, cfg.model.hidden_size),
@@ -1637,20 +1786,23 @@ class EngineCore:
                          attn_spans=(to_device(q_span, d),
                                      to_device(read_span, d)))
             self.image_waves += 1
-        logits, _, _ = llama.forward(
-            self.params, cfg.model, to_device(tokens, d),
-            to_device(positions, d), self.k_pool, self.v_pool,
-            to_device(write_idx, d), to_device(read_idx, d),
-            to_device(read_pos, d), to_device(read_valid, d),
-            # image waves take the dense path (the span or-mask has no
-            # kernel input); text waves keep the flash kernel
-            attn_impl="dense" if image_wave else "flash",
-            logits_idx=to_device(last_i, d), **mm_kw)
-        tok, logp = sample(logits[:, 0], temp, top_p, top_k,
-                           to_device(uniforms, d))
+        arrs = {"tokens": tokens, "positions": positions,
+                "write_idx": write_idx, "read_idx": read_idx,
+                "read_pos": read_pos, "read_valid": read_valid,
+                "last_i": last_i, "temp": self.temperature[idx],
+                "top_p": self.top_p[idx], "top_k": self.top_k[idx],
+                "uniforms": uniforms}
+        if self.dispatch_hook is not None:
+            # image waves never reach here at tp > 1 (refused at
+            # construction): their device inputs are the leader's own
+            self._publish("prefill", {
+                "Bp": Bp, "C": C, "S": S, "seeds": [],
+                "last_lanes": [lane for lane, w in enumerate(work) if w[4]],
+                "mm": False}, arrs)
+        sampled = self._run_prefill_program(arrs, mm_kw)
         # dynalint: ok(host-sync) the prefill dispatch's designed fetch: every
         # lane's (token, logprob) in one packed read a dispatch
-        packed = torch.stack([tok.float(), logp], -1).cpu().numpy()  # 1 fetch
+        packed = sampled.cpu().numpy()                    # 1 fetch
         elapsed = time.perf_counter() - t0
         for ev in self._vision_events:    # complete: the fetch synced
             self.vision_seconds += ev[0].elapsed_time(ev[1]) / 1e3
@@ -1683,6 +1835,30 @@ class EngineCore:
                                   token_logprob=lp))
             if fin is not None:
                 self._free_slot(i)
+
+    def _run_prefill_program(self, arrs: Dict[str, np.ndarray],
+                             mm_kw: Optional[Dict[str, Any]] = None
+                             ) -> torch.Tensor:
+        """A prefill dispatch's device program, from its host inputs alone
+        (every rank runs it): one forward over the lanes' chunks, writing
+        their KV, and each lane's sampled (token, logprob) as a device
+        tensor [Bp, 2]. Image waves (``mm_kw``) take the dense path: the
+        span or-mask has no kernel input; text waves keep the flash
+        kernel."""
+        d, m = self.device, self.cfg.model
+        logits, _, _ = llama.forward(
+            self.params, m, to_device(arrs["tokens"], d),
+            to_device(arrs["positions"], d), self.k_pool, self.v_pool,
+            to_device(arrs["write_idx"], d), to_device(arrs["read_idx"], d),
+            to_device(arrs["read_pos"], d), to_device(arrs["read_valid"], d),
+            attn_impl="dense" if mm_kw else "flash",
+            logits_idx=to_device(arrs["last_i"], d), group=self.group,
+            **(mm_kw or {}))
+        tok, logp = sample(logits[:, 0], to_device(arrs["temp"], d),
+                           to_device(arrs["top_p"], d),
+                           to_device(arrs["top_k"], d),
+                           to_device(arrs["uniforms"], d))
+        return torch.stack([tok.float(), logp], -1)
 
     def _finish_reason(self, slot: _Slot, token: int) -> Optional[FinishReason]:
         req = slot.request
@@ -1766,8 +1942,7 @@ class EngineCore:
         (no host data dependency). Lanes that finish mid-dispatch overshoot
         harmlessly into their own pre-allocated pages; the fetch trims
         them."""
-        cfg, m = self.cfg, self.cfg.model
-        N = cfg.decode_steps
+        N = self.cfg.decode_steps
         chain = bool(self._inflight)
         active, deferred = self._decode_eligible()
         if not active:
@@ -1776,7 +1951,6 @@ class EngineCore:
             return
         self._flush_evictions()   # ensure_pages() may have evicted pages
         t0 = time.perf_counter()
-        d = self.device
         idx = [i for i, _, _ in active]
         P = -(-max(phys + N for _, _, phys in active) // self.page_size)
         page_tables = np.stack([self.pool.page_table_row(s.seq_id, P)
@@ -1786,50 +1960,28 @@ class EngineCore:
             slot.sched_len = phys + N
             # the N tokens fed in sit at positions phys-1 .. phys+N-2
             slot.kv_written = phys + N - 1
-        if chain:
-            tok = self._inflight[-1]["final_tok"]
-        else:
-            tok = to_device(np.asarray([s.last_token for _, s, _ in active],
-                                       np.int64), d)
-            # a sequence entering decode restarts its penalty counts at
-            # one-hot(first generated token); a chained dispatch has the
-            # same sequences, so never here. The rows and columns go up
-            # pinned: a Python-scalar setitem (`counts[i, t] = 1`) would
-            # wait on a pageable copy of its value
-            fresh = [(i, slot) for i, slot, _ in active
-                     if self._decode_seen.get(i) != slot.seq_id]
-            if fresh:
-                for i, slot in fresh:
-                    self._decode_seen[i] = slot.seq_id
-                rows = to_device(np.asarray([i for i, _ in fresh],
-                                            np.int64), d)
-                cols = to_device(np.asarray([s.last_token for _, s in fresh],
-                                            np.int64), d)
-                self.gen_counts.index_fill_(0, rows, 0)
-                self.gen_counts.index_put_(
-                    (rows, cols), torch.ones(len(fresh), device=d,
-                                             dtype=self.gen_counts.dtype))
-        lane = to_device(np.asarray(idx, np.int64), d)
-        temp, top_p, top_k = self._lane_tensors(idx)
-        freq = to_device(self.freq_pen[idx], d)
-        pres = to_device(self.pres_pen[idx], d)
-        uniforms = draw_uniforms([self.generators[i] for i in idx], N, d)
-        pt = to_device(page_tables, d)
-        ln = to_device(lengths, d)
-        toks, logps = [], []
-        for j in range(N):
-            logits, _, _ = llama.forward_decode(
-                self.params, m, tok, self.k_pool, self.v_pool, pt, ln,
-                attn_impl="paged")
-            lg = apply_penalties(logits[:, 0], self.gen_counts[lane], freq,
-                                 pres)
-            tok, logp = sample(lg, temp, top_p, top_k, uniforms[j])
-            self.gen_counts[lane, tok] += 1
-            toks.append(tok)
-            logps.append(logp)
-            ln = ln + 1
-        packed = torch.stack([torch.stack(toks).float(), torch.stack(logps)],
-                             -1)                        # [N, Ba, 2]
+        arrs = {"lanes": np.asarray(idx, np.int64),
+                "page_tables": page_tables, "lengths": lengths,
+                "temp": self.temperature[idx], "top_p": self.top_p[idx],
+                "top_k": self.top_k[idx], "freq_pen": self.freq_pen[idx],
+                "pres_pen": self.pres_pen[idx],
+                "uniforms": host_uniforms([self.generators[i] for i in idx],
+                                          N)}
+        if not chain:
+            # a chained dispatch feeds the device's own tokens and has the
+            # same sequences; otherwise a sequence entering decode
+            # restarts its penalty counts at one-hot(its last token)
+            arrs["tokens"] = np.asarray([s.last_token for _, s, _ in active],
+                                        np.int64)
+            arrs["fresh"] = np.asarray(
+                [self._decode_seen.get(i) != slot.seq_id
+                 for i, slot, _ in active], bool)
+            for i, slot, _ in active:
+                self._decode_seen[i] = slot.seq_id
+        if self.dispatch_hook is not None:
+            self._publish("decode", {"S": P * self.page_size,
+                                     "chain": chain}, arrs)
+        packed = self._run_decode_program(arrs)
         ready = None
         if packed.is_cuda:
             # into pinned memory behind the dispatch; the host waits on the
@@ -1841,7 +1993,7 @@ class EngineCore:
             ready.record()
             packed = host
         self._inflight.append({"packed": packed, "ready": ready,
-                               "final_tok": tok, "active": active,
+                               "active": active,
                                "lengths": [phys for _, _, phys in active],
                                "chained": chain, "dispatched_at": t0})
         self.decode_dispatches += 1
@@ -1852,6 +2004,118 @@ class EngineCore:
         _flightrec.hb_begin("engine.decode", stall="decode")
         _flightrec.note_event("engine.dispatch", depth=len(self._inflight),
                               batch=len(active), steps=N)
+
+    def _run_decode_program(self, arrs: Dict[str, np.ndarray]
+                            ) -> torch.Tensor:
+        """A decode dispatch's device program, from its host inputs alone
+        (every rank runs it): the penalty-count resets of sequences
+        entering decode, then ``N`` forward+sample steps over the lanes
+        with each sampled token fed straight back, paged attention off the
+        pool. Without ``tokens`` in ``arrs`` it chains off the previous
+        program's tokens on the device. Returns the packed (token,
+        logprob) [N, Ba, 2] on the device."""
+        d, m = self.device, self.cfg.model
+        uniforms = to_device(arrs["uniforms"], d)
+        N = uniforms.shape[0]
+        if "tokens" in arrs:
+            tok = to_device(arrs["tokens"], d)
+            fresh = arrs["fresh"]
+            if fresh.any():
+                # the rows and columns go up pinned: a Python-scalar
+                # setitem (`counts[i, t] = 1`) would wait on a pageable
+                # copy of its value
+                rows = to_device(arrs["lanes"][fresh], d)
+                cols = to_device(arrs["tokens"][fresh], d)
+                self.gen_counts.index_fill_(0, rows, 0)
+                self.gen_counts.index_put_(
+                    (rows, cols), torch.ones(len(rows), device=d,
+                                             dtype=self.gen_counts.dtype))
+        else:
+            tok = self._chain_tok
+        lane = to_device(arrs["lanes"], d)
+        temp, top_p, top_k = (to_device(arrs[k], d)
+                              for k in ("temp", "top_p", "top_k"))
+        freq = to_device(arrs["freq_pen"], d)
+        pres = to_device(arrs["pres_pen"], d)
+        pt = to_device(arrs["page_tables"], d)
+        ln = to_device(arrs["lengths"], d)
+        toks, logps = [], []
+        for j in range(N):
+            logits, _, _ = llama.forward_decode(
+                self.params, m, tok, self.k_pool, self.v_pool, pt, ln,
+                attn_impl="paged", group=self.group)
+            lg = apply_penalties(logits[:, 0], self.gen_counts[lane], freq,
+                                 pres)
+            tok, logp = sample(lg, temp, top_p, top_k, uniforms[j])
+            self.gen_counts[lane, tok] += 1
+            toks.append(tok)
+            logps.append(logp)
+            ln = ln + 1
+        self._chain_tok = tok
+        return torch.stack([torch.stack(toks).float(), torch.stack(logps)],
+                           -1)                        # [N, Ba, 2]
+
+    def mirror_dispatch(self, kind: str, meta: Dict[str, Any],
+                        arrs: Dict[str, np.ndarray]) -> None:
+        """A follower's replay of a leader dispatch (the JAX engine's
+        multi-host mirror): the same device program on the same host
+        inputs, so this rank's shard of the KV pool, its penalty counts
+        and its chained tokens advance in lockstep with the leader's.
+        Nothing is read back: only the leader streams tokens."""
+        with torch.no_grad():
+            if kind == "prefill":
+                self._run_prefill_program(arrs)
+                self.prefill_dispatches += 1
+            elif kind == "decode":
+                self._run_decode_program(arrs)
+                self.decode_dispatches += 1
+                self.decode_chained += bool(meta.get("chain"))
+                self.decode_steps_run += int(arrs["uniforms"].shape[0])
+            elif kind == "stats":
+                self._gather_rank_stats()
+            else:
+                raise ValueError(f"unknown dispatch kind {kind!r}")
+
+    def _publish(self, kind: str, meta: Dict[str, Any],
+                 arrs: Dict[str, np.ndarray]) -> None:
+        self.dispatch_hook(kind, meta, arrs)
+        self.frames_out += 1
+
+    def refresh_rank_stats(self) -> List[Dict[str, float]]:
+        """Leader, engine thread, between dispatches: gather every rank's
+        counters into :attr:`rank_stats` (one ``stats`` frame, one
+        collective)."""
+        if self.tp == 1:
+            return self.rank_stats
+        if self.dispatch_hook is not None:
+            self._publish("stats", {}, {})
+        self._gather_rank_stats()
+        return self.rank_stats
+
+    def _gather_rank_stats(self) -> None:
+        from ..ops import attention as att
+        from ..parallel import collectives
+
+        self.rank_stats_begun += 1
+        begun = self.rank_stats_begun
+        peak = (torch.cuda.max_memory_allocated(self.device)
+                if self.device.type == "cuda" else 0)
+        mine = [float(att.flash_attention.launches),
+                float(att.paged_attention.launches),
+                float(self.prefill_dispatches), float(self.decode_dispatches),
+                float(self.decode_steps_run), float(_tree_nbytes(self.params)),
+                float(peak)]
+        k = len(mine)
+        got = to_device(np.zeros(k * self.tp, np.float64), self.device)
+        got[self.rank * k:(self.rank + 1) * k] = to_device(
+            np.asarray(mine, np.float64), self.device)
+        collectives.all_reduce_(got, self.group)
+        # dynalint: ok(host-sync) the ranks' counters, read between
+        # dispatches with the engine idle (refresh_rank_stats)
+        vals = got.cpu().tolist()
+        self.rank_stats = [dict(zip(RANK_STATS, vals[r * k:(r + 1) * k]))
+                           for r in range(self.tp)]
+        self.rank_stats_seq = begun
 
     def _process_oldest_inflight(self) -> List[StepOutput]:
         """Wait for the oldest in-flight dispatch's results on the host and
@@ -2086,11 +2350,23 @@ def _tree_nbytes(tree) -> int:
 # ---------------------------------------------------------------------------
 
 class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
-    """AsyncEngine facade: one background engine thread runs EngineCore."""
+    """AsyncEngine facade: one background engine thread runs EngineCore.
+
+    A tensor-parallel leader passes its ``plane``
+    (:class:`~..parallel.multihost.LeaderPlane`): the engine waits for the
+    followers and hooks the dispatch publisher into its core before the
+    thread starts, gathers every rank's counters while idle
+    (``core.rank_stats``), and closes the plane at shutdown. A step that
+    fails after it sent the followers a frame ends the process (exit 13):
+    they may already wait inside a collective the leader will not run
+    again. One that fails before errors its batch, as at tp=1."""
 
     def __init__(self, cfg: TorchEngineConfig,
-                 params: Optional[Dict[str, Any]] = None):
+                 params: Optional[Dict[str, Any]] = None, plane=None):
         self.core = EngineCore(cfg, params)
+        self.plane = plane
+        if plane is not None:
+            plane.attach(self.core)
         # DYN_PROFILE_DIR: a torch.profiler Chrome trace of the first
         # DYN_PROFILE_STEPS (default 32) working iterations, written to
         # that directory (the JAX engine's XLA trace); read here, before
@@ -2120,6 +2396,7 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
         prof = None
         last_gauges = 0.0
         last_disp = 0
+        last_stats, stats_disp = 0.0, -1
         while self._running:
             while True:
                 try:
@@ -2145,6 +2422,14 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
                 if now - last_gauges >= 5.0:
                     last_gauges = now
                     self._set_goodput_gauges(stage)
+                disp = self.core.prefill_dispatches + \
+                    self.core.decode_dispatches
+                if self.core.tp > 1 and (
+                        disp != stats_disp and now - last_stats >= 0.5
+                        or now - last_stats >= 5.0):
+                    # idle: every rank's counters, between dispatches
+                    last_stats, stats_disp = now, disp
+                    self.core.refresh_rank_stats()
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
                 continue
@@ -2156,10 +2441,18 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
                 except Exception:
                     log.exception("DYN_PROFILE_DIR capture failed to start")
                     profile_dir = None
+            sent = self.core.frames_out
             try:
                 outs = self.core.step(flush=self._deliver_all)
             except Exception as e:  # engine must never die silently
                 log.exception("engine step failed")
+                if self.core.frames_out != sent:
+                    log.critical("a tensor-parallel leader cannot drop a "
+                                 "dispatch its followers were sent; "
+                                 "ending the worker")
+                    from ..parallel.multihost import FOLLOWER_LOST_EXIT
+
+                    os._exit(FOLLOWER_LOST_EXIT)
                 outs = [StepOutput(sid, 0, 0.0, FinishReason.ERROR,
                                    error=f"engine step failed: {e}")
                         for sid in list(self.core.by_seq)]
@@ -2250,6 +2543,7 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
 
         host_params, new_cfg, loop, fut = payload
         try:
+            self.core._refuse_at_tp("a weight swap")
             res = hot_swap(self.core, host_params, new_cfg)
             loop.call_soon_threadsafe(_set_result, fut, res)
         except Exception as e:  # noqa: BLE001
@@ -2365,6 +2659,7 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
         ingest=handle)``; consume the entered sequence with
         :meth:`generate_streamed` once the awaited future resolves to
         the handle."""
+        self.core._refuse_at_tp("layer-streamed KV ingest (KvIngest)")
         return KvIngest(self, request, seq_id)
 
     async def generate_streamed(self, request: BackendInput,
@@ -2479,6 +2774,8 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
         self._wake.set()
         self._thread.join(timeout=30)
         self.core.close()
+        if self.plane is not None:
+            self.plane.close()
         # the engine's per-worker gauge series die with it: a process that
         # outlives its engine would otherwise export ghost occupancy/MFU
         self.core.stage.clear_worker(str(os.getpid()))

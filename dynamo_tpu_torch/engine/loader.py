@@ -167,41 +167,71 @@ class _Stage:
         return out
 
 
+def _source_cut(name: str, full, cut):
+    """A rank's cut ``(axis, start, stop)`` of one source tensor's leaf
+    (``full`` = the leaf's whole per-layer shape) as a range of the
+    source's rows or columns in its HF/GGUF layout: ``("rows" | "cols",
+    lo, hi)``, or None."""
+    if cut is None:
+        return None
+    axis, a, b = cut
+    n_in = 2 if name == "wo" else 1
+    if name in _TRANSPOSED and axis < n_in:
+        # the leaf's "in" dims are the source's columns
+        unit = math.prod(full[axis + 1:n_in])
+        return "cols", a * unit, b * unit
+    unit = math.prod(full[axis + 1:])
+    return "rows", a * unit, b * unit
+
+
 def _place(leaf: torch.Tensor, name: str, src: Source,
-           stage: _Stage) -> None:
+           stage: _Stage, full=None, cut=None) -> None:
     """Copy one source tensor (HF/GGUF layout) into ``leaf`` (one layer's
     slice of a stacked leaf, or a whole top-level leaf) by row blocks; the
-    cast and the transpose run on the target device."""
+    cast and the transpose run on the target device. ``full`` is the
+    leaf's whole shape and ``cut`` the range of source rows or columns
+    (:func:`_source_cut`) that ``leaf``, a tensor-parallel rank's shard,
+    holds: only those rows are read, or only those columns kept."""
     shape = tuple(src.shape)
     numel = math.prod(shape)
+    full = tuple(leaf.shape) if full is None else tuple(full)
+    rows_cut = cut if cut is not None and cut[0] == "rows" else None
+    cols_cut = cut if cut is not None and cut[0] == "cols" else None
     if name in _TRANSPOSED:
         # the leaf is [in, ...out]; wo's "in" is its leading (Hq, Dh)
-        fan_in = leaf.shape[0] * (leaf.shape[1] if name == "wo" else 1)
-        want = (leaf.numel() // fan_in, fan_in)
+        n_in = 2 if name == "wo" else 1
+        fan_in = math.prod(full[:n_in])
+        want = (math.prod(full) // fan_in, fan_in)
         ok = shape == want
-        dst = leaf.view(fan_in, -1)                 # [in, out] = src.T
+        # [in, out] = src.T (of the shard's rows or columns)
+        dst = leaf.view(math.prod(leaf.shape[:n_in]), -1)
     else:
-        want = tuple(leaf.shape)
-        ok = (shape == want if name == "embed" else numel == leaf.numel())
-        dst = leaf.view(shape[0] if shape else 1, -1)
+        want = full
+        ok = (shape == want if name == "embed"
+              else numel == math.prod(full))
+        dst = leaf.view(rows_cut[2] - rows_cut[1] if rows_cut
+                        else (shape[0] if shape else 1), -1)
     if not ok:
         raise ValueError(f"{name}: checkpoint tensor of shape {shape} does "
                          f"not fit the model (expected {want})")
     n_rows = shape[0] if shape else 1
     row = numel // n_rows
+    lo, hi = (rows_cut[1], rows_cut[2]) if rows_cut else (0, n_rows)
     step = max(1, STAGE_BYTES // max(1, row * src.element_size()))
     with (open(src.path, "rb", buffering=0) if isinstance(src, RawTensor)
           else contextlib.nullcontext()) as f:
-        for r0 in range(0, n_rows, step):
-            r1 = min(n_rows, r0 + step)
+        for r0 in range(lo, hi, step):
+            r1 = min(hi, r0 + step)
             # dynalint: ok(flow-accounting) the staged upload of one leaf;
             # load_llama_params meters the whole tree as one weight_prefetch
             # flow (a GGUF cold load stays unmetered, as in the JAX package)
             chunk = stage.rows(src, f, r0, r1, row)
+            if cols_cut:
+                chunk = chunk[:, cols_cut[1]:cols_cut[2]]
             if name in _TRANSPOSED:
-                dst[:, r0:r1].copy_(chunk.T)
+                dst[:, r0 - lo:r1 - lo].copy_(chunk.T)
             else:
-                dst[r0:r1].copy_(chunk)
+                dst[r0 - lo:r1 - lo].copy_(chunk)
 
 
 def place_llama_params(cfg: LlamaConfig,
@@ -209,24 +239,30 @@ def place_llama_params(cfg: LlamaConfig,
                        names: Dict[str, str],
                        device: Union[str, torch.device] = "cpu",
                        dtype: Optional[torch.dtype] = None,
-                       has: Optional[Callable[[str], bool]] = None
-                       ) -> Dict[str, Any]:
+                       has: Optional[Callable[[str], bool]] = None,
+                       tp: int = 1, rank: int = 0) -> Dict[str, Any]:
     """The stacked tree of ``cfg`` on ``device``, each leaf allocated once
     and filled layer by layer from ``fetch(source name)`` (a tensor, or a
     :class:`RawTensor` read from its file). ``names`` maps each leaf to its
     source name (``{}`` = layer index); ``dtype`` (default ``cfg.dtype``)
-    is the matrices', norms are f32."""
+    is the matrices', norms are f32. With ``tp > 1`` the tree is rank
+    ``rank``'s shard (:func:`~dynamo_tpu_torch.models.llama.tp_cuts`):
+    each leaf is allocated at its cut and takes only its rows or columns
+    of the source, so no rank ever holds a whole sharded leaf."""
     if cfg.num_experts:
         raise NotImplementedError(f"MoE model: {MOE_CHECKPOINT_GAP}")
     device = torch.device(device) if isinstance(device, str) else device
     dt = cfg.dtype if dtype is None else dtype
     shapes = llama.param_shapes(cfg)
+    local = llama.shard_shapes(cfg, tp, rank)
+    cuts = llama.tp_cuts(cfg, tp, rank)
     stage = _Stage(device)
 
-    def put(leaf: torch.Tensor, name: str, key: str) -> None:
+    def put(leaf: torch.Tensor, name: str, key: str, full, cut) -> None:
         if has is not None and not has(key):
             raise KeyError(f"checkpoint lacks tensor {key!r}")
-        _place(leaf, name, fetch(key), stage)
+        _place(leaf, name, fetch(key), stage, full,
+               _source_cut(name, full, cut))
 
     def alloc(name: str, shape) -> torch.Tensor:
         return torch.empty(shape, dtype=torch.float32 if name in _F32
@@ -237,14 +273,18 @@ def place_llama_params(cfg: LlamaConfig,
         for name, shape in shapes.items():
             if name == "layers":
                 continue
-            tree[name] = alloc(name, shape)
-            put(tree[name], name, names[name])
-        layers = {n: alloc(n, s) for n, s in shapes["layers"].items()}
+            tree[name] = alloc(name, local[name])
+            put(tree[name], name, names[name], shape, cuts[name])
+        layers = {n: alloc(n, s) for n, s in local["layers"].items()}
+        # a stacked leaf's cut, on one layer's slice (the layer axis off)
+        layer_cuts = {n: None if c is None else (c[0] - 1, c[1], c[2])
+                      for n, c in cuts["layers"].items()}
         for i in range(cfg.num_layers):
             for n, leaf in layers.items():
-                put(leaf[i], n, names[n].format(i))
+                put(leaf[i], n, names[n].format(i), shapes["layers"][n][1:],
+                    layer_cuts[n])
         tree["layers"] = layers
-    llama.check_params(tree, cfg)
+    llama.check_params(tree, cfg, tp, rank)
     return tree
 
 
@@ -255,13 +295,14 @@ def load_llama_params_host(path: str, cfg: LlamaConfig) -> Dict[str, Any]:
     return _load(path, cfg, torch.device("cpu"))
 
 
-def _load(path: str, cfg: LlamaConfig, device: torch.device
-          ) -> Dict[str, Any]:
+def _load(path: str, cfg: LlamaConfig, device: torch.device,
+          tp: int = 1, rank: int = 0) -> Dict[str, Any]:
     shards = ShardSet(path)
     keys = set(shards.keys())
     try:
         return place_llama_params(cfg, shards.raw, hf_names(cfg, keys),
-                                  device, has=keys.__contains__)
+                                  device, has=keys.__contains__, tp=tp,
+                                  rank=rank)
     finally:
         shards.close()
 
@@ -292,16 +333,17 @@ def _tree_nbytes(tree) -> int:
 
 
 def load_llama_params(path: str, cfg: LlamaConfig,
-                      device: Union[str, torch.device] = "cuda"
-                      ) -> Dict[str, Any]:
+                      device: Union[str, torch.device] = "cuda",
+                      tp: int = 1, rank: int = 0) -> Dict[str, Any]:
     """The tree placed on ``device`` (``cuda`` unless the caller asks for
-    the CPU), leaf by leaf through pinned staging; one ``weight_prefetch``
-    flow records the cold load, timed to the device's completion."""
+    the CPU), leaf by leaf through pinned staging (rank ``rank``'s shard
+    with ``tp > 1``); one ``weight_prefetch`` flow records the cold load,
+    timed to the device's completion."""
     from ..obs.flows import record_flow
 
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    params = _load(path, cfg, dev)
+    params = _load(path, cfg, dev, tp, rank)
     if dev.type == "cuda":
         # dynalint: ok(host-sync) cold load, once: the weight_prefetch flow is
         # timed to the device's completion

@@ -50,12 +50,19 @@ def lane_generator(seed: int) -> torch.Generator:
         seed & 0xFFFFFFFFFFFFFFFF)
 
 
+def host_uniforms(generators: Sequence[torch.Generator],
+                  n: int) -> np.ndarray:
+    """[n, B] f32 uniforms in [0, 1) on the host: column b is the next n
+    draws of lane b's generator (a decode dispatch's host input)."""
+    cols = [torch.rand(n, generator=g) for g in generators]
+    return torch.stack(cols, dim=1).numpy()
+
+
 def draw_uniforms(generators: Sequence[torch.Generator], n: int,
                   device: torch.device) -> torch.Tensor:
-    """[n, B] uniforms in [0, 1): column b is the next n draws of lane b's
-    generator. One host->device copy per call, with no host sync."""
-    cols = [torch.rand(n, generator=g) for g in generators]
-    return to_device(torch.stack(cols, dim=1), device)
+    """:func:`host_uniforms` on ``device``: one host->device copy per
+    call, with no host sync."""
+    return to_device(host_uniforms(generators, n), device)
 
 
 def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,

@@ -52,8 +52,9 @@ log = logging.getLogger("dynamo_tpu_torch.mobility")
 #: swap candidate's config — the KV pool and batch lanes were sized from
 #: these, on this device, so the sibling must be evaluated against the
 #: SAME geometry (a matching model class then signature-matches and swaps
-#: in place). The JAX package's list, less the options the port has not
-#: ported (``engine._NOT_PORTED``), plus the device the engine runs on
+#: in place). The JAX package's list, less tp (a tensor-parallel worker
+#: runs no mobility agent: ``engine.TP_GAP``) and the options the port has
+#: not ported (``engine._NOT_PORTED``), plus the device the engine runs on
 GEOMETRY_FIELDS = (
     "page_size", "max_batch", "max_context",
     "prefill_chunk", "num_pages", "decode_steps",

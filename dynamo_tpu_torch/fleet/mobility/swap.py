@@ -43,8 +43,9 @@ log = logging.getLogger("dynamo_tpu_torch.mobility")
 DEFAULT_GROUP_LAYERS = 4
 
 #: TorchEngineConfig fields the signature holds beside the model config:
-#: the JAX package's geometry, less the options the port has not ported
-#: (``engine._NOT_PORTED``: tp/sp/ep/pp, prefill_lanes, attn_impl)
+#: the JAX package's geometry, less tp (a tensor-parallel engine refuses
+#: swaps: ``engine.TP_GAP``) and the options the port has not ported
+#: (``engine._NOT_PORTED``: sp/ep/pp, prefill_lanes, attn_impl, warmup)
 SIGNATURE_GEOMETRY = (
     "page_size", "max_batch", "max_context", "prefill_chunk", "num_pages",
     "decode_steps", "spec", "spec_k", "spec_draft")

@@ -454,11 +454,13 @@ def read_gguf(path: str) -> GGUFFile:
 
 def load_llama_params_gguf(path: str, cfg=None,
                            device: Union[str, torch.device, None] = None,
-                           dtype: Optional[torch.dtype] = None
+                           dtype: Optional[torch.dtype] = None,
+                           tp: int = 1, rank: int = 0
                            ) -> Tuple[Any, Dict[str, Any]]:
     """Load a llama GGUF into (config, stacked param tree), placed on
     ``device`` (the host when None) layer by layer, in ``dtype`` (the
-    config's, bf16 by default) for the matrices and f32 for the norms."""
+    config's, bf16 by default) for the matrices and f32 for the norms;
+    with ``tp > 1``, rank ``rank``'s shard of the tree."""
     from ..engine.loader import GGUF_NAMES, place_llama_params
 
     g = read_gguf(path)
@@ -468,7 +470,7 @@ def load_llama_params_gguf(path: str, cfg=None,
         params = place_llama_params(
             cfg, g.source, GGUF_NAMES,
             device=torch.device("cpu") if device is None else device,
-            dtype=dtype, has=lambda key: key in g.tensors)
+            dtype=dtype, has=lambda key: key in g.tensors, tp=tp, rank=rank)
     finally:
         g.close()
     return cfg, params

@@ -21,6 +21,11 @@ same-image bidirectional or-mask (the JAX package's ``xla`` path).
 Mixture-of-Experts models (``num_experts > 0``, Mixtral) run their FFN
 through :func:`~dynamo_tpu_torch.models.moe.moe_ffn`.
 
+Tensor parallelism is Megatron's, one process a rank (:mod:`..parallel`):
+:func:`param_specs` and :func:`tp_cuts` say how each leaf shards, each
+rank holds its cut of the tree and a pool of its kv heads, and the
+forwards take the tp group.
+
 Reference capability equivalent: the in-engine model executed by vLLM/TRT-LLM
 behind the reference's engine adapters (SURVEY §2.1, §7 step 3).
 """
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 
 from ..device import to_device
 from ..ops.attention import flash_attention, paged_attention
+from ..parallel import collectives
 from .moe import moe_ffn
 
 # ---------------------------------------------------------------------------
@@ -449,28 +455,215 @@ def kv_block_bytes(cfg: LlamaConfig, page_size: int) -> int:
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device: torch.device) -> Dict[str, Any]:
+                device: torch.device, tp: int = 1,
+                rank: int = 0) -> Dict[str, Any]:
     """Random-init params (testing/benching without checkpoint files), drawn
     as the JAX package draws them: normal scaled by 1/sqrt of the leaf's
     leading dim, in f32 from ``generator`` (which must live on ``device``),
     then cast to ``cfg.dtype``. ``ln1``/``ln2``/``final_norm`` are ones; the
     sandwich and q/k norms are random (rounded through ``cfg.dtype``, kept
-    f32) so a parity test would catch a dropped one."""
-    def draw(name: str, shape) -> torch.Tensor:
+    f32) so a parity test would catch a dropped one.
+
+    With ``tp > 1`` the tree is rank ``rank``'s shard of the same weights:
+    every rank draws each whole leaf from the same generator and keeps its
+    cut (:func:`tp_cuts`) as the leaf is drawn, so its transient peak is
+    one whole f32 leaf, not the tree."""
+    cuts = tp_cuts(cfg, tp, rank)
+
+    def draw(name: str, shape, c) -> torch.Tensor:
         if name in ("ln1", "ln2", "final_norm"):
             return torch.ones(shape, dtype=torch.float32, device=device)
         t = torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        t = t.mul_(1.0 / math.sqrt(shape[0])).to(cfg.dtype)
+                        device=device).mul_(1.0 / math.sqrt(shape[0]))
+        if c is None:
+            t = t.to(cfg.dtype)
+        else:
+            # a copy of the cut, in cfg.dtype, frees the whole leaf
+            t = _cut(t, c)
+            t = t.clone() if t.dtype == cfg.dtype else t.to(cfg.dtype)
         return t.float() if name in _F32_PARAMS else t
 
     shapes = param_shapes(cfg)
     params: Dict[str, Any] = {
-        name: draw(name, shape) for name, shape in shapes.items()
+        name: draw(name, shape, cuts[name]) for name, shape in shapes.items()
         if name != "layers"}
-    params["layers"] = {name: draw(name, shape)
+    params["layers"] = {name: draw(name, shape, cuts["layers"][name])
                         for name, shape in shapes["layers"].items()}
     return params
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (Megatron): heads, the FFN dim and an untied head's
+# vocab shard over tp; the row-parallel products (wo, wd) are summed over
+# the ranks, the vocab-sharded logits gathered
+# ---------------------------------------------------------------------------
+
+#: why MoE is refused at tp > 1
+MOE_TP_GAP = ("MoE under tensor parallelism needs the ep axis (ROADMAP "
+              "Queue 1 item 11b)")
+
+
+def param_specs(cfg: LlamaConfig, tp_size: int = 1) -> Dict[str, Any]:
+    """Each leaf's sharding as a tuple of axis names (None = replicated),
+    one entry a dim: the JAX package's ``param_specs`` at pp=1, leaf for
+    leaf. tp shards attention heads, the FFN dim and, when the model is
+    untied and the vocab divides tp, the LM head's vocab dim; k/v
+    replicate when the kv heads do not divide tp; the embedding stays
+    replicated (token gathers need the whole table)."""
+    tp = "tp"
+    kv = tp if cfg.num_kv_heads % max(tp_size, 1) == 0 else None
+    if cfg.num_experts:
+        ftp = tp if cfg.intermediate_size % max(tp_size, 1) == 0 else None
+        ffn = {"wr": (None, None, None), "wg": (None, "ep", None, ftp),
+               "wu": (None, "ep", None, ftp), "wd": (None, "ep", ftp, None)}
+    else:
+        ffn = {"wg": (None, None, tp), "wu": (None, None, tp),
+               "wd": (None, tp, None)}
+    layers = {"ln1": (None, None), "ln2": (None, None),
+              "wq": (None, None, tp, None), "wk": (None, None, kv, None),
+              "wv": (None, None, kv, None), "wo": (None, tp, None, None),
+              **ffn}
+    if cfg.sandwich_norms:
+        layers["ln1_post"] = layers["ln2_post"] = (None, None)
+    if cfg.qk_norm:
+        layers["ln_q"] = layers["ln_k"] = (None, None)
+    if cfg.attention_bias:
+        layers["bq"] = (None, tp, None)
+        layers["bk"] = layers["bv"] = (None, kv, None)
+    specs: Dict[str, Any] = {"embed": (None, None), "layers": layers,
+                             "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, tp if cfg.vocab_size % max(tp_size, 1) == 0
+                            else None)
+    return specs
+
+
+def validate_tp(cfg: LlamaConfig, tp: int) -> None:
+    """The JAX package's ``validate_tp`` at ep=1; MoE at tp > 1 waits for
+    the ep axis."""
+    if cfg.num_heads % tp:
+        raise ValueError(f"num_heads {cfg.num_heads} not divisible by tp={tp}")
+    if tp > 1 and cfg.num_experts:
+        raise NotImplementedError(MOE_TP_GAP)
+    if not cfg.num_experts and cfg.intermediate_size % tp:
+        raise ValueError(f"ffn {cfg.intermediate_size} not divisible by tp={tp}")
+
+
+def kernel_tp_ok(cfg: LlamaConfig, tp: int) -> bool:
+    """Can the attention kernels run on one rank's heads at this tp (the
+    JAX package's ``pallas_tp_ok``)? Each rank needs an integral GQA group:
+    its Hq/tp query heads divisible by the kv heads it keeps."""
+    if tp <= 1:
+        return True
+    if cfg.num_heads % tp:
+        return False
+    return (cfg.num_heads // tp) % local_kv_heads(cfg, tp) == 0
+
+
+def local_kv_heads(cfg: LlamaConfig, tp: int) -> int:
+    """The kv heads one rank keeps: Hkv/tp when tp divides them, else the
+    heads its query heads read (one, when a rank's query heads lie in one
+    GQA group)."""
+    if tp <= 1 or cfg.num_kv_heads % tp == 0:
+        return cfg.num_kv_heads // max(tp, 1)
+    return len(kv_head_range(cfg, tp, 0))
+
+
+def kv_head_range(cfg: LlamaConfig, tp: int, rank: int) -> range:
+    """The kv heads rank ``rank`` keeps: its share when tp divides them;
+    otherwise (k/v replicated in the JAX package's specs) the heads its
+    query heads [rank*Hq/tp, (rank+1)*Hq/tp) read under GQA. A rank whose
+    query heads cover part of a group and part of another has no uniform
+    kernel layout and raises."""
+    Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
+    if cfg.num_kv_heads % tp == 0:
+        n = Hkv // tp
+        return range(rank * n, (rank + 1) * n)
+    hq, group = Hq // tp, Hq // Hkv
+    q0 = rank * hq
+    if hq % group == 0:
+        return range(q0 // group, (q0 + hq) // group)
+    if group % hq == 0:
+        return range(q0 // group, q0 // group + 1)
+    raise ValueError(
+        f"tp={tp}: a rank's {hq} query heads straddle GQA groups of {group} "
+        f"(Hq={Hq}, Hkv={Hkv}); no rank layout runs the kernels")
+
+
+def tp_cuts(cfg: LlamaConfig, tp: int, rank: int) -> Dict[str, Any]:
+    """Where rank ``rank`` cuts each stacked leaf: ``(axis, start, stop)``
+    on the leaf's shape (:func:`param_shapes`), or None for a leaf it
+    holds whole. Follows :func:`param_specs`, except that a rank keeps
+    only the kv heads its query heads read where the specs replicate
+    k/v."""
+    shapes = param_shapes(cfg)
+    if tp <= 1:
+        return {n: None for n in shapes if n != "layers"} | {
+            "layers": {n: None for n in shapes["layers"]}}
+    validate_tp(cfg, tp)
+    specs = param_specs(cfg, tp)
+    kv = kv_head_range(cfg, tp, rank)
+
+    def cut(name: str, shape, spec):
+        if name in ("wk", "wv", "bk", "bv"):
+            axis = 2 if name in ("wk", "wv") else 1
+            return axis, kv.start, kv.stop
+        for axis, ax in enumerate(spec):
+            if ax == "tp":
+                n = shape[axis] // tp
+                return axis, rank * n, (rank + 1) * n
+        return None
+
+    out: Dict[str, Any] = {n: cut(n, s, specs[n]) for n, s in shapes.items()
+                           if n != "layers"}
+    out["layers"] = {n: cut(n, s, specs["layers"][n])
+                     for n, s in shapes["layers"].items()}
+    return out
+
+
+def shard_shapes(cfg: LlamaConfig, tp: int = 1,
+                 rank: int = 0) -> Dict[str, Any]:
+    """:func:`param_shapes` of rank ``rank``'s shard."""
+    shapes, cuts = param_shapes(cfg), tp_cuts(cfg, tp, rank)
+
+    def one(shape, c):
+        if c is None:
+            return shape
+        axis, a, b = c
+        return shape[:axis] + (b - a,) + shape[axis + 1:]
+
+    out: Dict[str, Any] = {n: one(s, cuts[n]) for n, s in shapes.items()
+                           if n != "layers"}
+    out["layers"] = {n: one(s, cuts["layers"][n])
+                     for n, s in shapes["layers"].items()}
+    return out
+
+
+def _cut(t, c):
+    if c is None:
+        return t
+    axis, a, b = c
+    if isinstance(t, np.ndarray):
+        return np.take(t, range(a, b), axis=axis)
+    return t.narrow(axis, a, b - a)
+
+
+def shard_params(tree: Dict[str, Any], cfg: LlamaConfig, tp: int,
+                 rank: int) -> Dict[str, Any]:
+    """Rank ``rank``'s shard of a whole tree (torch tensors or numpy
+    arrays), each leaf cut along :func:`tp_cuts` (torch leaves as
+    contiguous copies)."""
+    cuts = tp_cuts(cfg, tp, rank)
+
+    def one(t, c):
+        s = _cut(t, c)
+        return s.contiguous() if isinstance(s, torch.Tensor) and c else s
+
+    out: Dict[str, Any] = {n: one(v, cuts[n]) for n, v in tree.items()
+                           if n != "layers"}
+    out["layers"] = {n: one(v, cuts["layers"][n])
+                     for n, v in tree["layers"].items()}
+    return out
 
 
 def _to_torch(a, device: torch.device) -> torch.Tensor:
@@ -492,9 +685,11 @@ def _to_torch(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def check_params(tree: Dict[str, Any], cfg: LlamaConfig) -> None:
-    """The tree has exactly :func:`param_shapes`' leaves, at those shapes."""
-    shapes = param_shapes(cfg)
+def check_params(tree: Dict[str, Any], cfg: LlamaConfig, tp: int = 1,
+                 rank: int = 0) -> None:
+    """The tree has exactly :func:`param_shapes`' leaves, at the shapes of
+    rank ``rank``'s shard (:func:`shard_shapes`)."""
+    shapes = shard_shapes(cfg, tp, rank)
     missing = ({n for n in shapes if n != "layers"} - set(tree)) | {
         f"layers.{n}" for n in set(shapes["layers"])
         - set(tree.get("layers", {}))}
@@ -516,24 +711,28 @@ def check_params(tree: Dict[str, Any], cfg: LlamaConfig) -> None:
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: LlamaConfig,
-                    device: torch.device) -> Dict[str, Any]:
+                    device: torch.device, tp: int = 1,
+                    rank: int = 0) -> Dict[str, Any]:
     """The JAX package's parameter tree (its leaves as numpy arrays, or CPU
     torch tensors where numpy has no dtype for them) -> the port's, on
-    ``device``. Names and shapes are identical; every leaf is checked
-    against :func:`param_shapes`."""
+    ``device``; with ``tp > 1``, rank ``rank``'s shard of it, each leaf
+    cut on the host before it is placed. Names and shapes are identical;
+    every leaf is checked against :func:`shard_shapes`."""
     shapes = param_shapes(cfg)
     extra = (set(np_tree) - set(shapes)) | (
         set(np_tree["layers"]) - set(shapes["layers"]))
     if extra:
         raise ValueError(f"params_from_jax: unexpected leaves {sorted(extra)}")
+    cuts = tp_cuts(cfg, tp, rank)
     out: Dict[str, Any] = {}
     for name in shapes:
         if name == "layers":
             continue
-        out[name] = _to_torch(np_tree[name], device)
-    out["layers"] = {n: _to_torch(np_tree["layers"][n], device)
+        out[name] = _to_torch(_cut(np_tree[name], cuts[name]), device)
+    out["layers"] = {n: _to_torch(_cut(np_tree["layers"][n],
+                                       cuts["layers"][n]), device)
                      for n in shapes["layers"]}
-    check_params(out, cfg)
+    check_params(out, cfg, tp, rank)
     return out
 
 
@@ -650,7 +849,8 @@ def _qkv(x: torch.Tensor, lp: Dict[str, Any], l: int, cfg: LlamaConfig,
     """Pre-norm, q/k/v projections (+bias, +qk-norm) and rope for layer l.
     ``rope`` = (cos, sin, cos_local, sin_local)."""
     B, T, D = x.shape
-    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    # the head counts of this rank's shard (the whole model's at tp=1)
+    Hq, Hkv, Dh = lp["wq"].shape[2], lp["wk"].shape[2], cfg.head_dim
     h = rms_norm(x, lp["ln1"][l], cfg.rms_eps, cfg.norm_offset)
     q = (h @ lp["wq"][l].reshape(D, Hq * Dh)).reshape(B, T, Hq, Dh)
     k = (h @ lp["wk"][l].reshape(D, Hkv * Dh)).reshape(B, T, Hkv, Dh)
@@ -679,19 +879,24 @@ def _rope_all(cfg: LlamaConfig, positions: torch.Tensor):
 
 
 def _attn_out(x: torch.Tensor, attn: torch.Tensor, lp: Dict[str, Any],
-              l: int, cfg: LlamaConfig) -> torch.Tensor:
-    """Output projection + residual; Gemma2 norms the branch output first."""
+              l: int, cfg: LlamaConfig, group=None) -> torch.Tensor:
+    """Output projection + residual; Gemma2 norms the branch output first.
+    Under tp each rank's heads give a partial product, summed over
+    ``group`` before the norm and the residual."""
     B, T = attn.shape[:2]
     o = attn.reshape(B, T, -1) @ lp["wo"][l].reshape(-1, cfg.hidden_size)
+    if group is not None:
+        o = collectives.all_reduce_(o, group)
     if cfg.sandwich_norms:
         o = rms_norm(o, lp["ln1_post"][l], cfg.rms_eps, cfg.norm_offset)
     return x + o
 
 
 def _ffn_block(x: torch.Tensor, lp: Dict[str, Any], l: int,
-               cfg: LlamaConfig) -> torch.Tensor:
+               cfg: LlamaConfig, group=None) -> torch.Tensor:
     """Pre-norm FFN (dense or MoE) + residual; Gemma2 adds a post-norm on
-    the branch output (sandwich norms)."""
+    the branch output (sandwich norms). Under tp each rank's FFN columns
+    give a partial product, summed over ``group`` before the post-norm."""
     h2 = rms_norm(x, lp["ln2"][l], cfg.rms_eps, cfg.norm_offset)
     if cfg.num_experts:
         out = moe_ffn(h2, lp["wr"][l], lp["wg"][l], lp["wu"][l],
@@ -700,17 +905,23 @@ def _ffn_block(x: torch.Tensor, lp: Dict[str, Any], l: int,
         g = h2 @ lp["wg"][l]
         u = h2 @ lp["wu"][l]
         out = (_act(cfg, g) * u) @ lp["wd"][l]
+    if group is not None:
+        out = collectives.all_reduce_(out, group)
     if cfg.sandwich_norms:
         out = rms_norm(out, lp["ln2_post"][l], cfg.rms_eps, cfg.norm_offset)
     return x + out
 
 
 def _lm_head(x: torch.Tensor, params: Dict[str, Any],
-             cfg: LlamaConfig) -> torch.Tensor:
-    """Final norm + vocab projection (+ Gemma2 final logit softcap), f32."""
+             cfg: LlamaConfig, group=None) -> torch.Tensor:
+    """Final norm + vocab projection (+ Gemma2 final logit softcap), f32.
+    A vocab-sharded head's logit columns are gathered over ``group``
+    before the softcap."""
     x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.norm_offset)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (x @ head.to(x.dtype)).float()
+    if group is not None and logits.shape[-1] != cfg.vocab_size:
+        logits = collectives.gather_last(logits, group)
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
         logits = torch.tanh(logits / cap) * cap
@@ -748,6 +959,7 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig,
             logits_idx: Optional[torch.Tensor] = None,  # [B] per-lane position
             embed_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
             attn_spans: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+            group=None,                  # the tp group (None: one rank)
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One forward pass over a token chunk against the paged KV pool.
 
@@ -768,6 +980,12 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig,
     - ``attn_spans`` = (q_span [B,T], read_span [B,S]) int32 image-group
       ids (0 = text): tokens of the same image attend bidirectionally; the
       or-mask goes into the full and the sliding masks alike.
+
+    Under tensor parallelism ``params`` and the pools are one rank's shard
+    (:func:`shard_params`; the pools hold its kv heads) and ``group`` is
+    the tp group: attention runs on the rank's heads, the row-parallel
+    products are summed over the group and a vocab-sharded head's logits
+    gathered, so every rank returns the whole logits.
     """
     _check_impl(attn_impl, ("flash", "dense"))
     if attn_spans is not None and attn_impl != "dense":
@@ -823,12 +1041,12 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig,
                           sliding_mask if cfg.layer_sliding(l) else mask,
                           scale=cfg.attn_scale,
                           softcap=cfg.attn_logit_softcap)
-        x = _attn_out(x, attn, lp, l, cfg)
-        x = _ffn_block(x, lp, l, cfg)
+        x = _attn_out(x, attn, lp, l, cfg, group)
+        x = _ffn_block(x, lp, l, cfg, group)
 
     if logits_idx is not None:
         x = x[torch.arange(B, device=x.device), logits_idx.long()][:, None]
-    return _lm_head(x, params, cfg), k_pool, v_pool
+    return _lm_head(x, params, cfg, group), k_pool, v_pool
 
 
 def forward_decode(params: Dict[str, Any], cfg: LlamaConfig,
@@ -838,6 +1056,7 @@ def forward_decode(params: Dict[str, Any], cfg: LlamaConfig,
                    page_tables: torch.Tensor,   # [B, P] int32 (pad: page 0)
                    lengths: torch.Tensor,       # [B] int32 tokens incl. current
                    attn_impl: str = "paged",    # "paged" kernel | "dense"
+                   group=None,                  # the tp group (see forward)
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token decode step addressed purely by page tables.
 
@@ -887,8 +1106,8 @@ def forward_decode(params: Dict[str, Any], cfg: LlamaConfig,
                           sliding_mask if cfg.layer_sliding(l) else mask,
                           scale=cfg.attn_scale,
                           softcap=cfg.attn_logit_softcap)
-        x = _attn_out(x, attn, lp, l, cfg)
-        x = _ffn_block(x, lp, l, cfg)
+        x = _attn_out(x, attn, lp, l, cfg, group)
+        x = _ffn_block(x, lp, l, cfg, group)
 
-    return _lm_head(x, params, cfg), k_pool, v_pool
+    return _lm_head(x, params, cfg, group), k_pool, v_pool
 

@@ -488,10 +488,11 @@ def _local_ip() -> str:
     """The address a data plane advertises when the caller names none.
 
     The JAX package finds the host's outbound address by routing a UDP
-    socket toward a public address. The port serves on one host until the
-    multi-node slice (ROADMAP Queue 1 item 11), so it advertises loopback
-    and touches no outside address; ``--advertise-host`` names the address
-    other hosts dial (the plane listens on every interface)."""
+    socket toward a public address. The port advertises loopback and
+    touches no outside address; a worker that other hosts dial (a fleet
+    across hosts, a multi-node tensor-parallel leader: ROADMAP Queue 1
+    item 11a) names its address with ``--advertise-host`` (the plane
+    listens on every interface)."""
     return "127.0.0.1"
 
 
