@@ -7271,6 +7271,8 @@ TP_MARGIN_LIMIT = 1.5            # PR 15's failover margin
 TP_EXIT_S = 15                   # the leader's exit after its follower's
 TP_FREE_S = 30                   # the card's memory back after the exit
 TP_BUDGET_S = 180
+TP_DISAGG_PROMPT = 600           # (b): two 512-token chunks' worth
+TP_SPEC_TOKENS = 32              # (c): n-gram rounds over a repeated block
 
 
 def _settled_rank_stats(core, timeout: float = 30.0) -> list:
@@ -7305,6 +7307,206 @@ async def _greedy_streams(engine, prompts, n: int) -> list:
     import asyncio
 
     return list(await asyncio.gather(*(one(p) for p in prompts)))
+
+
+def _rank_delta(a: list, b: list) -> list:
+    return [{k: y[k] - x[k] for k in x} for x, y in zip(a, b)]
+
+
+def _await(loop, coro, timeout: float = 300):
+    import asyncio
+
+    return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+
+def _drain_greedy(core) -> list:
+    """The tokens an idle EngineCore streams until it has no work (an
+    injected sequence's decode)."""
+    from dynamo_tpu_torch.llm.protocols.common import FinishReason
+
+    toks = []
+    while core.has_work:
+        for so in core.step():
+            if so.finish == FinishReason.ERROR:
+                raise AssertionError(f"request failed: {so.error}")
+            toks.append(so.token)
+    return toks
+
+
+def tp_restore_step(core, eng, loop, margins, smi: str) -> dict:
+    """(a) Prefix reuse through the leader's host tier at tp=2: the reuse
+    phase's 1496-token prompt, then every reusable device block flushed to
+    the tier on the engine thread (``kv_offload`` frames: each rank's d2h
+    of its kv heads, gathered into whole blocks), then the prompt again:
+    its 23 full blocks restore from the tier in one ``kv_restore`` frame
+    (each rank uploads its kv heads of the leader's whole blocks). Each
+    rank's restored and offloaded bytes and seconds; both streams within
+    TP_MARGIN_LIMIT of tp=1's teacher-forced top logit."""
+    from dynamo_tpu_torch.models import llama
+
+    m, page = core.cfg.model, core.page_size
+    prompt = reuse_prompt(m.vocab_size)
+    expect = (len(prompt) - 1) // page * page
+    st0 = _settled_rank_stats(core)
+    cold, cold_hit, cold_ttft, _ = _generate(eng, loop, prompt)
+    t0 = time.perf_counter()
+    flushed = eng.run_on_engine(lambda c: c.flush_reusable())
+    flush_s = time.perf_counter() - t0
+    hits0, restore0 = core.tiered.stats()["hits"], core.restore_seconds
+    warm, hit, ttft, _ = _generate(eng, loop, prompt)
+    st1 = _settled_rank_stats(core)
+    d = _rank_delta(st0, st1)
+    rank_block = llama.kv_block_bytes(m, page) // core.tp
+    row = dict(
+        prompt_tokens=len(prompt), flushed_blocks=flushed, flush_s=flush_s,
+        cold_hit=cold_hit, kv_prefix_hit_tokens=hit, expect_hit=expect,
+        tier_hits=core.tiered.stats()["hits"] - hits0,
+        cold_ttft_s=cold_ttft, host_ttft_s=ttft,
+        leader_restore_s=core.restore_seconds - restore0,
+        rank_restore_bytes=[x["kv_restore_bytes"] for x in d],
+        rank_restore_s=[x["kv_restore_seconds"] for x in d],
+        rank_offload_bytes=[x["kv_offload_bytes"] for x in d],
+        rank_offload_s=[x["kv_offload_seconds"] for x in d],
+        streams_equal=cold == warm,
+        worst_margin=max(max(margins(prompt, cold)),
+                         max(margins(prompt, warm))))
+    emit({"phase": "tp", "step": "restore", "nvidia_smi": smi, **row})
+    if not (cold_hit == 0 and hit == expect
+            and row["tier_hits"] == expect // page
+            and row["rank_restore_bytes"] == [expect // page * rank_block]
+            * core.tp
+            and all(b >= flushed * rank_block
+                    for b in row["rank_offload_bytes"])
+            and row["worst_margin"] <= TP_MARGIN_LIMIT):
+        raise AssertionError(f"tp host-tier restore: {row}")
+    return row
+
+
+def tp_disagg_step(torch, core, eng, loop, params, margins,
+                   smi: str) -> dict:
+    """(b) Disaggregation in both directions between the tp=2 pair and a
+    tp=1 core on the serve phase's weights in this process: a 600-token
+    prompt's ``prefill_extract`` on the pair (a ``kv_extract`` frame: each
+    rank's kv heads gathered into the whole [L, T, Hkv, Dh] arrays on the
+    leader) injected into the tp=1 core, and the tp=1 core's extract
+    injected into the pair (``generate_prefilled``: a ``kv_inject`` frame
+    gives each rank its kv heads). Both decodes within TP_MARGIN_LIMIT of
+    tp=1's teacher-forced top logit."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.engine import EngineCore, TorchEngineConfig
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    m = core.cfg.model
+    prompt = np.random.default_rng(TP_SEED + 1).integers(
+        1, m.vocab_size, TP_DISAGG_PROMPT).tolist()
+    bi = BackendInput(token_ids=prompt, stop=StopConditions(
+        max_tokens=TP_TOKENS, ignore_eos=True))
+    one = EngineCore(TorchEngineConfig.from_card(
+        ModelDeploymentCard.synthetic(PRESET), **dict(
+            ENGINE_ARGS, max_batch=2, host_cache_blocks=0), device=DEVICE),
+        params=params)
+    try:
+        t0 = time.perf_counter()
+        k, v, tok, lp = _await(loop, eng.prefill_extract(bi, Context()))
+        extract_s = time.perf_counter() - t0
+        first = one.inject_prefilled("tp2-to-tp1", bi, k, v, tok, lp)
+        to_one = [first.token] + _drain_greedy(one)
+        k1, v1, tok1, lp1 = one.prefill_extract("tp1-extract", bi)
+
+        async def into_pair():
+            ids = []
+            async for o in eng.generate_prefilled(bi, Context(), k1, v1,
+                                                  tok1, lp1):
+                ids += o.token_ids
+            return ids
+
+        t0 = time.perf_counter()
+        to_pair = _await(loop, into_pair())
+        inject_s = time.perf_counter() - t0
+    finally:
+        one.close()
+        one.release_device()
+        del one
+    bits = [torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).float()
+            for a in (k, k1)]
+    row = dict(
+        prompt_tokens=len(prompt), kv_shape=list(k.shape),
+        kv_dtype=str(k.dtype), extract_s=extract_s, inject_decode_s=inject_s,
+        first_tokens=[tok, tok1],
+        k_max_abs_diff_tp2_vs_tp1=float((bits[0] - bits[1]).abs().max()),
+        tp2_to_tp1=to_one, tp1_to_tp2=to_pair,
+        worst_margin=max(max(margins(prompt, to_one)),
+                         max(margins(prompt, to_pair))))
+    emit({"phase": "tp", "step": "disagg", "nvidia_smi": smi, **row})
+    want = [m.num_layers, len(prompt), m.num_kv_heads, m.head_dim]
+    if not (row["kv_shape"] == want and k.dtype == np.uint16
+            and len(to_one) == len(to_pair) == TP_TOKENS
+            and row["worst_margin"] <= TP_MARGIN_LIMIT):
+        raise AssertionError(f"tp disagg: {row}")
+    return row
+
+
+def tp_spec_step(torch, att, margins, smi: str) -> dict:
+    """(c) n-gram speculative decoding at tp=2: a second pair, the serve
+    phase's engine arguments with ``spec="ngram"``, streams a greedy
+    request over a repeated 64-token block. The proposals are the
+    leader's; each round is a ``verify`` frame both ranks run, the flash
+    kernel at K+1 positions a lane on each rank's heads. Each rank's
+    verify dispatches must be equal, and its flash launches one a layer a
+    prefill dispatch and a round (no paged launch: spec decodes through
+    the verify only), the stream within TP_MARGIN_LIMIT of tp=1. The
+    rounds by bucket K are recorded: whether the random weights' stream
+    repeats itself enough for the n-gram table to draft is the model's
+    business, not the port's."""
+    import numpy as np
+
+    from dynamo_tpu_torch.models import llama
+
+    block = np.random.default_rng(SPEC_SEED).integers(
+        0, llama.preset(PRESET).vocab_size, 64).tolist()
+    prompt = block * 4
+    with served(["--model-name", PRESET, *TP_ARGS, "--extra-engine-args",
+                 json.dumps(dict(ENGINE_ARGS, spec="ngram",
+                                 spec_k=SPEC_K))]) as (eng, loop, _, _n,
+                                                       init_s, _m):
+        core = eng.core
+        L = core.cfg.model.num_layers
+        ranks = eng.plane.ranks
+        st0 = _settled_rank_stats(core)
+        t0 = time.perf_counter()
+        got = _await(loop, _greedy_streams(eng, [prompt], TP_SPEC_TOKENS))[0]
+        spec_s = time.perf_counter() - t0
+        st1 = _settled_rank_stats(core)
+        stats = dict(proposed=core.spec_proposed_total,
+                     accepted=core.spec_accepted_total,
+                     k_rounds=dict(core.spec_k_rounds))
+    follower_rc = [p.returncode for p in ranks.procs]
+    eng = core = None
+    d = _rank_delta(st0, st1)
+    row = dict(
+        init_s=init_s, spec_s=spec_s, prompt_tokens=len(prompt),
+        tokens=len(got), **stats,
+        rank_verify_frames=[x["spec_dispatches"] for x in d],
+        rank_prefill_dispatches=[x["prefill_dispatches"] for x in d],
+        rank_launches=[{"flash": x["flash_launches"],
+                        "paged": x["paged_launches"]} for x in d],
+        follower_exit_codes=follower_rc, stream=got,
+        worst_margin=max(margins(prompt, got)))
+    emit({"phase": "tp", "step": "spec", "nvidia_smi": smi, **row})
+    if not (len(got) == TP_SPEC_TOKENS
+            and row["rank_verify_frames"][0] == row["rank_verify_frames"][1]
+            > 0
+            and all(x["flash_launches"] == L * (x["prefill_dispatches"]
+                                                + x["spec_dispatches"])
+                    and x["paged_launches"] == 0 for x in d)
+            and follower_rc == [0]
+            and row["worst_margin"] <= TP_MARGIN_LIMIT):
+        raise AssertionError(f"tp spec: {row}")
+    return row
 
 
 def tp_kill_step(torch, engine_args: dict) -> dict:
@@ -7384,11 +7586,11 @@ def tp_kill_step(torch, engine_args: dict) -> dict:
 def tp_phase(torch, att, smi: str, params) -> dict:
     """Tensor parallelism on one card: ``cli.run in=http out=torch
     --tensor-parallel-size 2`` serving Llama-3-8B (full width and depth,
-    random bf16 weights from the seed, the serve phase's engine arguments;
-    at tp=2 prefix reuse is off and the tiers 0), both ranks on cuda:0
-    over gloo: the leader in this process, its follower a ``cli.worker``
-    process replaying its dispatch frames. NCCL would refuse two ranks on
-    one GPU; NCCL across two cards is not run here.
+    random bf16 weights from the seed, the serve phase's engine arguments
+    as given: prefix reuse on and a 128-block host tier), both ranks on
+    cuda:0 over gloo: the leader in this process, its follower a
+    ``cli.worker`` process replaying its dispatch frames. NCCL would
+    refuse two ranks on one GPU; NCCL across two cards is not run here.
 
     An HTTP burst and greedy requests through the engine; each rank's
     counters (gathered by the leader between dispatches) must show flash
@@ -7400,7 +7602,10 @@ def tp_phase(torch, att, smi: str, params) -> dict:
     top logit, which the streams shifted by one token must break (bf16
     sums the ranks' partial products in another order than one card, so
     token identity is not the bar). Each rank's weight bytes and peak
-    memory; the follower exits 0 at the leader's orderly shutdown. Then
+    memory; the follower exits 0 at the leader's orderly shutdown. On the
+    same pair :func:`tp_restore_step` (a host-tier restore) and
+    :func:`tp_disagg_step` (disagg both ways with tp=1); then
+    :func:`tp_spec_step` (n-gram spec on a second pair) and
     :func:`tp_kill_step`. Both ranks time-slice one card: no tokens/s of
     this phase says anything about tensor parallelism."""
     import asyncio
@@ -7428,12 +7633,27 @@ def tp_phase(torch, att, smi: str, params) -> dict:
             "model": PRESET, "max_tokens": 16,
             "messages": [{"role": "user", "content": "Say hi twice."}]}),
     }
+    # teacher-forced tp=1 logits on this process's copy of the weights
+    ref = types.SimpleNamespace(
+        params=params, device=torch.device(DEVICE),
+        page_size=ENGINE_ARGS["page_size"],
+        cfg=TorchEngineConfig.from_card(
+            ModelDeploymentCard.synthetic(PRESET), **ENGINE_ARGS,
+            device=DEVICE))
+
+    def margins(prompt, stream):
+        lg = _stream_logits(torch, ref, prompt, stream)
+        idx = torch.arange(len(stream), device=lg.device)
+        chosen = lg[idx, torch.tensor(stream, device=lg.device)]
+        return (lg.max(-1).values - chosen).tolist()
+
     with served(["--model-name", PRESET, *TP_ARGS, "--extra-engine-args",
                  json.dumps(ENGINE_ARGS)]) as (eng, loop, port, _, init_s,
                                                _m):
         core = eng.core
         if core.tp != 2 or core.k_pool.shape[1] \
-                != core.cfg.model.num_kv_heads // 2:
+                != core.cfg.model.num_kv_heads // 2 \
+                or not core.enable_prefix_reuse or core.tiered is None:
             raise AssertionError(f"tp engine: tp={core.tp}, pool "
                                  f"{tuple(core.k_pool.shape)}")
         ranks = eng.plane.ranks
@@ -7449,6 +7669,8 @@ def tp_phase(torch, att, smi: str, params) -> dict:
         greedy_s = time.perf_counter() - t0
         st1 = _settled_rank_stats(core)
         counters = engine_counters(core, 0)
+        restore = tp_restore_step(core, eng, loop, margins, smi)
+        disagg = tp_disagg_step(torch, core, eng, loop, params, margins, smi)
     follower_rc = [p.returncode for p in ranks.procs]
     # the leader's engine is shut down: let its tensors go before the kill
     # step measures the card's free bytes
@@ -7459,20 +7681,6 @@ def tp_phase(torch, att, smi: str, params) -> dict:
                             ((tuple(key.split("\x1f")), val)
                              for key, val in series.items()) if ww == w}
                         for w in ("0", "0/rank1")}
-    # teacher-forced tp=1 logits on this process's copy of the weights
-    ref = types.SimpleNamespace(
-        params=params, device=torch.device(DEVICE),
-        page_size=ENGINE_ARGS["page_size"],
-        cfg=TorchEngineConfig.from_card(
-            ModelDeploymentCard.synthetic(PRESET), **ENGINE_ARGS,
-            device=DEVICE))
-
-    def margins(prompt, stream):
-        lg = _stream_logits(torch, ref, prompt, stream)
-        idx = torch.arange(len(stream), device=lg.device)
-        chosen = lg[idx, torch.tensor(stream, device=lg.device)]
-        return (lg.max(-1).values - chosen).tolist()
-
     sound = [margins(p, g) for p, g in zip(prompts, got)]
     fault = [margins(p, g[1:] + g[:1]) for p, g in zip(prompts, got)]
     row = dict(
@@ -7507,6 +7715,12 @@ def tp_phase(torch, att, smi: str, params) -> dict:
           and all(w > TP_MARGIN_LIMIT for w in row["fault_worst_margin"]))
     if not ok:
         raise AssertionError(f"tp phase: {row}")
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    row.update(restore=restore, disagg=disagg,
+               spec=tp_spec_step(torch, att, margins, smi))
     row["kill"] = tp_kill_step(torch, ENGINE_ARGS)
     row["phase_s"] = time.perf_counter() - t_phase
     emit({"phase": "tp", "step": "summary", "phase_s": row["phase_s"]})
@@ -7514,7 +7728,9 @@ def tp_phase(torch, att, smi: str, params) -> dict:
         raise AssertionError(f"tp phase took {row['phase_s']:.0f} s, over "
                              f"its {TP_BUDGET_S} s")
     return dict(row, flash_launches=delta[0]["flash_launches"],
-                paged_launches=delta[0]["paged_launches"])
+                paged_launches=delta[0]["paged_launches"],
+                spec_rank_flash=[r["flash"]
+                                 for r in row["spec"]["rank_launches"]])
 
 
 def main() -> int:
@@ -7749,6 +7965,7 @@ def main() -> int:
              replaces="dynamo_tpu/ops/attention.py:166",
              launches=tp["flash_launches"],
              rank_launches=[r["flash"] for r in tp["rank_launches"]],
+             spec_rank_launches=tp["spec_rank_flash"],
              max_abs_err=flash_tp["max_abs_err"], ms=flash_tp["ms"],
              plain_ms=flash_tp["plain_ms"], bound_ms=flash_tp["bound_ms"],
              bound_by=flash_tp["bound_by"],

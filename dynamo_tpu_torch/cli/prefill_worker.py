@@ -4,6 +4,7 @@ own card through the torch engine, ships it to the owning decode worker.
     python -m dynamo_tpu_torch.cli.prefill_worker --namespace dynamo \
         --decode-component backend --store localhost:4222 \
         [--device cuda|cpu] [--model-path ...] \
+        [--tp N [--dist-backend gloo|nccl] [--devices 0,1]] \
         [--extra-engine-args '{"preset": "llama-3-8b"}']
 
 The port's copy of the JAX package's ``cli/prefill_worker.py``: the same
@@ -20,6 +21,13 @@ flash-kernel launches and its peak device memory.
 As the decode worker does, it builds its engine before it connects to the
 store (:func:`build_engine`): no liveness lease exists while the bring-up
 holds the process.
+
+With ``--tp N`` (the JAX prefill worker's flag) its engine is
+tensor-parallel over N ranks on this host, as ``cli.worker --tp``'s is:
+this process leads and starts the others as ``cli.worker`` followers
+(``cli.worker.tp_engine``). ``prefill_extract`` gathers every rank's kv
+heads into the whole ``[L, T, Hkv, Dh]`` arrays, so a tp prefill worker
+feeds a decode worker of any tp, the JAX package's too.
 """
 
 from __future__ import annotations
@@ -48,17 +56,26 @@ log = logging.getLogger("dynamo_tpu_torch.prefill_worker")
 
 
 def make_engine(args):
-    """The prefill worker's torch engine, built on the calling thread."""
+    """The prefill worker's torch engine, built on the calling thread (at
+    ``--tp`` above 1 the leader's, once its followers joined)."""
     from ..engine.engine import TorchEngine, TorchEngineConfig
+    from .worker import RankLayout, tp_engine
 
+    name = args.model_name or (None if args.model_path else "prefill")
     if args.model_path:
         card = ModelDeploymentCard.resolve(args.model_path, args.model_name)
     else:
-        card = ModelDeploymentCard.synthetic(args.model_name or "prefill")
+        card = ModelDeploymentCard.synthetic(name)
     card.kv_block_size = args.kv_block_size
     extra = json.loads(args.extra_engine_args) if args.extra_engine_args else {}
     extra.setdefault("device", args.device)
-    return TorchEngine(TorchEngineConfig.from_card(card, **extra))
+    tp = getattr(args, "tp", 1)
+    if tp <= 1:
+        return TorchEngine(TorchEngineConfig.from_card(card, **extra))
+    return tp_engine(RankLayout(tp, args.device, args.dist_backend,
+                                args.devices), card, extra,
+                     model_path=args.model_path, model_name=name,
+                     kv_block_size=args.kv_block_size)
 
 
 async def build_engine(args):
@@ -268,7 +285,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--kv-block-size", type=int, default=64)
     p.add_argument("--extra-engine-args", default=None,
                    help="inline JSON engine kwargs")
-    return p.parse_args(argv)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks on this host, one process "
+                        "each")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="collectives' backend at --tp above 1 (nccl on a "
+                        "card, gloo on --device cpu); gloo lets ranks share "
+                        "a card")
+    p.add_argument("--devices", default=None,
+                   help="comma list of each rank's CUDA device (default: "
+                        "rank j on cuda:j; a card may repeat)")
+    args = p.parse_args(argv)
+    from .worker import RankLayout, check_rank_devices
+
+    check_rank_devices(p, RankLayout(args.tp, args.device, args.dist_backend,
+                                     args.devices))
+    return args
 
 
 def main() -> None:

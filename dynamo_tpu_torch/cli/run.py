@@ -18,7 +18,8 @@ the runtime's data plane, found through the store at ``--store``.
 ranks, one process each: this process is the leader and starts the others
 as ``cli.worker`` followers (``--devices`` lists each rank's card, which
 may repeat over ``--dist-backend gloo``; NCCL refuses two ranks on one
-GPU); prefix reuse is off and the host and disk tiers are 0 at N > 1.
+GPU); prefix reuse, the host and disk tiers and speculative decoding
+serve at N > 1 as at 1.
 ``out=echo_core`` echoes the prompt's tokens through the preprocessor and
 backend, ``out=echo_full`` its text with no tokenizer at all.
 ``out=pystr:file.py`` / ``out=pytok:file.py`` serve the ``async def
@@ -35,7 +36,6 @@ from __future__ import annotations
 
 import argparse
 import asyncio
-import dataclasses
 import json
 import statistics
 import sys
@@ -161,28 +161,15 @@ def make_engines(args, card: ModelDeploymentCard):
 
 
 def _tp_engine(args, card: ModelDeploymentCard, extra: Dict[str, Any]):
-    """The leader of ``--tensor-parallel-size`` ranks: start the others as
-    ``cli.worker`` followers with this engine's arguments, then build the
-    rank-0 engine, which returns once every follower joined."""
-    from ..engine.engine import TorchEngine, TorchEngineConfig
-    from .worker import RankLayout, start_ranks, tp_extra
+    """The leader of ``--tensor-parallel-size`` ranks on this host
+    (:func:`~.worker.tp_engine`)."""
+    from .worker import RankLayout, tp_engine
 
-    tp = args.tensor_parallel_size
-    extra = tp_extra(tp, dict(extra))
-    cfg = TorchEngineConfig.from_card(card, **extra)
-    # the followers' cards lack this process's --context-length: they take
-    # the resolved max_context
-    plane = start_ranks(
-        RankLayout(tp, args.device, args.dist_backend, args.devices),
-        model_path=args.model_path, model_name=args.model_name,
-        kv_block_size=args.kv_block_size,
-        engine_args=json.dumps(dict(extra, max_context=cfg.max_context)))
-    try:
-        return TorchEngine(dataclasses.replace(cfg, tp=tp, mesh=plane.mesh),
-                           plane=plane)
-    except BaseException:
-        plane.close()
-        raise
+    return tp_engine(RankLayout(args.tensor_parallel_size, args.device,
+                                args.dist_backend, args.devices),
+                     card, dict(extra), model_path=args.model_path,
+                     model_name=args.model_name,
+                     kv_block_size=args.kv_block_size)
 
 
 async def connect_remote_engines(args, card: ModelDeploymentCard):

@@ -48,10 +48,13 @@ takes its lease and serves. A node of ``--node-rank`` above 0 serves
 nothing: it runs its ranks as followers of the leader at
 ``--coordinator``. ``--devices`` lists the card of each local rank (a card
 may repeat: ranks then share it over ``--dist-backend gloo``; NCCL refuses
-two ranks on one GPU). At tp > 1 prefix reuse is off and the host and
-disk tiers are 0, as the JAX multi-host worker sets them; disaggregation,
-cluster KV sharing, speculative decoding, KV paging, image models and
-weight swaps are refused, naming ROADMAP Queue 1 item 11c.
+two ranks on one GPU). A one-node tp worker keeps prefix reuse, the host
+and disk tiers, ``--enable-disagg``, ``DYN_KV_CLUSTER`` and speculative
+decoding: the leader plans, and each KV copy is a frame its followers
+replay, the bytes moving through a host collective (``engine/engine.py``).
+Across nodes (``--num-nodes`` above 1) prefix reuse and the tiers are off,
+as the JAX multi-host worker sets them. KV paging, image models and
+weight swaps are refused at tp > 1, naming ROADMAP Queue 1 item 11c.
 
 Not ported yet, and refused at start instead of ignored: ``--num-nodes``
 above 1 with ranks that are not tp ranks (pp, sp, ep across nodes: ROADMAP
@@ -96,20 +99,8 @@ def check_ported(args) -> None:
             f"worker are tp ranks, tp/num-nodes on each node; other axes "
             f"across nodes (pp, sp, ep) are not ported to dynamo_tpu_torch "
             f"yet (ROADMAP Queue 1 item 11b)")
-    if tp > 1 and getattr(args, "enable_disagg", False):
-        raise NotImplementedError(
-            "--enable-disagg at --tp above 1: the KV transfers are not "
-            "mirrored across tensor-parallel ranks yet (ROADMAP Queue 1 "
-            "item 11c)")
     if tp > 1 and getattr(args, "engine", "torch") != "torch":
         raise ValueError("--tp above 1 needs --engine torch")
-    from ..llm import kv_cluster
-
-    if tp > 1 and kv_cluster.enabled():
-        raise NotImplementedError(
-            "DYN_KV_CLUSTER at --tp above 1: cluster KV write-through is not "
-            "mirrored across tensor-parallel ranks yet (ROADMAP Queue 1 item "
-            "11c)")
 
 
 @dataclass
@@ -196,12 +187,11 @@ class RankLayout:
                             devices=devices)
 
 
-def _check_rank_devices(p, args) -> None:
+def check_rank_devices(p, layout: RankLayout) -> None:
     """The local ranks' cards, at parse time: a usage error rather than a
     fault in a spawned rank."""
-    if args.tp <= 1 or args.engine != "torch" or args.device == "cpu":
+    if layout.tp <= 1 or layout.device == "cpu":
         return
-    layout = RankLayout.of(args)
     n, devs = layout.local_ranks, layout.device_list
     if devs is not None:
         if len(devs) < n:
@@ -215,7 +205,7 @@ def _check_rank_devices(p, args) -> None:
 
     have = torch.cuda.device_count()
     if have < n:
-        p.error(f"--tp {args.tp} runs {n} ranks on this node but it has "
+        p.error(f"--tp {layout.tp} runs {n} ranks on this node but it has "
                 f"{have} CUDA device(s); list the cards with --devices "
                 f"(e.g. --devices 0,0 --dist-backend gloo puts two ranks on "
                 f"one card)")
@@ -272,13 +262,42 @@ def start_ranks(layout: RankLayout, *, model_path: Optional[str] = None,
     return LeaderPlane(mesh, publisher, ranks)
 
 
-def tp_extra(tp: int, extra: dict) -> dict:
-    """At tp > 1, what the JAX multi-host worker forces off: prefix reuse
-    and the host and disk tiers."""
-    if tp > 1:
+def tp_extra(num_nodes: int, extra: dict) -> dict:
+    """Across nodes (``num_nodes`` above 1), what the JAX multi-host worker
+    forces off (its ``cli/worker.py``): prefix reuse and the host and disk
+    tiers. One node keeps them at every tp."""
+    if num_nodes > 1:
         extra.update(enable_prefix_reuse=False, host_cache_blocks=0,
                      disk_cache_blocks=0)
     return extra
+
+
+def tp_engine(layout: RankLayout, card: ModelDeploymentCard, extra: dict, *,
+              model_path: Optional[str] = None,
+              model_name: Optional[str] = None, kv_block_size: int = 64):
+    """The leader's :class:`TorchEngine` of ``layout``'s ranks on one node
+    (``cli.run --tensor-parallel-size``, ``cli.prefill_worker --tp``):
+    start the others as ``cli.worker`` followers with this engine's
+    arguments, then build the rank-0 engine, which returns once every
+    follower joined. ``model_name`` is the name the followers build their
+    card from."""
+    import dataclasses
+
+    from ..engine.engine import TorchEngine, TorchEngineConfig
+
+    cfg = TorchEngineConfig.from_card(card, **extra)
+    # the followers' cards lack the caller's --context-length: they take
+    # the resolved max_context
+    plane = start_ranks(layout, model_path=model_path, model_name=model_name,
+                        kv_block_size=kv_block_size,
+                        engine_args=json.dumps(dict(
+                            extra, max_context=cfg.max_context)))
+    try:
+        return TorchEngine(dataclasses.replace(cfg, tp=layout.tp,
+                                               mesh=plane.mesh), plane=plane)
+    except BaseException:
+        plane.close()
+        raise
 
 
 def _build_card(args) -> ModelDeploymentCard:
@@ -303,9 +322,9 @@ def _engine_cfg(args, card: ModelDeploymentCard, mesh=None):
         # (write-through) so peers can fetch prefixes that never saw
         # device eviction pressure; a no-op when host_cache_blocks=0
         extra.setdefault("cluster_writethrough", True)
-    tp = getattr(args, "tp", 1)
-    return TorchEngineConfig.from_card(card, tensor_parallel=tp, mesh=mesh,
-                                       **tp_extra(tp, extra))
+    return TorchEngineConfig.from_card(
+        card, tensor_parallel=getattr(args, "tp", 1), mesh=mesh,
+        **tp_extra(getattr(args, "num_nodes", 1), extra))
 
 
 def make_engine(args, card: Optional[ModelDeploymentCard] = None):
@@ -930,7 +949,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="comma list of each local rank's CUDA device "
                         "(default: rank j on cuda:j; a card may repeat)")
     args = p.parse_args(argv)
-    _check_rank_devices(p, args)
+    if args.engine == "torch":
+        check_rank_devices(p, RankLayout.of(args))
     return args
 
 

@@ -88,9 +88,20 @@ Architecture:
   engine's multi-host model). Every state change a program makes comes
   from its frame, the lanes' uniforms included (the port's lane streams
   are host generators, so the frame carries their draws where the JAX
-  engine's carries seeds). What a program cannot mirror yet raises at
-  construction (``TP_GAP``); prefix reuse is off at tp > 1, as the JAX
-  multi-host worker turns it off.
+  engine's carries seeds). The KV block manager, disaggregation and
+  speculative decoding keep that split: rank 0 plans on the host, and every
+  KV copy is a frame every rank replays (``kv_offload``: each rank's d2h of
+  evicted or mirrored pages, gathered on the leader into whole blocks for
+  its tiers; ``kv_restore``: the leader's whole tier blocks scattered, each
+  rank uploading its kv heads; ``kv_extract`` and ``kv_inject``: a
+  sequence's KV gathered to, or scattered from, the leader's whole
+  ``[L, T, Hkv, Dh]`` arrays; ``verify``: a speculative round's program).
+  The bytes move through a host collective of the tp group
+  (``parallel.collectives.gather_heads``/``scatter_heads``), not through
+  the frames, so host blocks, the disagg wire and the tiers hold all kv
+  heads as at tp=1. The tiers and the proposer (an n-gram table or a draft
+  model, unsharded) are the leader's alone. What a program cannot mirror
+  yet raises at construction (``TP_GAP``).
 
 Not ported yet (the JAX engine has them): MoE checkpoints (neither
 package's loader maps expert tensors) and pp/sp/ep.
@@ -104,6 +115,7 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
 import glob
 import logging
 import os
@@ -121,11 +133,13 @@ import torch
 
 from ..device import resolve_device, to_device
 from ..llm.kvbm.tiers import DiskKvTier, HostKvTier, TieredKvCache
-from ..llm.kvbm.transfer import CopyStream, host_dtype, to_host_array
+from ..llm.kvbm.transfer import (CopyStream, from_host_array, host_dtype,
+                                 to_host_array)
 from ..llm.model_card import ModelDeploymentCard
 from ..llm.protocols.common import BackendInput, EngineOutput, FinishReason
 from ..models import llama
 from ..obs import flightrec as _flightrec
+from ..parallel import collectives
 from ..ops.attention import (check_kernel_support, flash_attention,
                              paged_attention)
 from ..runtime.engine import AsyncEngine, Context, EngineError
@@ -153,7 +167,9 @@ _NOT_PORTED = frozenset({
 #: the counters each tp rank contributes to ``EngineCore.rank_stats``
 RANK_STATS = ("flash_launches", "paged_launches", "prefill_dispatches",
               "decode_dispatches", "decode_steps", "weight_bytes",
-              "device_memory_peak_bytes")
+              "device_memory_peak_bytes", "spec_dispatches",
+              "kv_restore_bytes", "kv_restore_seconds", "kv_offload_bytes",
+              "kv_offload_seconds")
 
 #: what a tensor-parallel engine cannot mirror on its followers yet
 TP_GAP = "not mirrored across tensor-parallel ranks yet (ROADMAP Queue 1 item 11c)"
@@ -355,17 +371,23 @@ class EngineCore:
         self.spec = resolve_spec(cfg)
         if self.tp > 1:
             self._check_tp()
-        # prefix reuse restores blocks with device copies of the leader's
-        # own: off across ranks, as the JAX multi-host worker turns it off
-        self.enable_prefix_reuse = cfg.enable_prefix_reuse and self.tp == 1
+        # the tp ranks' group for host tensors, and each rank's kv heads:
+        # the KV collectives' layout
+        self.host_group = self.mesh.host_group if self.tp > 1 else None
+        self._kv_heads = [llama.kv_head_range(m, self.tp, r)
+                          for r in range(self.tp)]
+        self.enable_prefix_reuse = cfg.enable_prefix_reuse
         # every dispatch's device program: a hook receives its host inputs
         # before it runs (the leader's DispatchPublisher.hook)
         self.dispatch_hook: Optional[Callable[[str, Dict[str, Any],
                                                Dict[str, np.ndarray]],
                                               None]] = None
-        # frames handed to the hook: a step that fails after one went out
-        # has followers that may wait on a collective it will not run
+        # frames handed to the hook, and those whose program then returned
+        # here: a failure between the two leaves followers that may wait
+        # on a collective the leader will not run (TorchEngine ends the
+        # worker)
         self.frames_out = 0
+        self.frames_done = 0
         # the previous decode program's sampled tokens, on the device: a
         # chained decode program's input
         self._chain_tok: Optional[torch.Tensor] = None
@@ -423,7 +445,8 @@ class EngineCore:
         # --- KV block manager: tiered offload + prefix reuse ----------
         self.copy_stream = CopyStream()
         self.tiered: Optional[TieredKvCache] = None
-        if cfg.host_cache_blocks > 0:
+        # the tiers hold whole blocks (all kv heads), on the leader alone
+        if cfg.host_cache_blocks > 0 and self.rank == 0:
             blk_shape = (m.num_layers, m.num_kv_heads, cfg.page_size,
                          m.head_dim)
             np_dtype = host_dtype(m.dtype)
@@ -458,7 +481,9 @@ class EngineCore:
         self.writethrough_enqueue_seconds = 0.0     # host clock
         if self.tiered is not None and cfg.cluster_writethrough:
             self.pool.add_seal_hook(self._writethrough_sealed)
-            if self.device.type == "cuda":
+            # at tp > 1 a mirror is a kv_offload frame, run at once: its
+            # host gather syncs anyway, so there is nothing to stage
+            if self.device.type == "cuda" and self.tp == 1:
                 self._wt_stage = [torch.empty(
                     (WT_STAGE_BLOCKS, *self.k_pool[:, :, 0].shape),
                     dtype=m.dtype, pin_memory=True) for _ in range(2)]
@@ -478,7 +503,7 @@ class EngineCore:
         # while the request queues at the slot gate; admission waits on
         # the event and scatters them device to device. Bounded FIFO
         # (insertion-ordered dict) under _h2d_stage_lock (two threads)
-        self._h2d_stage: Dict[int, Tuple[Any, Any, Any]] = {}
+        self._h2d_stage: Dict[int, Tuple[Any, Any, Any, Any]] = {}
         self._h2d_stage_lock = threading.Lock()
         # hashes a prefetch was REQUESTED for: admission counts a host
         # upload of one of these as a prefetch stall (vs a plain miss)
@@ -490,6 +515,10 @@ class EngineCore:
         self.prefix_query_tokens = 0
         self.restore_seconds = 0.0      # host clock in _restore_prefix
         self._pending_prefix_hit: Dict[str, int] = {}
+        # this rank's part of the KV frames' copies: bytes of its kv heads
+        # and the host clock of each program, its collective included
+        self.kv_restore_bytes = self.kv_offload_bytes = 0
+        self.kv_restore_seconds = self.kv_offload_seconds = 0.0
 
         B = cfg.max_batch
         self.slots: List[Optional[_Slot]] = [None] * B
@@ -554,9 +583,13 @@ class EngineCore:
         if tp > 1:
             self._check_ranks_agree()
 
-        # --- speculative decoding: proposer, per-sequence state, counters
+        # --- speculative decoding: proposer, per-sequence state, counters.
+        # The proposer is the leader's (host tables, or a draft model,
+        # unsharded): its drafts reach the followers as the verify frame's
+        # token ids
         self.proposer = (build_proposer(self.spec, cfg, self.device)
-                         if self.spec is not None else None)
+                         if self.spec is not None and self.rank == 0
+                         else None)
         self._spec_states: Dict[str, SeqSpecState] = {}
         self.spec_proposed_total = 0
         self.spec_accepted_total = 0
@@ -703,10 +736,6 @@ class EngineCore:
         from ..llm.kvpage.runner import PagedConfig
 
         refused = [
-            ("speculative decoding", self.spec is not None),
-            ("the host and disk KV tiers",
-             cfg.host_cache_blocks > 0 or cfg.disk_cache_blocks > 0),
-            ("cluster KV write-through", cfg.cluster_writethrough),
             ("KV paging", PagedConfig.resolve(cfg) is not None),
             ("image requests (a VLM model)", m.vision is not None),
         ]
@@ -917,10 +946,24 @@ class EngineCore:
         With ``layer`` set, returns that layer only ([T,Hkv,Dh] k, v) for
         layer-pipelined transfer; otherwise all layers ([L,T,Hkv,Dh]).
         ``count`` limits extraction to the first N tokens (e.g. the
-        prompt). A bf16 pool's arrays are ``uint16`` bits."""
+        prompt). A bf16 pool's arrays are ``uint16`` bits. At tp > 1 this
+        is a ``kv_extract`` frame: every rank gathers its kv heads and the
+        leader returns the whole arrays."""
         sc = self.pool.seqs[seq_id]
         n = sc.num_tokens if count is None else min(count, sc.num_tokens)
-        slots = self._kv_slots(seq_id, n)
+        arrs = {"slots": self.pool.write_slots(seq_id, 0, n).astype(
+            np.int64)}
+        meta = {"layer": layer}
+        with self._framed("kv_extract", meta, arrs):
+            return self._run_extract_program(arrs, meta)
+
+    def _run_extract_program(self, arrs: Dict[str, np.ndarray],
+                             meta: Dict[str, Any]):
+        """The KV at token ``slots`` of this rank's pools to the host (all
+        layers, or ``meta["layer"]``); at tp > 1 gathered into the whole
+        arrays on the leader ((None, None) on a follower)."""
+        slots = to_device(arrs["slots"], self.device)
+        layer = meta.get("layer")
         out = []
         for pool in (self.k_pool, self.v_pool):
             if layer is None:
@@ -931,7 +974,12 @@ class EngineCore:
                 out.append(self._flat(pool[layer:layer + 1])[0]
                            .index_select(1, slots).transpose(0, 1))
         k, v = self._to_host(out)
-        return k, v
+        if self.tp == 1:
+            return k, v
+        axis = 2 if layer is None else 1
+        return tuple(collectives.gather_heads(x, self.host_group,
+                                              self._kv_heads, axis)
+                     for x in (k, v))
 
     def prefill_extract(self, seq_id: str, request: BackendInput
                         ) -> Tuple[np.ndarray, np.ndarray, int, float]:
@@ -941,7 +989,6 @@ class EngineCore:
         The caller owns queue/transfer; this runs on the engine thread."""
         from dataclasses import replace
 
-        self._refuse_at_tp("disaggregated prefill (prefill_extract)")
         prompt = list(request.token_ids)
         if len(prompt) + 1 >= self.cfg.max_context:
             # typed 400 (not a bare ValueError): the disagg frontend's
@@ -986,8 +1033,10 @@ class EngineCore:
                          first_logprob: float = 0.0) -> StepOutput:
         """Receive a remotely-prefilled sequence: write its prompt KV into
         this pool and enter it straight into decode (prefill_done=len).
-        ``k``/``v``: [L, T, Hkv, Dh] for the prompt tokens."""
-        self._refuse_at_tp("disaggregated decode (inject_prefilled)")
+        ``k``/``v``: [L, T, Hkv, Dh] for the prompt tokens. At tp > 1 a
+        ``kv_inject`` frame gives each rank its kv heads; every check runs
+        before it, so a bad payload errors its request and sends no
+        frame."""
         if None not in self.slots:
             raise RuntimeError("no free slot for injected sequence")
         prompt = list(request.token_ids)
@@ -1001,22 +1050,59 @@ class EngineCore:
             # first and leaks the sequence's pages when its scatter fails)
             raise ValueError(f"KV geometry {k.shape}/{v.shape} does not "
                              f"match this engine's {want}")
+        whole = None
+        if self.tp > 1:
+            # in the pool's host dtype on the leader, before any lease
+            whole = [to_host_array(_kv_tensor(a).to(m.dtype))
+                     for a in (k, v)]
         self.pool.create(seq_id, lora_id=getattr(request, "lora_id", 0))
         try:
             self.pool.extend(seq_id, prompt)
             self._flush_evictions()
-            slots = self._kv_slots(seq_id, T)
-            for pool, arr in ((self.k_pool, k), (self.v_pool, v)):
-                # to the card through pinned memory, non-blocking; vals
-                # [L, T, Hkv, Dh] -> the pool's [L, Hkv, T, Dh]
-                vals = to_device(_kv_tensor(arr), self.device)
-                self._flat(pool).index_copy_(
-                    2, slots, vals.to(pool.dtype).transpose(1, 2))
+            if whole is not None:
+                self._inject_layers(self.pool.write_slots(
+                    seq_id, 0, T).astype(np.int64), 0, whole)
+            else:
+                slots = self._kv_slots(seq_id, T)
+                for pool, arr in ((self.k_pool, k), (self.v_pool, v)):
+                    # to the card through pinned memory, non-blocking;
+                    # vals [L, T, Hkv, Dh] -> the pool's [L, Hkv, T, Dh]
+                    vals = to_device(_kv_tensor(arr), self.device)
+                    self._flat(pool).index_copy_(
+                        2, slots, vals.to(pool.dtype).transpose(1, 2))
         except Exception:
             self.pool.release(seq_id)
             raise
         return self._enter_injected(seq_id, request, prompt, first_token,
                                     first_logprob)
+
+    def _inject_layers(self, slots: np.ndarray, l0: int,
+                       whole: List[np.ndarray]) -> None:
+        """tp > 1: a ``kv_inject`` frame writing the leader's whole host
+        layers ``whole`` (k, v [G, T, Hkv, Dh], the pool's host dtype) at
+        token ``slots`` of layers ``l0`` .. ``l0 + G`` on every rank."""
+        arrs = {"slots": slots}
+        meta = {"l0": l0, "layers": int(whole[0].shape[0])}
+        with self._framed("kv_inject", meta, arrs):
+            self._run_inject_program(arrs, meta, whole)
+
+    def _run_inject_program(self, arrs: Dict[str, np.ndarray],
+                            meta: Dict[str, Any],
+                            whole: Optional[List[np.ndarray]] = None) -> None:
+        """This rank's kv heads of the leader's whole layers (one host
+        scatter a pool) written at token ``slots`` of its pools."""
+        m, d = self.cfg.model, self.device
+        l0, G, slots = meta["l0"], meta["layers"], arrs["slots"]
+        idx = to_device(slots, d)
+        shape = (G, len(slots), self.k_pool.shape[1], m.head_dim)
+        for pool, w in zip((self.k_pool, self.v_pool), whole or (None, None)):
+            part = collectives.scatter_heads(w, self.host_group,
+                                             self._kv_heads, shape,
+                                             host_dtype(pool.dtype))
+            vals = to_device(from_host_array(part, pool.dtype), d)
+            # [G, T, Hkv, Dh] -> the pool's [G, Hkv, T, Dh]
+            self._flat(pool[l0:l0 + G]).index_copy_(2, idx,
+                                                    vals.transpose(1, 2))
 
     def _enter_injected(self, seq_id: str, request: BackendInput,
                         prompt: List[int], first_token: int,
@@ -1061,7 +1147,6 @@ class EngineCore:
         still on the wire. The pages stay UNSEALED (no hash registration,
         no stored events) until :meth:`finish_stream_inject` — a torn
         stream releases them with nothing ever having referenced them."""
-        self._refuse_at_tp("layer-streamed KV ingest (KvIngest)")
         prompt = list(request.token_ids)
         if None not in self.slots:
             raise RuntimeError("no free slot for streamed sequence")
@@ -1074,9 +1159,11 @@ class EngineCore:
         # leasing may have evicted reusable pages: their offload d2h must
         # be enqueued before our scatters overwrite them
         self._flush_evictions()
+        slots = self.pool.write_slots(seq_id, 0, len(prompt)).astype(
+            np.int64)
         self._stream_injects[seq_id] = {
             "request": request, "prompt": prompt,
-            "slots": self._kv_slots(seq_id, len(prompt)),
+            "slots": to_device(slots, self.device), "host_slots": slots,
             "layers_done": 0, "stage": None, "n": 0, "buf_l0": 0,
             # layers a scatter: each group of arrivals lands in one
             # scatter a pool (a scatter per layer would spend more host
@@ -1086,16 +1173,23 @@ class EngineCore:
 
     def _flush_stream_buf(self, st) -> None:
         """Send the staged group of layers to the card (pinned source,
-        ``non_blocking=True``) and scatter it into both pools."""
+        ``non_blocking=True``) and scatter it into both pools; at tp > 1
+        through a ``kv_inject`` frame."""
         n = st["n"]
         if not n:
             return
         l0 = st["buf_l0"]
-        for pool, staged in zip((self.k_pool, self.v_pool), st["stage"]):
-            vals = staged[:n].to(self.device, non_blocking=True)
-            # [G, T, Hkv, Dh] -> the pool's [G, Hkv, T, Dh]
-            self._flat(pool[l0:l0 + n]).index_copy_(
-                2, st["slots"], vals.to(pool.dtype).transpose(1, 2))
+        pools = (self.k_pool, self.v_pool)
+        if self.tp > 1:
+            self._inject_layers(st["host_slots"], l0, [
+                to_host_array(staged[:n].to(pool.dtype))
+                for pool, staged in zip(pools, st["stage"])])
+        else:
+            for pool, staged in zip(pools, st["stage"]):
+                vals = staged[:n].to(self.device, non_blocking=True)
+                # [G, T, Hkv, Dh] -> the pool's [G, Hkv, T, Dh]
+                self._flat(pool[l0:l0 + n]).index_copy_(
+                    2, st["slots"], vals.to(pool.dtype).transpose(1, 2))
         st["buf_l0"] = l0 + n
         st["stage"], st["n"] = None, 0
 
@@ -1106,6 +1200,13 @@ class EngineCore:
         full, while later layers are still in flight. Never syncs the
         host: the engine keeps dispatching other sequences' work."""
         st = self._stream_injects[seq_id]
+        m = self.cfg.model
+        want = (len(st["prompt"]), m.num_kv_heads, m.head_dim)
+        if k.shape != want or v.shape != want:
+            # before it is staged: a group's scatter (at tp > 1 a frame)
+            # only ever carries checked layers
+            raise ValueError(f"layer {layer} KV {k.shape}/{v.shape} does "
+                             f"not match this engine's {want}")
         if st["stage"] is None:
             G = min(st["group"], self.cfg.model.num_layers - st["buf_l0"])
             st["stage"] = [torch.empty((G, *k.shape), dtype=_kv_dtype(
@@ -1291,8 +1392,7 @@ class EngineCore:
         from ..obs.flows import record_flow
 
         t0 = time.perf_counter()
-        k, v = self.copy_stream.d2h_pages(self.k_pool, self.v_pool,
-                                          [p for _, p in buf])
+        k, v = self._offload_pages([p for _, p in buf])
         # the whole batch on the ledger, as the JAX engine records it: the
         # evicted pages and the write-through mirrors riding the same copy
         record_flow("d2h_writethrough", k.nbytes + v.nbytes,
@@ -1303,6 +1403,32 @@ class EngineCore:
             nbytes = len(wt) * (k[0].nbytes + v[0].nbytes)
             secs = (time.perf_counter() - t0) * len(wt) / len(buf)
             self._count_writethrough(len(wt), nbytes, secs, record=False)
+
+    def _offload_pages(self, pages: List[int]
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """Whole host blocks (k, v [n, L, Hkv, page, Dh]) of device
+        ``pages``: a ``kv_offload`` frame, which every rank replays before
+        any later program can rewrite the pages."""
+        arrs = {"pages": np.asarray(pages, np.int64)}
+        with self._framed("kv_offload", {}, arrs):
+            return self._run_offload_program(arrs)
+
+    def _run_offload_program(self, arrs: Dict[str, np.ndarray]):
+        """``pages`` to the host (``CopyStream.d2h_pages``); at tp > 1 this
+        rank's kv heads, gathered into whole blocks on the leader ((None,
+        None) on a follower)."""
+        t0 = time.perf_counter()
+        # dynalint: ok(flow-accounting) the leader's callers record the
+        # whole blocks (d2h_writethrough: the eviction batch, each mirror)
+        k, v = self.copy_stream.d2h_pages(self.k_pool, self.v_pool,
+                                          arrs["pages"])
+        self.kv_offload_bytes += k.nbytes + v.nbytes
+        if self.tp > 1:
+            k, v = (collectives.gather_heads(x, self.host_group,
+                                             self._kv_heads)
+                    for x in (k, v))
+        self.kv_offload_seconds += time.perf_counter() - t0
+        return k, v
 
     # ------------------------------------------------------------------
     # cluster write-through: mirror sealed blocks once their KV is written
@@ -1366,6 +1492,15 @@ class EngineCore:
             return 0
         t0 = time.perf_counter()
         n = len(ready)
+        if self.tp > 1:
+            # a kv_offload frame, run now: its host gather syncs anyway
+            k, v = self._offload_pages([p for _, p in ready])
+            for i, (seq_hash, _) in enumerate(ready):
+                self.tiered.offload(seq_hash, k[i], v[i])
+            secs = time.perf_counter() - t0
+            self.writethrough_enqueue_seconds += secs
+            self._count_writethrough(n, k.nbytes + v.nbytes, secs)
+            return n
         idx = to_device(np.asarray([p for _, p in ready], np.int64),
                         self.device)
         rec: Dict[str, Any] = {"entries": ready, "end": None}
@@ -1443,7 +1578,9 @@ class EngineCore:
         thread; the engine thread keeps dispatching). The copies run from
         pinned memory on a side stream under one event; admission's restore
         makes the compute stream wait on it before its device-to-device
-        scatter. Returns blocks staged.
+        scatter. Returns blocks staged. At tp > 1 the leader also keeps the
+        whole host blocks: the restore scatters the followers' kv heads of
+        them, while its own come from the staged device copies.
 
         Safe beside the engine thread: the tier is locked, the staged
         tensors are fresh ones nothing else references, the stage dict is
@@ -1491,11 +1628,14 @@ class EngineCore:
                 ev.record()
         else:
             dev = host
+        whole = [to_host_array(t) for t in host] if self.tp > 1 else None
         with self._h2d_stage_lock:
             for i, (h, _) in enumerate(got):
                 while len(self._h2d_stage) >= cap:
                     self._h2d_stage.pop(next(iter(self._h2d_stage)))
-                self._h2d_stage[h] = (dev[0][i], dev[1][i], ev)
+                self._h2d_stage[h] = (dev[0][i], dev[1][i], ev, None
+                                      if whole is None
+                                      else (whole[0][i], whole[1][i]))
                 self._h2d_requested.add(h)
             if len(self._h2d_requested) > 4 * cap:
                 # cancelled/never-admitted requests must not grow the
@@ -1514,7 +1654,7 @@ class EngineCore:
         t0 = time.perf_counter()
         host_lookup = None
         staged: List[np.ndarray] = []       # (k, v) host blocks, once used
-        on_dev: Dict[int, Tuple[Any, Any, Any]] = {}   # prefetch-staged
+        on_dev: Dict[int, Tuple[Any, Any, Any, Any]] = {}  # prefetch-staged
         n_up = 0
         if self.tiered is not None:
             def host_lookup(h):
@@ -1551,7 +1691,10 @@ class EngineCore:
             self._flush_evictions()
             host_up = [(h, p) for h, p in uploads if h not in on_dev]
             dev_up = [(h, p) for h, p in uploads if h in on_dev]
-            if host_up:
+            if self.tp > 1:
+                self._restore_across_ranks(seq_id, host_up, staged,
+                                           [(p, on_dev[h]) for h, p in dev_up])
+            elif host_up:
                 from ..obs.flows import record_flow
 
                 n = len(host_up)
@@ -1562,30 +1705,101 @@ class EngineCore:
                 record_flow("h2d_prefetch",
                             staged[0][:n].nbytes + staged[1][:n].nbytes,
                             time.perf_counter() - t1, trace_id=seq_id)
-                with self._h2d_stage_lock:
-                    stalls = sum(h in self._h2d_requested
-                                 for h, _ in host_up)
-                    self._h2d_requested.difference_update(
-                        h for h, _ in host_up)
-                if stalls:
-                    self.stage.prefetch_h2d_stalls.inc(amount=float(stalls))
+            self._count_stalls(host_up)
             if dev_up:
-                ks = [on_dev[h][0] for h, _ in dev_up]
-                vs = [on_dev[h][1] for h, _ in dev_up]
-                if self.device.type == "cuda":
-                    # the side stream's uploads come first; the staged
-                    # tensors are then in use on this stream too
-                    cur = torch.cuda.current_stream(self.device)
-                    for ev in {id(on_dev[h][2]): on_dev[h][2]
-                               for h, _ in dev_up}.values():
-                        cur.wait_event(ev)
-                    for t in ks + vs:
-                        t.record_stream(cur)
-                self.copy_stream.scatter_blocks(
-                    self.k_pool, self.v_pool, [p for _, p in dev_up], ks, vs)
+                if self.tp == 1:
+                    self._scatter_staged([(p, on_dev[h]) for h, p in dev_up])
                 self.stage.prefetch_h2d_hits.inc(amount=float(len(dev_up)))
         self.restore_seconds += time.perf_counter() - t0
         return matched
+
+    def _count_stalls(self, host_up: List[Tuple[int, int]]) -> None:
+        """Host-tier uploads of hashes a prefetch was requested for count
+        as prefetch stalls."""
+        if not host_up:
+            return
+        with self._h2d_stage_lock:
+            stalls = sum(h in self._h2d_requested for h, _ in host_up)
+            self._h2d_requested.difference_update(h for h, _ in host_up)
+        if stalls:
+            self.stage.prefetch_h2d_stalls.inc(amount=float(stalls))
+
+    def _scatter_staged(self, staged: List[Tuple[int, Tuple]]) -> None:
+        """(page, prefetch-staged (k, v, event, ...)) blocks into their
+        pages, device to device, after their upload's event; at tp > 1
+        this rank's kv heads of them."""
+        r = self._kv_heads[self.rank]
+        ks = [st[0] for _, st in staged]
+        vs = [st[1] for _, st in staged]
+        if self.device.type == "cuda":
+            # the side stream's uploads come first; the staged tensors are
+            # then in use on this stream too
+            cur = torch.cuda.current_stream(self.device)
+            for ev in {id(st[2]): st[2] for _, st in staged}.values():
+                cur.wait_event(ev)
+            for t in ks + vs:
+                t.record_stream(cur)
+        if self.tp > 1:
+            ks = [t[:, r.start:r.stop] for t in ks]
+            vs = [t[:, r.start:r.stop] for t in vs]
+        # dynalint: ok(flow-accounting) device to device: stage_prefetch
+        # recorded these blocks' h2d (h2d_prefetch)
+        self.copy_stream.scatter_blocks(
+            self.k_pool, self.v_pool, [p for p, _ in staged], ks, vs)
+
+    def _restore_across_ranks(self, seq_id: str,
+                              host_up: List[Tuple[int, int]],
+                              staged: List[np.ndarray],
+                              dev_up: List[Tuple[int, Tuple]]) -> None:
+        """tp > 1: one ``kv_restore`` frame for every restored page (the
+        host-tier uploads, then the prefetch-staged blocks). The leader
+        scatters each rank its kv heads of the whole host blocks; its own
+        staged ones come from its device copies."""
+        from ..obs.flows import record_flow
+
+        n = len(host_up)
+        parts: List[List[np.ndarray]] = [[], []]
+        for i in range(2):
+            if n:
+                parts[i].append(staged[i][:n])
+            parts[i] += [st[3][i][None] for _, st in dev_up]
+        whole = [np.concatenate(p) for p in parts]
+        arrs = {"pages": np.asarray([p for _, p in host_up]
+                                    + [p for p, _ in dev_up], np.int64)}
+        t1 = time.perf_counter()
+        with self._framed("kv_restore", {"staged": len(dev_up)}, arrs):
+            self._run_restore_program(arrs, whole, dev_up)
+        if n:
+            record_flow("h2d_prefetch",
+                        staged[0][:n].nbytes + staged[1][:n].nbytes,
+                        time.perf_counter() - t1, trace_id=seq_id)
+
+    def _run_restore_program(self, arrs: Dict[str, np.ndarray],
+                             whole: Optional[List[np.ndarray]] = None,
+                             dev_up: List[Tuple[int, Tuple]] = ()) -> None:
+        """tp > 1: this rank's kv heads of the leader's whole host blocks
+        (``whole``: k, v [n, L, Hkv, page, Dh]) into ``pages``, through one
+        host scatter a pool and an upload (``CopyStream.h2d_pages``); the
+        leader's last ``len(dev_up)`` pages come from its staged device
+        blocks instead."""
+        t0 = time.perf_counter()
+        pages = [int(p) for p in arrs["pages"]]
+        m = self.cfg.model
+        shape = (len(pages), m.num_layers, self.k_pool.shape[1],
+                 self.page_size, m.head_dim)
+        k, v = (collectives.scatter_heads(w, self.host_group, self._kv_heads,
+                                          shape, host_dtype(m.dtype))
+                for w in (whole or (None, None)))
+        n = len(pages) - len(dev_up)
+        if n:
+            # dynalint: ok(flow-accounting) one rank's kv heads of the whole
+            # blocks the leader records (h2d_prefetch)
+            self.copy_stream.h2d_pages(self.k_pool, self.v_pool, pages[:n],
+                                       k[:n], v[:n])
+        if dev_up:
+            self._scatter_staged(dev_up)
+        self.kv_restore_bytes += k.nbytes + v.nbytes
+        self.kv_restore_seconds += time.perf_counter() - t0
 
     def _admit_one(self, out: List[StepOutput]):
         """Admit the head-of-line request into a free slot (no prefill yet).
@@ -1687,12 +1901,6 @@ class EngineCore:
         if chunks:
             self._prefill_dispatch(chunks, out)
 
-    def _lane_tensors(self, idx: List[int]):
-        d = self.device
-        return (to_device(self.temperature[idx], d),
-                to_device(self.top_p[idx], d),
-                to_device(self.top_k[idx], d))
-
     def _prefill_dispatch(self, chunks: List[Tuple[int, _Slot]],
                           out: List[StepOutput]) -> None:
         """Advance each (slot_idx, slot) by one prompt chunk in a single
@@ -1792,14 +2000,13 @@ class EngineCore:
                 "last_i": last_i, "temp": self.temperature[idx],
                 "top_p": self.top_p[idx], "top_k": self.top_k[idx],
                 "uniforms": uniforms}
-        if self.dispatch_hook is not None:
-            # image waves never reach here at tp > 1 (refused at
-            # construction): their device inputs are the leader's own
-            self._publish("prefill", {
+        # image waves never reach a tp > 1 leader (refused at
+        # construction): their device inputs are the leader's own
+        with self._framed("prefill", {
                 "Bp": Bp, "C": C, "S": S, "seeds": [],
                 "last_lanes": [lane for lane, w in enumerate(work) if w[4]],
-                "mm": False}, arrs)
-        sampled = self._run_prefill_program(arrs, mm_kw)
+                "mm": False}, arrs):
+            sampled = self._run_prefill_program(arrs, mm_kw)
         # dynalint: ok(host-sync) the prefill dispatch's designed fetch: every
         # lane's (token, logprob) in one packed read a dispatch
         packed = sampled.cpu().numpy()                    # 1 fetch
@@ -1978,10 +2185,9 @@ class EngineCore:
                  for i, slot, _ in active], bool)
             for i, slot, _ in active:
                 self._decode_seen[i] = slot.seq_id
-        if self.dispatch_hook is not None:
-            self._publish("decode", {"S": P * self.page_size,
-                                     "chain": chain}, arrs)
-        packed = self._run_decode_program(arrs)
+        with self._framed("decode", {"S": P * self.page_size,
+                                     "chain": chain}, arrs):
+            packed = self._run_decode_program(arrs)
         ready = None
         if packed.is_cuda:
             # into pinned memory behind the dispatch; the host waits on the
@@ -2071,10 +2277,35 @@ class EngineCore:
                 self.decode_dispatches += 1
                 self.decode_chained += bool(meta.get("chain"))
                 self.decode_steps_run += int(arrs["uniforms"].shape[0])
+            elif kind == "verify":
+                self._run_verify_program(arrs)
+                self.spec_dispatch_total += 1
+                self.spec_k_rounds[int(meta["K"])] += 1
+            elif kind == "kv_offload":
+                self._run_offload_program(arrs)
+            elif kind == "kv_restore":
+                self._run_restore_program(arrs)
+            elif kind == "kv_extract":
+                self._run_extract_program(arrs, meta)
+            elif kind == "kv_inject":
+                self._run_inject_program(arrs, meta)
             elif kind == "stats":
                 self._gather_rank_stats()
             else:
                 raise ValueError(f"unknown dispatch kind {kind!r}")
+
+    @contextlib.contextmanager
+    def _framed(self, kind: str, meta: Dict[str, Any],
+                arrs: Dict[str, np.ndarray]):
+        """Around a device program's run here: first hand its frame
+        (``kind``, ``meta`` and the host inputs ``arrs`` the program reads)
+        to the followers, which replay it through :meth:`mirror_dispatch`
+        in the same order; ``frames_done`` catches up once the block
+        returned."""
+        if self.dispatch_hook is not None:
+            self._publish(kind, meta, arrs)
+        yield
+        self.frames_done = self.frames_out
 
     def _publish(self, kind: str, meta: Dict[str, Any],
                  arrs: Dict[str, np.ndarray]) -> None:
@@ -2087,9 +2318,8 @@ class EngineCore:
         collective)."""
         if self.tp == 1:
             return self.rank_stats
-        if self.dispatch_hook is not None:
-            self._publish("stats", {}, {})
-        self._gather_rank_stats()
+        with self._framed("stats", {}, {}):
+            self._gather_rank_stats()
         return self.rank_stats
 
     def _gather_rank_stats(self) -> None:
@@ -2104,7 +2334,9 @@ class EngineCore:
                 float(att.paged_attention.launches),
                 float(self.prefill_dispatches), float(self.decode_dispatches),
                 float(self.decode_steps_run), float(_tree_nbytes(self.params)),
-                float(peak)]
+                float(peak), float(self.spec_dispatch_total),
+                float(self.kv_restore_bytes), self.kv_restore_seconds,
+                float(self.kv_offload_bytes), self.kv_offload_seconds]
         k = len(mine)
         got = to_device(np.zeros(k * self.tp, np.float64), self.device)
         got[self.rank * k:(self.rank + 1) * k] = to_device(
@@ -2198,8 +2430,13 @@ class EngineCore:
         lanes (compact: active lanes only): propose up to k drafts a lane,
         verify all of them in ONE forward over K+1 positions (the flash
         kernel), sample acceptance on the device, fetch it once, and commit
-        only accepted tokens plus one correction or bonus token a lane."""
-        m, sp = self.cfg.model, self.spec
+        only accepted tokens plus one correction or bonus token a lane.
+        The proposals, the bucket K and the commit are the leader's host
+        plan; the device work is :meth:`_run_verify_program` on the
+        ``verify`` frame's arrays, which every rank runs. The commit
+        changes no device state: the next round's frame folds its tokens
+        into the penalty counts."""
+        sp = self.spec
         t0 = time.perf_counter()
         # reserve the whole verify window (k_max drafts + bonus) up front:
         # rollback is then pure bookkeeping, never data movement
@@ -2233,7 +2470,7 @@ class EngineCore:
         read_valid = np.zeros((Ba, S), bool)
         upd_tok = np.zeros((Ba, U), np.int64)
         upd_mask = np.zeros((Ba, U), np.int32)
-        fresh = []
+        fresh = np.zeros(Ba, bool)
         for a, ((i, slot, phys), d) in enumerate(zip(active, drafts)):
             # column 0 is the last committed token (its KV is written here,
             # as in single-token decode); columns 1.. are its drafts
@@ -2249,35 +2486,22 @@ class EngineCore:
             upd_tok[a, :len(upd)] = upd
             upd_mask[a, :len(upd)] = 1
             if self._decode_seen.get(i) != slot.seq_id:
-                fresh.append(i)
+                fresh[a] = True
                 self._decode_seen[i] = slot.seq_id
-        dev = self.device
         idx = [i for i, _, _ in active]
-        lane = to_device(np.asarray(idx, np.int64), dev)
-        for i in fresh:
-            # a sequence entering decode restarts its penalty counts; the
-            # fold below adds its first generated token
-            self.gen_counts[i].zero_()
-        # fold the previous round's committed tokens into the counts
-        self.gen_counts.index_put_(
-            (lane[:, None].expand(Ba, U).reshape(-1),
-             to_device(upd_tok, dev).reshape(-1)),
-            to_device(upd_mask, dev).reshape(-1), accumulate=True)
-        temp, top_p, top_k = self._lane_tensors(idx)
-        freq = to_device(self.freq_pen[idx], dev)[:, None, None]
-        pres = to_device(self.pres_pen[idx], dev)[:, None, None]
-        uniforms = spec_uniforms([self.generators[i] for i in idx], K,
-                                 sp.k_max, dev)
-        tok_d = to_device(tokens, dev)
+        arrs = {"lanes": np.asarray(idx, np.int64), "fresh": fresh,
+                "upd_tok": upd_tok, "upd_mask": upd_mask, "tokens": tokens,
+                "positions": positions, "write_idx": write_idx,
+                "read_idx": read_idx, "read_pos": read_pos,
+                "read_valid": read_valid, "temp": self.temperature[idx],
+                "top_p": self.top_p[idx], "top_k": self.top_k[idx],
+                "freq_pen": self.freq_pen[idx],
+                "pres_pen": self.pres_pen[idx],
+                "uniforms": spec_uniforms(
+                    [self.generators[i] for i in idx], K, sp.k_max)}
         t_v = time.perf_counter()
-        logits, _, _ = llama.forward(
-            self.params, m, tok_d, to_device(positions, dev), self.k_pool,
-            self.v_pool, to_device(write_idx, dev), to_device(read_idx, dev),
-            to_device(read_pos, dev), to_device(read_valid, dev),
-            attn_impl="flash")                                 # [Ba, T, V]
-        cf = self.gen_counts[lane].float()[:, None, :]
-        lg = logits - freq * cf - pres * (cf > 0).float()
-        packed = spec_verify(lg, tok_d[:, 1:], temp, top_p, top_k, uniforms)
+        with self._framed("verify", {"S": S, "K": K}, arrs):
+            packed = self._run_verify_program(arrs)
         # dynalint: ok(host-sync) the verify round's designed fetch: one packed
         # read a round (spec decode is synchronous by round)
         r = spec_unpack(packed.cpu().numpy(), K)      # ONE host fetch
@@ -2322,6 +2546,43 @@ class EngineCore:
             self.stage.decode_step.observe(value=elapsed / n_emitted)
         self.spec_seconds += time.perf_counter() - t0
 
+    def _run_verify_program(self, arrs: Dict[str, np.ndarray]
+                            ) -> torch.Tensor:
+        """A speculative round's device program, from its host inputs alone
+        (every rank runs it): the penalty-count resets of sequences entering
+        decode (``fresh``) and the fold of each lane's committed tokens
+        (``upd_tok`` under ``upd_mask``), ONE forward over the K+1
+        positions of every lane (the flash kernel, this rank's heads), and
+        the acceptance sampling on the lanes' ``uniforms``. Returns the
+        packed verify result [Ba, spec_pack_width(K)] on the device."""
+        d, m = self.device, self.cfg.model
+        lanes, fresh = arrs["lanes"], arrs["fresh"]
+        lane = to_device(lanes, d)
+        if fresh.any():
+            # a sequence entering decode restarts its penalty counts; the
+            # fold below adds its first generated token
+            self.gen_counts.index_fill_(0, to_device(lanes[fresh], d), 0)
+        Ba, U = arrs["upd_tok"].shape
+        self.gen_counts.index_put_(
+            (lane[:, None].expand(Ba, U).reshape(-1),
+             to_device(arrs["upd_tok"], d).reshape(-1)),
+            to_device(arrs["upd_mask"], d).reshape(-1), accumulate=True)
+        temp, top_p, top_k = (to_device(arrs[k], d)
+                              for k in ("temp", "top_p", "top_k"))
+        freq = to_device(arrs["freq_pen"], d)[:, None, None]
+        pres = to_device(arrs["pres_pen"], d)[:, None, None]
+        tok_d = to_device(arrs["tokens"], d)
+        logits, _, _ = llama.forward(
+            self.params, m, tok_d, to_device(arrs["positions"], d),
+            self.k_pool, self.v_pool, to_device(arrs["write_idx"], d),
+            to_device(arrs["read_idx"], d), to_device(arrs["read_pos"], d),
+            to_device(arrs["read_valid"], d), attn_impl="flash",
+            group=self.group)                                  # [Ba, T, V]
+        cf = self.gen_counts[lane].float()[:, None, :]
+        lg = logits - freq * cf - pres * (cf > 0).float()
+        return spec_verify(lg, tok_d[:, 1:], temp, top_p, top_k,
+                           to_device(arrs["uniforms"], d))
+
 
 def _kv_dtype(dtype: np.dtype) -> torch.dtype:
     """torch dtype of received KV arrays of numpy ``dtype``: ``uint16``
@@ -2356,10 +2617,11 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
     (:class:`~..parallel.multihost.LeaderPlane`): the engine waits for the
     followers and hooks the dispatch publisher into its core before the
     thread starts, gathers every rank's counters while idle
-    (``core.rank_stats``), and closes the plane at shutdown. A step that
-    fails after it sent the followers a frame ends the process (exit 13):
-    they may already wait inside a collective the leader will not run
-    again. One that fails before errors its batch, as at tp=1."""
+    (``core.rank_stats``), and closes the plane at shutdown. A step or KV
+    command that fails while a frame it sent the followers has not
+    finished its program here ends the process (exit 13): they may already
+    wait inside a collective the leader will not run again. Any other
+    failure errors its requests, as at tp=1."""
 
     def __init__(self, cfg: TorchEngineConfig,
                  params: Optional[Dict[str, Any]] = None, plane=None):
@@ -2441,18 +2703,11 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
                 except Exception:
                     log.exception("DYN_PROFILE_DIR capture failed to start")
                     profile_dir = None
-            sent = self.core.frames_out
             try:
                 outs = self.core.step(flush=self._deliver_all)
             except Exception as e:  # engine must never die silently
                 log.exception("engine step failed")
-                if self.core.frames_out != sent:
-                    log.critical("a tensor-parallel leader cannot drop a "
-                                 "dispatch its followers were sent; "
-                                 "ending the worker")
-                    from ..parallel.multihost import FOLLOWER_LOST_EXIT
-
-                    os._exit(FOLLOWER_LOST_EXIT)
+                self._end_if_torn()
                 outs = [StepOutput(sid, 0, 0.0, FinishReason.ERROR,
                                    error=f"engine step failed: {e}")
                         for sid in list(self.core.by_seq)]
@@ -2488,15 +2743,39 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
             # the short capture
             self._stop_profile(prof, profile_dir)
 
+    def _end_if_torn(self) -> None:
+        """After a failure on the engine thread: a tensor-parallel leader
+        that sent its followers a frame whose program did not return here
+        ends the process (exit 13), since they may wait inside a collective
+        it will not run again. Otherwise the failure errors its requests,
+        as at tp=1."""
+        if self.core.frames_out != self.core.frames_done:
+            log.critical("a tensor-parallel leader cannot drop a dispatch "
+                         "its followers were sent; ending the worker")
+            from ..parallel.multihost import FOLLOWER_LOST_EXIT
+
+            os._exit(FOLLOWER_LOST_EXIT)
+
     def _run_kv_command(self, kind: str, seq_id: str, payload) -> None:
         """The disaggregation commands of the inbox, on the engine thread:
-        a prefill worker's ``prefill_extract``, and a decode worker's
-        whole-array ``inject`` or layer-streamed ``ingest_*`` steps."""
+        a prefill worker's ``prefill_extract``, a decode worker's
+        whole-array ``inject`` or layer-streamed ``ingest_*`` steps, and a
+        ``call`` of a function of the core (:meth:`run_on_engine`). Their
+        failures error their request; one that leaves a frame unfinished
+        ends a tp worker (:meth:`_end_if_torn`)."""
         core = self.core
-        if kind == "inject":
+        if kind == "call":
+            fn, fut = payload
+            try:
+                fut.set_result(fn(core))
+            except Exception as e:  # noqa: BLE001
+                fut.set_exception(e)
+                self._end_if_torn()
+        elif kind == "inject":
             try:
                 so = core.inject_prefilled(seq_id, *payload)
             except Exception as e:  # noqa: BLE001
+                self._end_if_torn()
                 log.exception("KV injection failed")
                 so = StepOutput(seq_id, 0, 0.0, FinishReason.ERROR,
                                 error=f"KV injection failed: {e}")
@@ -2505,6 +2784,7 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
             try:
                 core.begin_stream_inject(seq_id, payload)
             except Exception as e:  # noqa: BLE001
+                self._end_if_torn()
                 log.exception("stream-inject begin failed")
                 self._ingest_fail(seq_id, e)
         elif kind == "ingest_layer":
@@ -2514,6 +2794,7 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
                 try:
                     core.stream_inject_layer(seq_id, *payload)
                 except Exception as e:  # noqa: BLE001
+                    self._end_if_torn()
                     log.exception("stream-inject layer failed")
                     self._ingest_fail(seq_id, e)
         elif kind == "ingest_finish":
@@ -2522,6 +2803,7 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
                     self._deliver(core.finish_stream_inject(seq_id,
                                                             *payload))
                 except Exception as e:  # noqa: BLE001
+                    self._end_if_torn()
                     log.exception("stream-inject finish failed")
                     self._ingest_fail(seq_id, e)
         elif kind == "ingest_abort":
@@ -2532,6 +2814,7 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
                 res = core.prefill_extract(seq_id, request)
                 loop.call_soon_threadsafe(_set_result, fut, res)
             except Exception as e:  # noqa: BLE001
+                self._end_if_torn()
                 log.exception("prefill_extract failed")
                 loop.call_soon_threadsafe(_set_exception, fut, e)
 
@@ -2659,7 +2942,6 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
         ingest=handle)``; consume the entered sequence with
         :meth:`generate_streamed` once the awaited future resolves to
         the handle."""
-        self.core._refuse_at_tp("layer-streamed KV ingest (KvIngest)")
         return KvIngest(self, request, seq_id)
 
     async def generate_streamed(self, request: BackendInput,
@@ -2732,6 +3014,19 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
             self._queues.pop(seq_id, None)
             self._inbox.put(("cancel", seq_id, None))
             self._wake.set()
+
+    def run_on_engine(self, fn: Callable[["EngineCore"], Any],
+                      timeout: float = 120.0) -> Any:
+        """``fn(core)`` on the engine thread, from any other thread, and
+        its result: how a caller reaches the core while the engine serves
+        (at tp > 1 a core method that sends frames must run in the
+        thread's order of frames, e.g. ``EngineCore.flush_reusable``)."""
+        import concurrent.futures
+
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._inbox.put(("call", "", (fn, fut)))
+        self._wake.set()
+        return fut.result(timeout)
 
     # ------------------------------------------------------------------
     # placement-driven prefetch (an executor thread)

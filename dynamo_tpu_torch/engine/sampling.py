@@ -174,16 +174,16 @@ def spec_draws(k_max: int) -> int:
 
 
 def spec_uniforms(generators: Sequence[torch.Generator], K: int,
-                  k_max: int, device: torch.device) -> torch.Tensor:
-    """[B, (K+1) + 2K] uniforms for :func:`spec_verify`: each lane draws
+                  k_max: int) -> np.ndarray:
+    """[B, (K+1) + 2K] f32 uniforms for :func:`spec_verify`, on the host
+    (a verify frame carries them to every rank): each lane draws
     :func:`spec_draws` of its generator and gives the first K+1 full, K
-    residual and K accept slots of a ``k_max`` round. One host->device
-    copy, with no host sync."""
-    u = torch.stack([torch.rand(spec_draws(k_max), generator=g)
-                     for g in generators])
+    residual and K accept slots of a ``k_max`` round."""
+    u = np.stack([torch.rand(spec_draws(k_max), generator=g).numpy()
+                  for g in generators])
     cols = (list(range(K + 1)) + list(range(k_max + 1, k_max + 1 + K))
             + list(range(2 * k_max + 1, 2 * k_max + 1 + K)))
-    return to_device(u[:, cols].contiguous(), device)
+    return np.ascontiguousarray(u[:, cols])
 
 
 def spec_verify(logits: torch.Tensor, drafts: torch.Tensor,

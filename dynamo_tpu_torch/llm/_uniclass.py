@@ -9,15 +9,16 @@ rewrites such a pattern into plain ``re`` syntax with every class spelled
 out as explicit codepoint ranges:
 
 - ``\\p{L}`` = general categories Lu, Ll, Lt, Lm, Lo; ``\\p{N}`` = Nd, Nl,
-  No, both from ``unicodedata`` (Python's own Unicode table);
+  No, both from the committed table :mod:`._unitable`, which holds
+  ``regex``'s own sets (its Unicode version is
+  ``_unitable.UNICODE_VERSION``). The card's machine has no ``regex`` and
+  Python's ``unicodedata`` is an older Unicode (3.12: 15.0), so the table
+  is data; ``python -m dynamo_tpu_torch.llm._uniclass`` regenerates it
+  where ``regex`` is installed;
 - ``\\s`` = the White_Space property;
 - ``\\P{..}`` and ``\\S`` are the complements, inside ``[...]`` too.
 
-The sets are built lazily, once a process. Python 3.12 ships Unicode 15.0;
-codepoints that a newer Unicode assigns (which ``regex`` may count as
-letters or numbers) are unassigned here and fall outside ``\\p{L}`` and
-``\\p{N}``. On every codepoint Python's table assigns, the sets equal
-``regex``'s.
+On every codepoint (surrogates aside) the sets equal ``regex``'s.
 
 Any other class escape (``\\d``, ``\\w``, ``\\p{Lu}``, ...) raises: a class
 that ``re`` reads differently must not slip through.
@@ -26,7 +27,6 @@ that ``re`` reads differently must not slip through.
 from __future__ import annotations
 
 import re
-import unicodedata
 from typing import Dict, List, Tuple
 
 _MAX = 0x10FFFF
@@ -37,33 +37,19 @@ _WHITE_SPACE: Tuple[Tuple[int, int], ...] = (
     (0x1680, 0x1680), (0x2000, 0x200A), (0x2028, 0x2029), (0x202F, 0x202F),
     (0x205F, 0x205F), (0x3000, 0x3000))
 
-_CATEGORIES = {"L": ("Lu", "Ll", "Lt", "Lm", "Lo"),
-               "N": ("Nd", "Nl", "No")}
+_CATEGORIES = ("L", "N")
 
 _ranges: Dict[str, List[Tuple[int, int]]] = {}
-
-
-def _build() -> None:
-    want = {cat: name for name, cats in _CATEGORIES.items() for cat in cats}
-    acc: Dict[str, List[Tuple[int, int]]] = {n: [] for n in _CATEGORIES}
-    for c in range(_MAX + 1):
-        name = want.get(unicodedata.category(chr(c)))
-        if name is None:
-            continue
-        r = acc[name]
-        if r and r[-1][1] == c - 1:
-            r[-1] = (r[-1][0], c)
-        else:
-            r.append((c, c))
-    acc["s"] = list(_WHITE_SPACE)
-    _ranges.update(acc)
 
 
 def ranges(name: str) -> List[Tuple[int, int]]:
     """Inclusive codepoint ranges of class ``name`` (``"L"``, ``"N"`` or
     ``"s"``), ascending."""
     if not _ranges:
-        _build()
+        from . import _unitable
+
+        _ranges.update(L=list(_unitable.L), N=list(_unitable.N),
+                       s=list(_WHITE_SPACE))
     return _ranges[name]
 
 
@@ -183,3 +169,61 @@ def is_white_space(ch: str) -> bool:
     """Rust's ``char::is_whitespace`` (the White_Space property)."""
     c = ord(ch)
     return any(a <= c <= b for a, b in _WHITE_SPACE)
+
+
+# the first codepoint each Unicode version made a letter, newest first:
+# how the generator names the version of ``regex``'s table
+_VERSION_PROBES = (("17.0.0", 0x10940), ("16.0.0", 0x1C89),
+                   ("15.1.0", 0x2EBF0), ("15.0.0", 0x11F00))
+
+
+def _runs(cps: List[int]) -> List[Tuple[int, int]]:
+    out: List[Tuple[int, int]] = []
+    for c in cps:
+        if out and out[-1][1] == c - 1:
+            out[-1] = (out[-1][0], c)
+        else:
+            out.append((c, c))
+    return out
+
+
+def generate_table() -> str:
+    """The source of :mod:`._unitable` from the ``regex`` module installed
+    here: ``\\p{L}`` and ``\\p{N}`` over every codepoint but the
+    surrogates."""
+    import regex
+
+    text = "".join(chr(c) for c in range(_MAX + 1)
+                   if not 0xD800 <= c <= 0xDFFF)
+    version = next(v for v, c in _VERSION_PROBES
+                   if regex.match(r"\p{L}", chr(c)))
+    lines = ['r"""\\p{L} and \\p{N} of ``regex`` %s (Unicode %s), as inclusive'
+             % (regex.__version__, version),
+             "codepoint runs. Generated by ``python -m "
+             "dynamo_tpu_torch.llm._uniclass``;",
+             'do not edit."""', "",
+             f"UNICODE_VERSION = {version!r}",
+             f"REGEX_VERSION = {regex.__version__!r}"]
+    for name in _CATEGORIES:
+        runs = _runs(sorted(ord(c) for c in
+                            regex.findall(r"\p{%s}" % name, text)))
+        lines += ["", f"{name} = ("]
+        items = [f"(0x{a:X}, 0x{b:X})," for a, b in runs]
+        row = "   "
+        for it in items:
+            if len(row) + 1 + len(it) > 79:
+                lines.append(row)
+                row = "   "
+            row += " " + it
+        lines += [row, ")"]
+    return "\n".join(lines) + "\n"
+
+
+if __name__ == "__main__":
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_unitable.py")
+    with open(path, "w") as f:
+        f.write(generate_table())
+    print(f"wrote {path}")

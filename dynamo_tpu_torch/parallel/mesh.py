@@ -56,13 +56,17 @@ class MeshConfig:
 @dataclass
 class ServingMesh:
     """One rank's view of the engine's ranks. ``groups`` maps each live
-    axis above 1 to its ``torch.distributed`` group."""
+    axis above 1 to its ``torch.distributed`` group; ``host_group`` is the
+    tp ranks' group for host tensors (the KV moves between the ranks and
+    the leader's tiers): the tp group itself under gloo, a gloo group of
+    the same ranks under NCCL."""
     shape: Dict[str, int]
     rank: int
     local_rank: int
     device: torch.device
     groups: Dict[str, Any]
     backend: Optional[str] = None
+    host_group: Any = None
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -159,8 +163,14 @@ def serving_mesh(tp: int = 1, sp: int = 1, ep: int = 1, pp: int = 1, *,
             raise ValueError(
                 "NCCL refuses two ranks on one GPU; share a card over the "
                 "gloo backend instead")
+        # NCCL moves no host tensors: the same ranks again, over gloo
+        host = (dist.new_group(backend="gloo") if backend == "nccl"
+                else group)
+    else:
+        host = None
     return ServingMesh(shape={AXIS_TP: tp}, rank=rank, local_rank=local,
-                       device=dev, groups=groups, backend=backend)
+                       device=dev, groups=groups, backend=backend,
+                       host_group=host)
 
 
 def shard_divisible(n: int, mesh: ServingMesh, axis: str) -> bool:

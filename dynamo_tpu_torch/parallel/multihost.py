@@ -12,10 +12,25 @@ keep the ranks in lockstep. Only the leader registers, streams tokens and
 reads results to the host.
 
 A frame is the JAX package's, byte for byte: ``wire.pack([kind, meta,
-arrays])`` with each array as ``[dtype, shape, bytes]``. The port adds
-two kinds the JAX channel lacks: ``stats`` (every rank contributes its
-counters to a gather the leader keeps) and ``shutdown`` (an orderly end:
-the followers exit 0).
+arrays])`` with each array as ``[dtype, shape, bytes]``. The kinds the JAX
+channel has keep its names (``prefill``, ``decode``, ``verify``). The port
+adds kinds the JAX channel lacks, since its single controller copies KV
+without a frame:
+
+- ``stats``: every rank contributes its counters to a gather the leader
+  keeps;
+- ``shutdown``: an orderly end (the followers exit 0);
+- ``kv_offload`` (``pages``): each rank's d2h of evicted or mirrored pages,
+  gathered into whole blocks for the leader's tiers;
+- ``kv_restore`` (``pages``): the leader's whole tier blocks scattered,
+  each rank uploading its kv heads;
+- ``kv_extract`` (``slots``; meta ``layer``): a sequence's KV gathered into
+  the leader's whole arrays (disaggregated prefill);
+- ``kv_inject`` (``slots``; meta ``l0``, ``layers``): the leader's whole
+  layers scattered into each rank's pool (disaggregated decode).
+
+The KV bytes of the last four move through a host collective of the tp
+group (``parallel.collectives``), never through the frames.
 
 Failure is the slice's, as in the JAX package: the leader exits 13 when a
 follower's socket reads EOF or a send fails (a follower that missed a

@@ -13,7 +13,9 @@
 - Dispatch frames round-trip through the JAX package's codec both ways.
 - ``cli.worker --tp 2 --device cpu`` serves one endpoint with two rank
   processes; SIGKILL on its follower makes the leader exit 13.
-- Every option not mirrored across ranks raises, naming its ROADMAP item.
+- Every option not mirrored across ranks yet (KV paging, image models)
+  raises, naming its ROADMAP item; the KV block manager, disaggregation
+  and speculative decoding at tp=2 are ``tests/test_torch_parallel_kv.py``'s.
 """
 
 import asyncio
@@ -399,22 +401,13 @@ def test_tp2_greedy_ids_over_the_dispatch_plane_match_jax(name, jax_greedy):
     # each rank holds its shard: the vocab-sharded head halves
     if name == "untied-260":
         assert leader.params["lm_head"].shape == (64, 130)
-    assert leader.k_pool.shape[1] == 1 and not leader.enable_prefix_reuse
+    assert leader.k_pool.shape[1] == 1 and leader.enable_prefix_reuse
     # the gauges price the whole model's blocks, as JAX's global arrays do
     tcfg = leader.cfg.model
     assert leader.utilization()["kv_capacity_bytes"] == (
         leader.pool.num_pages - 1) * tl.kv_block_bytes(tcfg, ENGINE[
             "page_size"])
     assert tl.kv_block_bytes(tcfg, 8) == 2 * tcfg.num_layers * 2 * 8 * 16 * 4
-    # what a follower cannot mirror raises on the leader, naming its item
-    for call in (lambda: leader.prefill_extract("p", BackendInput(
-                     token_ids=PROMPT)),
-                 lambda: leader.inject_prefilled(
-                     "i", BackendInput(token_ids=PROMPT), None, None, 1),
-                 lambda: leader.begin_stream_inject(
-                     "s", BackendInput(token_ids=PROMPT))):
-        with pytest.raises(NotImplementedError, match="item 11c"):
-            call()
 
 
 def test_frames_round_trip_through_the_jax_codec():
@@ -558,13 +551,9 @@ def _mesh_stub():
 
 
 @pytest.mark.parametrize("option,preset", [
-    (dict(spec="ngram"), "tiny-byte"),
-    (dict(host_cache_blocks=4), "tiny-byte"),
-    (dict(disk_cache_blocks=4), "tiny-byte"),
-    (dict(cluster_writethrough=True), "tiny-byte"),
     (dict(kvpage_budget=16), "tiny-byte"),
     ({}, "tiny-gemma3-vlm"),
-], ids=["spec", "host-tier", "disk-tier", "cluster", "kvpage", "vlm"])
+], ids=["kvpage", "vlm"])
 def test_engine_refuses_what_ranks_cannot_mirror(option, preset):
     cfg = TorchEngineConfig(model=tl.preset(preset, dtype=torch.float32),
                             device="cpu", tp=2, mesh=_mesh_stub(),
@@ -596,12 +585,11 @@ def test_worker_flags_refuse_what_tp_does_not_mirror(monkeypatch):
     assert (layout.tp, layout.dist_backend, layout.local_ranks) == (
         2, "gloo", 2)
     worker.check_ported(a)
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        worker.check_ported(worker.parse_args(
-            ["--tp", "2", "--device", "cpu", "--enable-disagg"]))
+    # disaggregation and cluster KV sharing serve at tp > 1
+    worker.check_ported(worker.parse_args(
+        ["--tp", "2", "--device", "cpu", "--enable-disagg"]))
     monkeypatch.setenv("DYN_KV_CLUSTER", "1")
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        worker.check_ported(a)
+    worker.check_ported(a)
     monkeypatch.delenv("DYN_KV_CLUSTER")
     with pytest.raises(NotImplementedError, match="item 11b"):
         worker.check_ported(worker.parse_args(

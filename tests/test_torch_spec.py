@@ -157,7 +157,7 @@ def _verify_inputs(seed, B=6, K=3, V=300):
 def _torch_verify(logits, drafts, temp, top_p, top_k, seed=0):
     K = drafts.shape[1]
     gens = [ts.lane_generator(seed + b) for b in range(len(temp))]
-    u = ts.spec_uniforms(gens, K, K, CPU)
+    u = torch.from_numpy(ts.spec_uniforms(gens, K, K))
     packed = ts.spec_verify(torch.from_numpy(logits),
                             torch.from_numpy(drafts), torch.from_numpy(temp),
                             torch.from_numpy(top_p), torch.from_numpy(top_k),

@@ -2,7 +2,8 @@
 package's tokenizers.
 
 - ``llm/_uniclass``: the ``\\p{L}``, ``\\p{N}`` and ``\\s`` sets equal
-  ``regex``'s on every codepoint Python's ``unicodedata`` assigns, and the
+  ``regex``'s on every codepoint Python's ``unicodedata`` assigns, and
+  ``\\p{L}`` and ``\\p{N}`` on every codepoint but the surrogates, and the
   GPT-2, Qwen2 and Llama-3 pre-tokenizer patterns split a seeded corpus as
   ``regex`` does.
 - ``llm/tokenizer_json``: three tokenizers trained here with ``tokenizers``'
@@ -88,6 +89,24 @@ def test_uniclass_sets_equal_regex_on_assigned_codepoints():
         assert ours == theirs, (pat, len(ours ^ theirs))
     # Python's re reads U+001C..U+001F as whitespace; White_Space does not
     assert not _uniclass.compile_pattern(r"\s").match("\x1c")
+
+
+def test_uniclass_sets_equal_regex_on_every_codepoint():
+    """Unassigned in Python's ``unicodedata`` too: the committed table is
+    ``regex``'s, so letters and numbers of a newer Unicode (Sidetic,
+    U+10940, is a letter from Unicode 17.0) split as ``regex`` splits
+    them."""
+    from dynamo_tpu_torch.llm import _unitable
+
+    every = "".join(chr(c) for c in range(0x110000)
+                    if not 0xD800 <= c <= 0xDFFF)
+    for pat in (r"\p{L}", r"\p{N}"):
+        ours = set(_uniclass.compile_pattern(pat).findall(every))
+        theirs = set(regex.findall(pat, every))
+        assert ours == theirs, (pat, len(ours ^ theirs))
+    assert _uniclass.compile_pattern(r"\p{L}").match("\U00010940")
+    assert unicodedata.category("\U00010940") == "Cn"
+    assert _unitable.UNICODE_VERSION >= unicodedata.unidata_version
 
 
 @pytest.mark.parametrize("pat", [tbpe._GPT2_PAT, tbpe._QWEN2_PAT, LLAMA3])
