@@ -5157,15 +5157,15 @@ def kvpage_fault(torch, kp, name: str):
     if name in ("no_upload_wait", "no_upload_wait_undelayed"):
         patch(kp, "_attend_slot", lambda i: None)
     if name in ("no_upload_wait", "delayed_upload"):
-        upload = kp._upload_batch
+        upload = kp._upload_step
 
-        def delayed(parts, plans, B, l, s, cache=None):
+        def delayed(B, l, s, cache=None, fill=None):
             if s == 0 and kp._side is not None:
                 with torch.cuda.stream(kp._side):
                     torch.cuda._sleep(KVPAGE_UPLOAD_DELAY)
-            return upload(parts, plans, B, l, s, cache)
+            return upload(B, l, s, cache, fill)
 
-        patch(kp, "_upload_batch", delayed)
+        patch(kp, "_upload_step", delayed)
     if name == "bf16_merge":
         merge = programs._merge
 
@@ -7270,9 +7270,26 @@ TP_TOKENS = 24
 TP_MARGIN_LIMIT = 1.5            # PR 15's failover margin
 TP_EXIT_S = 15                   # the leader's exit after its follower's
 TP_FREE_S = 30                   # the card's memory back after the exit
-TP_BUDGET_S = 180
+TP_BUDGET_S = 300
 TP_DISAGG_PROMPT = 600           # (b): two 512-token chunks' worth
 TP_SPEC_TOKENS = 32              # (c): n-gram rounds over a repeated block
+# the pair's engine: the serve phase's arguments and a paging lane (the
+# kvpage phase's 20 pages of 8-block segments) for (d)
+TP_ENGINE = dict(ENGINE_ARGS, kvpage_budget=20, kvpage_seg_pages=8,
+                 kvpage_prefetch=2, kvpage_max_context=8192)
+TP_KVPAGE_PROMPT = 4096          # (d): 3.2x the lane's 1280 tokens
+TP_KVPAGE_TOKENS = 16
+TP_KVPAGE_DENSE = 64             # (d): a dense request beside the lane's
+TP_VLM_TOKENS = 16               # (e): Gemma3-4B, an image and a text
+TP_SWAP_LAYERS = 4               # (f): Llama-3-8B width, swap_contract's
+TP_SWAP_SEED = 2022              # (f): model B's seed (A: the engine's)
+TP_SWAP_PROMPT = 300
+TP_SWAP_TOKENS = 16
+# the card's free bytes after a pair against before it started: the
+# allocator's cache is emptied, but the process may keep what a pair's
+# first shapes made (cuBLAS workspaces); an H100 80GB read 0-29 MB less.
+# A rank left behind would hold gigabytes
+TP_FREE_SLACK = 1 << 30
 
 
 def _settled_rank_stats(core, timeout: float = 30.0) -> list:
@@ -7509,6 +7526,492 @@ def tp_spec_step(torch, att, margins, smi: str) -> dict:
     return row
 
 
+def _card_free(torch) -> int:
+    """The card's free bytes once this process's cached blocks went back
+    (0 on the CPU)."""
+    import gc
+
+    gc.collect()
+    if DEVICE != "cuda":
+        return 0
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return torch.cuda.mem_get_info()[0]
+
+
+def _tp_layout():
+    """Two ranks sharing this card over gloo (``TP_ARGS``'s layout)."""
+    from dynamo_tpu_torch.cli.worker import RankLayout
+
+    return RankLayout(2, device=DEVICE, backend="gloo",
+                      devices="0,0" if DEVICE == "cuda" else None)
+
+
+def _run(coro, timeout: float = 600):
+    import asyncio
+
+    return asyncio.run(asyncio.wait_for(coro, timeout))
+
+
+def _counted_kinds(core) -> "collections.Counter":
+    """Count the leader's frames by kind (wraps its dispatch hook)."""
+    import collections
+
+    kinds, hook = collections.Counter(), core.dispatch_hook
+
+    def counted(kind, meta, arrs):
+        kinds[kind] += 1
+        hook(kind, meta, arrs)
+    core.dispatch_hook = counted
+    return kinds
+
+
+def _launch_check(d: list, L: int, prefill: list, decode: list) -> bool:
+    """Each rank's flash launches one a layer a dense prefill dispatch
+    (``prefill[r]``) and paged ones one a layer a decode step."""
+    return all(x["flash_launches"] == L * p and x["paged_launches"] == L * n
+               for x, p, n in zip(d, prefill, decode))
+
+
+def tp_kvpage_step(torch, att, core, eng, loop, params, margins,
+                   smi: str) -> dict:
+    """(d) The KV paging lane at tp=2 on the pair (its engine has the
+    kvpage phase's 20-page lane): a 4096-token greedy prompt, over the
+    2048-token ``max_context``, routes to the lane; a 64-token dense
+    request beside it. The lane's chunks and windows are frames both
+    ranks run (``kvpage_prefill``, ``kvpage_decode``); its demotions are
+    ``kv_offload`` frames; at each upload step the leader scatters each
+    rank its kv heads of the tier's whole segment (``scatter_heads``).
+    Each rank's page-in bytes and staging seconds; both kernels on both
+    ranks for the dense request; the lane's stream within
+    KVPAGE_LOGIT_LIMIT and the dense one within TP_MARGIN_LIMIT of tp=1's
+    teacher-forced top logit. Then the same two requests on a tp=1 engine
+    of the same arguments sharing this process's weights: its lane's
+    seconds beside the pair's (the staging a rank minus tp=1's is about
+    what the scatters cost; the two ranks time-slice one card)."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.engine import TorchEngine, TorchEngineConfig
+
+    m = core.cfg.model
+    L = m.num_layers
+    kp = core.kvpager
+    rng = np.random.default_rng(TP_SEED + 2)
+    long_p = rng.integers(1, m.vocab_size, TP_KVPAGE_PROMPT).tolist()
+    short_p = rng.integers(1, m.vocab_size, TP_KVPAGE_DENSE).tolist()
+    kinds = _counted_kinds(core)
+    lane0 = (kp.prefill_chunks, kp.decode_windows, kp.demoted_blocks,
+             kp.pager.faults, kp.pager.pageins, kp.prefill_seconds,
+             kp.decode_seconds, kp.stage_seconds)
+    att.flash_attention.launches = 0
+    att.paged_attention.launches = 0
+    st0 = _settled_rank_stats(core)
+    t0 = time.perf_counter()
+    got_long, got_short = _await(loop, _greedy_streams(
+        eng, [long_p, short_p], TP_KVPAGE_TOKENS))
+    step_s = time.perf_counter() - t0
+    st1 = _settled_rank_stats(core)
+    leader = (att.flash_attention.launches, att.paged_attention.launches)
+    core.dispatch_hook = eng.plane.publisher.hook
+    d = _rank_delta(st0, st1)
+    lane = [a - b for a, b in zip(
+        (kp.prefill_chunks, kp.decode_windows, kp.demoted_blocks,
+         kp.pager.faults, kp.pager.pageins, kp.prefill_seconds,
+         kp.decode_seconds, kp.stage_seconds), lane0)]
+    # the same requests at tp=1, on this process's copy of the weights
+    one = TorchEngine(TorchEngineConfig(
+        model=m, device=DEVICE, **{k: v for k, v in TP_ENGINE.items()
+                                   if k != "preset"}), params)
+    try:
+        t0 = time.perf_counter()
+        one_long, one_short = _run(_greedy_streams(
+            one, [long_p, short_p], TP_KVPAGE_TOKENS))
+        one_s = time.perf_counter() - t0
+        k1 = one.core.kvpager
+        tp1 = dict(step_s=one_s, lane_prefill_s=k1.prefill_seconds,
+                   lane_decode_s=k1.decode_seconds,
+                   stage_s=k1.stage_seconds, pagein_bytes=k1.pagein_bytes,
+                   streams_equal_tp2=[one_long == got_long,
+                                      one_short == got_short])
+    finally:
+        one.shutdown()
+        one.core.release_device()
+        del one
+    row = dict(
+        prompt_tokens=len(long_p), dense_prompt_tokens=len(short_p),
+        step_s=step_s, lane_prefill_chunks=lane[0],
+        lane_decode_windows=lane[1], demoted_blocks=lane[2],
+        pager_faults=lane[3], pager_pageins=lane[4],
+        lane_prefill_s=lane[5], lane_decode_s=lane[6],
+        leader_stage_s=lane[7], tp1=tp1,
+        peak_resident_pages=kp.peak_resident,
+        frames=dict(kinds),
+        rank_pagein_bytes=[x["kvpage_pagein_bytes"] for x in d],
+        rank_pagein_s=[x["kvpage_pagein_seconds"] for x in d],
+        rank_offload_bytes=[x["kv_offload_bytes"] for x in d],
+        rank_launches=[{"flash": x["flash_launches"],
+                        "paged": x["paged_launches"]} for x in d],
+        rank_dispatches=[{"prefill": x["prefill_dispatches"],
+                          "decode_steps": x["decode_steps"]} for x in d],
+        leader_launches={"flash": leader[0], "paged": leader[1]},
+        worst_margin_paged=max(margins(long_p, got_long)),
+        worst_margin_dense=max(margins(short_p, got_short)),
+        margin_limit_paged=KVPAGE_LOGIT_LIMIT)
+    emit({"phase": "tp", "step": "kvpage", "nvidia_smi": smi, **row})
+    chunks = -(-TP_KVPAGE_PROMPT // ENGINE_ARGS["prefill_chunk"])
+    if not (len(got_long) == len(got_short) == TP_KVPAGE_TOKENS
+            and lane[0] == chunks and lane[1] > 0 and lane[2] > 0
+            and kinds["kvpage_prefill"] == lane[0]
+            and kinds["kvpage_decode"] == lane[1]
+            and kinds["kv_offload"] > 0
+            and kp.peak_resident <= TP_ENGINE["kvpage_budget"]
+            and row["rank_pagein_bytes"][0] == row["rank_pagein_bytes"][1]
+            > 0
+            and _launch_check(d, L, [x["prefill_dispatches"] for x in d],
+                              [x["decode_steps"] for x in d])
+            and all(x["prefill_dispatches"] > 0 and x["decode_steps"] > 0
+                    for x in d)
+            and leader == (d[0]["flash_launches"], d[0]["paged_launches"])
+            and row["worst_margin_paged"] <= KVPAGE_LOGIT_LIMIT
+            and row["worst_margin_dense"] <= TP_MARGIN_LIMIT):
+        raise AssertionError(f"tp kvpage: {row}")
+    return row
+
+
+def _mm_stream_logits(torch, core, bi, tokens):
+    """The teacher-forced logits of an image request's greedy stream on a
+    tp=1 VLM core: the prompt and ``tokens[:-1]`` in one dense forward,
+    the tower's soft tokens over the image positions and the same-image
+    or-mask; row i is what chooses ``tokens[i]``. f32."""
+    import numpy as np
+
+    from dynamo_tpu_torch.device import to_device
+    from dynamo_tpu_torch.models import llama
+
+    m, dev, page = core.cfg.model, core.device, core.page_size
+    prompt = list(bi.token_ids)
+    spans, soft, _ = core._prepare_mm(bi, prompt)
+    full = prompt + list(tokens[:-1])
+    S = len(full)
+    sp = np.zeros(S, np.int32)
+    sp[:len(spans)] = spans
+    mask = to_device(sp > 0, dev)
+    vals = torch.zeros((S, m.hidden_size), dtype=m.dtype, device=dev)
+    vals[mask] = soft.to(m.dtype)
+    n_pages = -(-S // page) + 1
+    shape = (m.num_layers, m.num_kv_heads, n_pages, page, m.head_dim)
+    kp = torch.zeros(shape, dtype=m.dtype, device=dev)
+    vp = torch.zeros(shape, dtype=m.dtype, device=dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    span = to_device(sp, dev)[None]
+    with torch.no_grad():
+        lg, _, _ = llama.forward(
+            core.params, m, to_device(np.asarray(full), dev)[None], pos, kp,
+            vp, page + pos.long(), page + pos.long(), pos,
+            torch.ones((1, S), dtype=torch.bool, device=dev),
+            attn_impl="dense", embed_override=(vals[None], mask[None]),
+            attn_spans=(span, span))
+    return lg[0, len(prompt) - 1:].float()
+
+
+def _top_margins(torch, lg, stream) -> list:
+    idx = torch.arange(len(stream), device=lg.device)
+    chosen = lg[idx, torch.tensor(stream, device=lg.device)]
+    return (lg.max(-1).values - chosen).tolist()
+
+
+def _write_config(name: str, cfg: dict) -> str:
+    """A model directory holding only ``config.json``: the ranks build
+    the model it names from the engine's seed."""
+    d = os.path.join(ROOT, "build", "dynamo_tpu_torch", name)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    return d
+
+
+def tp_vlm_step(torch, att, smi: str) -> dict:
+    """(e) Gemma3-4B-it (full width and depth, random bf16 weights from
+    the seed, the SigLIP tower from seed + 1) at tp=2, both ranks on this
+    card over gloo, built as ``cli.run --tensor-parallel-size 2`` builds
+    it (``cli.worker.tp_engine``): the tower and projector are the
+    leader's, unsharded; an image wave's ``prefill`` frame carries ``mm``
+    and the soft-token rows it reads, and each rank runs it on the dense
+    path at its 4 query and 2 kv heads; text waves run flash and decode
+    paged there. A PNG image request (decoded by the frontend's decoder)
+    and a text request, one after the other; each stream within
+    TP_MARGIN_LIMIT of a tp=1 engine's teacher-forced top logit on the
+    same seeds; both kernels' launches on each rank; the follower exits
+    0 and the card's free bytes come back."""
+    import numpy as np
+
+    from dynamo_tpu_torch.cli.worker import tp_engine
+    from dynamo_tpu_torch.engine.engine import EngineCore, TorchEngineConfig
+    from dynamo_tpu_torch.llm import _png
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.protocols.common import (BackendInput,
+                                                       StopConditions)
+
+    path = _write_config("tp_vlm", GEMMA3_4B_HF)
+    card = ModelDeploymentCard.resolve(path, "gemma3-4b-it")
+    card.kv_block_size = VLM_ENGINE["page_size"]
+    extra = dict(VLM_ENGINE, device=DEVICE)
+    m_img = GEMMA3_4B_HF["image_token_index"]
+    n_soft = GEMMA3_4B_HF["mm_tokens_per_image"]
+    # text ids below the image token and the vocab
+    hi = min(30000, m_img, TorchEngineConfig.from_card(
+        card, **extra).model.vocab_size)
+    rng = np.random.default_rng(TP_SEED + 3)
+    png = _png.encode(test_image(5, 480, 640))
+    pixels = _png.decode(png)
+    head = rng.integers(2, hi, 12).tolist()
+    tail = rng.integers(2, hi, 20).tolist()
+    reqs = [BackendInput(token_ids=head + [m_img] * n_soft + tail,
+                         images=[pixels], stop=StopConditions(
+                             max_tokens=TP_VLM_TOKENS, ignore_eos=True)),
+            BackendInput(token_ids=rng.integers(2, hi, 40).tolist(),
+                         stop=StopConditions(max_tokens=TP_VLM_TOKENS,
+                                             ignore_eos=True))]
+
+    async def serve(eng):
+        # one after the other: served together, both prompts would ride
+        # the image wave (a dense dispatch) and the text one no flash wave
+        from dynamo_tpu_torch.runtime.engine import Context
+
+        out = []
+        for bi in reqs:
+            ids = []
+            async for o in eng.generate(bi, Context()):
+                ids += o.token_ids
+            out.append(ids)
+        return out
+
+    free0 = _card_free(torch)
+    t0 = time.perf_counter()
+    eng = tp_engine(_tp_layout(), card, extra, model_path=path,
+                    kv_block_size=card.kv_block_size)
+    try:
+        init_s = time.perf_counter() - t0
+        core = eng.core
+        m = core.cfg.model
+        L = m.num_layers
+        ranks = eng.plane.ranks
+        if not (core.tp == 2 and core.vision_params is not None
+                and core.k_pool.shape[1] == m.num_kv_heads // 2):
+            raise AssertionError(f"tp vlm engine: {tuple(core.k_pool.shape)}")
+        att.flash_attention.launches = 0
+        att.paged_attention.launches = 0
+        st0 = _settled_rank_stats(core)
+        base = (core.image_waves, core.images_encoded)
+        t0 = time.perf_counter()
+        got = _run(serve(eng))
+        serve_s = time.perf_counter() - t0
+        st1 = _settled_rank_stats(core)
+        leader = (att.flash_attention.launches, att.paged_attention.launches)
+        waves = core.image_waves - base[0]
+        images = core.images_encoded - base[1]
+    finally:
+        eng.shutdown()
+    follower_rc = [p.returncode for p in ranks.procs]
+    eng = core = None
+    free1 = _card_free(torch)
+    d = _rank_delta(st0, st1)
+    # the tp=1 reference: the same seeds, the whole weights
+    ref = EngineCore(TorchEngineConfig.from_card(card, **dict(
+        extra, max_batch=1)))
+    try:
+        margins = [
+            _top_margins(torch, _mm_stream_logits(torch, ref, reqs[0],
+                                                  got[0]), got[0]),
+            _top_margins(torch, _stream_logits(torch, ref,
+                                               reqs[1].token_ids, got[1]),
+                         got[1])]
+    finally:
+        ref.close()
+        ref.release_device()
+        del ref
+    free2 = _card_free(torch)
+    row = dict(
+        model="gemma3-4b-it", init_s=init_s, serve_s=serve_s,
+        image_prompt_tokens=len(reqs[0].token_ids),
+        png_bytes=len(png), image_waves=waves, images_encoded=images,
+        rank_launches=[{"flash": x["flash_launches"],
+                        "paged": x["paged_launches"]} for x in d],
+        rank_dispatches=[{"prefill": x["prefill_dispatches"],
+                          "decode_steps": x["decode_steps"]} for x in d],
+        leader_launches={"flash": leader[0], "paged": leader[1]},
+        rank_weight_bytes=[x["weight_bytes"] for x in st1],
+        follower_exit_codes=follower_rc, streams=got,
+        worst_margin=[max(x) for x in margins],
+        margin_limit=TP_MARGIN_LIMIT,
+        free_before=free0, free_after=free1, free_after_ref=free2)
+    emit({"phase": "tp", "step": "vlm", "nvidia_smi": smi, **row})
+    if not (all(len(g) == TP_VLM_TOKENS for g in got)
+            and waves > 0 and images == 1
+            and _launch_check(d, L, [x["prefill_dispatches"] - waves
+                                     for x in d],
+                              [x["decode_steps"] for x in d])
+            and all(x["prefill_dispatches"] > waves and x["decode_steps"]
+                    for x in d)
+            and leader == (d[0]["flash_launches"], d[0]["paged_launches"])
+            and follower_rc == [0]
+            and free1 >= free0 - TP_FREE_SLACK
+            and max(row["worst_margin"]) <= TP_MARGIN_LIMIT):
+        raise AssertionError(f"tp vlm: {row}")
+    return dict(row, flash_launches=leader[0], paged_launches=leader[1])
+
+
+def tp_swap_step(torch, att, smi: str) -> dict:
+    """(f) Weight swaps at tp=2: a pair of Llama-3-8B width cut to
+    TP_SWAP_LAYERS layers (seeded, from a config-only directory) with a
+    host tier swaps A -> B -> A in place: each sibling's cut drawn by
+    every rank into its own host cache (``swap_prefetch`` frames), a
+    shape-mismatch refusal that sends no frame and keeps A, then per swap
+    a ``swap_check`` frame (every rank's cut resident, one all-reduce) and
+    a ``swap`` frame (every rank overwrites its shard where it lies).
+    Then one cold reload to B (``cli.worker.reload_engine``, the
+    worker's typed fallback): the pair's ``shutdown`` frame, its follower
+    exits 0, and a new rank group serves B. Every stream within
+    TP_MARGIN_LIMIT of a tp=1 engine's teacher-forced top logit on its
+    seed; each rank's swap bytes and seconds; both kernels' launches on
+    each rank."""
+    import dataclasses
+    import types
+
+    import numpy as np
+
+    from dynamo_tpu_torch.cli.worker import (group_starter, reload_engine,
+                                             tp_engine)
+    from dynamo_tpu_torch.fleet.mobility import SwapError
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models import llama
+
+    hf = dict(CKPT_HF, num_hidden_layers=TP_SWAP_LAYERS,
+              architectures=["LlamaForCausalLM"], model_type="llama")
+    path = _write_config("tp_swap", hf)
+    card = ModelDeploymentCard.resolve(path, "llama3-8b-4l")
+    card.kv_block_size = ENGINE_ARGS["page_size"]
+    extra = {k: v for k, v in ENGINE_ARGS.items() if k != "preset"}
+    extra.update(host_cache_blocks=32, device=DEVICE)
+    prompt = np.random.default_rng(TP_SEED + 4).integers(
+        1, hf["vocab_size"], TP_SWAP_PROMPT).tolist()
+
+    def greedy(eng):
+        return _run(_greedy_streams(eng, [prompt], TP_SWAP_TOKENS))[0]
+
+    free0 = _card_free(torch)
+    t0 = time.perf_counter()
+    eng = tp_engine(_tp_layout(), card, extra, model_path=path,
+                    kv_block_size=card.kv_block_size)
+    new = None
+    streams, outs = {}, {}
+    try:
+        init_s = time.perf_counter() - t0
+        core = eng.core
+        L = core.cfg.model.num_layers
+        old_ranks = eng.plane.ranks
+        cfg_a = dataclasses.replace(core.cfg, tp=1, mesh=None,
+                                    params_path=None)
+        cfg_b = dataclasses.replace(cfg_a, seed=TP_SWAP_SEED)
+        kinds = _counted_kinds(core)
+        ptrs = {k: v.data_ptr() for k, v in core.params["layers"].items()}
+        att.flash_attention.launches = 0
+        att.paged_attention.launches = 0
+        st0 = _settled_rank_stats(core)
+        streams["a"] = greedy(eng)
+        eng.prefetch_shards(cfg_b)      # every rank stages B's cut
+        sent = sum(kinds.values())
+        try:
+            _run(eng.swap_weights(None, dataclasses.replace(
+                cfg_b, max_batch=2 * cfg_b.max_batch)))
+            refused = None
+        except SwapError as e:
+            refused = e.reason
+        refused_frames = {k: v for k, v in kinds.items()
+                          if k in ("swap_check", "swap")}
+        streams["a_after_refusal"] = greedy(eng)
+        for name, cfg in (("b", cfg_b), ("a_again", cfg_a)):
+            if name == "a_again":
+                eng.prefetch_shards(cfg_a)
+            t1 = time.perf_counter()
+            out = _run(eng.swap_weights(None, cfg))
+            outs[name] = dict(out.to_dict(), wall_s=time.perf_counter() - t1)
+            streams[name] = greedy(eng)
+        st1 = _settled_rank_stats(core)
+        leader = (att.flash_attention.launches, att.paged_attention.launches)
+        in_place = ptrs == {k: v.data_ptr()
+                            for k, v in core.params["layers"].items()}
+        shard = [x["weight_bytes"] for x in st1]
+        core.dispatch_hook = eng.plane.publisher.hook
+        # the cold reload: the pair ends, a new group starts on B
+        t1 = time.perf_counter()
+        new = reload_engine(eng, dataclasses.replace(cfg_b,
+                                                     params_path=path),
+                            group_starter(_tp_layout(),
+                                          kv_block_size=card.kv_block_size,
+                                          engine_args=json.dumps(extra)))
+        reload_s = time.perf_counter() - t1
+        old_rc = [p.returncode for p in old_ranks.procs]
+        streams["reload_b"] = greedy(new)
+        new_ranks = new.plane.ranks
+    finally:
+        if new is not None:
+            new.shutdown()
+        eng.shutdown()
+    new_rc = [p.returncode for p in new_ranks.procs]
+    eng = new = core = None
+    free1 = _card_free(torch)
+    d = _rank_delta(st0, st1)
+    margins = {}
+    for seed, names in ((cfg_a.seed, ("a", "a_after_refusal", "a_again")),
+                        (TP_SWAP_SEED, ("b", "reload_b"))):
+        ref = types.SimpleNamespace(params=llama.init_params(
+            cfg_a.model, torch.Generator(device=DEVICE).manual_seed(seed),
+            torch.device(DEVICE)), device=torch.device(DEVICE),
+            page_size=cfg_a.page_size, cfg=cfg_a)
+        for n in names:
+            margins[n] = max(_top_margins(torch, _stream_logits(
+                torch, ref, prompt, streams[n]), streams[n]))
+        del ref
+    free2 = _card_free(torch)
+    row = dict(
+        layers=L, reduced=f"depth 32 -> {L}", init_s=init_s,
+        refused=refused,
+        refused_frames=refused_frames, frames_before_refusal=sent,
+        swaps=outs, in_place=in_place, reload_s=reload_s,
+        rank_swap_bytes=[x["swap_bytes"] for x in d],
+        rank_swap_s=[x["swap_seconds"] for x in d],
+        rank_shard_bytes=shard,
+        rank_launches=[{"flash": x["flash_launches"],
+                        "paged": x["paged_launches"]} for x in d],
+        rank_dispatches=[{"prefill": x["prefill_dispatches"],
+                          "decode_steps": x["decode_steps"]} for x in d],
+        leader_launches={"flash": leader[0], "paged": leader[1]},
+        frames={k: v for k, v in kinds.items() if k.startswith("swap")},
+        follower_exit_codes={"pair": old_rc, "reloaded": new_rc},
+        streams_differ=streams["a"] != streams["b"],
+        worst_margin=margins, margin_limit=TP_MARGIN_LIMIT,
+        free_before=free0, free_after=free1, free_after_refs=free2)
+    emit({"phase": "tp", "step": "swap", "nvidia_smi": smi, **row})
+    if not (refused == "shape_mismatch" and not refused_frames
+            and in_place and row["streams_differ"]
+            and all(len(v) == TP_SWAP_TOKENS for v in streams.values())
+            and row["frames"] == {"swap_prefetch": 2, "swap_check": 2,
+                                  "swap": 2}
+            and row["rank_swap_bytes"] == [2 * x for x in shard]
+            and all(s > 0 for s in row["rank_swap_s"])
+            and _launch_check(d, L, [x["prefill_dispatches"] for x in d],
+                              [x["decode_steps"] for x in d])
+            and all(x["prefill_dispatches"] and x["decode_steps"]
+                    for x in d)
+            and leader == (d[0]["flash_launches"], d[0]["paged_launches"])
+            and old_rc == [0] and new_rc == [0]
+            and free1 >= free0 - TP_FREE_SLACK
+            and max(margins.values()) <= TP_MARGIN_LIMIT):
+        raise AssertionError(f"tp swap: {row}")
+    return dict(row, flash_launches=leader[0], paged_launches=leader[1])
+
+
 def tp_kill_step(torch, engine_args: dict) -> dict:
     """``cli.run --tensor-parallel-size 2`` as a process of its own: it
     serves, its follower is SIGKILLed, the leader must exit non-zero
@@ -7587,7 +8090,8 @@ def tp_phase(torch, att, smi: str, params) -> dict:
     """Tensor parallelism on one card: ``cli.run in=http out=torch
     --tensor-parallel-size 2`` serving Llama-3-8B (full width and depth,
     random bf16 weights from the seed, the serve phase's engine arguments
-    as given: prefix reuse on and a 128-block host tier), both ranks on
+    with a paging lane: prefix reuse on, a 128-block host tier and the
+    kvpage phase's 20-page lane, ``TP_ENGINE``), both ranks on
     cuda:0 over gloo: the leader in this process, its follower a
     ``cli.worker`` process replaying its dispatch frames. NCCL would
     refuse two ranks on one GPU; NCCL across two cards is not run here.
@@ -7603,11 +8107,16 @@ def tp_phase(torch, att, smi: str, params) -> dict:
     sums the ranks' partial products in another order than one card, so
     token identity is not the bar). Each rank's weight bytes and peak
     memory; the follower exits 0 at the leader's orderly shutdown. On the
-    same pair :func:`tp_restore_step` (a host-tier restore) and
-    :func:`tp_disagg_step` (disagg both ways with tp=1); then
-    :func:`tp_spec_step` (n-gram spec on a second pair) and
-    :func:`tp_kill_step`. Both ranks time-slice one card: no tokens/s of
-    this phase says anything about tensor parallelism."""
+    same pair :func:`tp_restore_step` (a host-tier restore),
+    :func:`tp_disagg_step` (disagg both ways with tp=1) and
+    :func:`tp_kvpage_step` (a 4096-token prompt through the paging lane);
+    then :func:`tp_spec_step` (n-gram spec on a second pair),
+    :func:`tp_vlm_step` (Gemma3-4B image and text requests on a third),
+    :func:`tp_swap_step` (hot swaps and a cold reload on a fourth, depth
+    cut) and :func:`tp_kill_step`. Each pair's follower exits 0 and the
+    card's memory comes back before the next starts. Both ranks
+    time-slice one card: no tokens/s of this phase says anything about
+    tensor parallelism."""
     import asyncio
     import types
 
@@ -7648,12 +8157,13 @@ def tp_phase(torch, att, smi: str, params) -> dict:
         return (lg.max(-1).values - chosen).tolist()
 
     with served(["--model-name", PRESET, *TP_ARGS, "--extra-engine-args",
-                 json.dumps(ENGINE_ARGS)]) as (eng, loop, port, _, init_s,
-                                               _m):
+                 json.dumps(TP_ENGINE)]) as (eng, loop, port, _, init_s,
+                                             _m):
         core = eng.core
         if core.tp != 2 or core.k_pool.shape[1] \
                 != core.cfg.model.num_kv_heads // 2 \
-                or not core.enable_prefix_reuse or core.tiered is None:
+                or not core.enable_prefix_reuse or core.tiered is None \
+                or core.kvpager is None:
             raise AssertionError(f"tp engine: tp={core.tp}, pool "
                                  f"{tuple(core.k_pool.shape)}")
         ranks = eng.plane.ranks
@@ -7671,6 +8181,8 @@ def tp_phase(torch, att, smi: str, params) -> dict:
         counters = engine_counters(core, 0)
         restore = tp_restore_step(core, eng, loop, margins, smi)
         disagg = tp_disagg_step(torch, core, eng, loop, params, margins, smi)
+        kvpage = tp_kvpage_step(torch, att, core, eng, loop, params,
+                                margins, smi)
     follower_rc = [p.returncode for p in ranks.procs]
     # the leader's engine is shut down: let its tensors go before the kill
     # step measures the card's free bytes
@@ -7719,8 +8231,12 @@ def tp_phase(torch, att, smi: str, params) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    row.update(restore=restore, disagg=disagg,
+    row.update(restore=restore, disagg=disagg, kvpage=kvpage,
                spec=tp_spec_step(torch, att, margins, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["vlm"] = tp_vlm_step(torch, att, smi)
+    row["swap"] = tp_swap_step(torch, att, smi)
     row["kill"] = tp_kill_step(torch, ENGINE_ARGS)
     row["phase_s"] = time.perf_counter() - t_phase
     emit({"phase": "tp", "step": "summary", "phase_s": row["phase_s"]})
@@ -7819,6 +8335,13 @@ def main() -> int:
     flash_tp = flash_case(torch, att, "llama3-8b-tp2-rank",
                           *flash_inputs(torch, 2, 512, 1024, 16, 4, 128))
     paged_tp = paged_case(torch, att, "llama3-8b-tp2-rank", Hq=16, Hkv=4)
+    # one tp=2 rank's heads at Gemma3-4B: Hq 8/2, Hkv 4/2 at Dh 256 (the tp
+    # phase's vlm step)
+    flash_vlm_tp = flash_case(torch, att, "gemma3-4b-tp2-rank",
+                              *flash_inputs(torch, 2, 512, 2048, 4, 2, 256),
+                              scale=1 / 16.0, window=1024)
+    paged_vlm_tp = paged_case(torch, att, "gemma3-4b-tp2-rank", window=1024,
+                              Hq=4, Hkv=2, Dh=256)
 
     serve, _, params = serve_phase(torch, att, smi)
     default = serve_default_phase(torch, att, smi)
@@ -7966,6 +8489,10 @@ def main() -> int:
              launches=tp["flash_launches"],
              rank_launches=[r["flash"] for r in tp["rank_launches"]],
              spec_rank_launches=tp["spec_rank_flash"],
+             kvpage_rank_launches=[r["flash"] for r in
+                                   tp["kvpage"]["rank_launches"]],
+             swap_rank_launches=[r["flash"] for r in
+                                 tp["swap"]["rank_launches"]],
              max_abs_err=flash_tp["max_abs_err"], ms=flash_tp["ms"],
              plain_ms=flash_tp["plain_ms"], bound_ms=flash_tp["bound_ms"],
              bound_by=flash_tp["bound_by"],
@@ -7977,11 +8504,40 @@ def main() -> int:
              also_replaces="dynamo_tpu/ops/attention.py:552",
              launches=tp["paged_launches"],
              rank_launches=[r["paged"] for r in tp["rank_launches"]],
+             kvpage_rank_launches=[r["paged"] for r in
+                                   tp["kvpage"]["rank_launches"]],
+             swap_rank_launches=[r["paged"] for r in
+                                 tp["swap"]["rank_launches"]],
              splits=paged_tp["splits"],
              max_abs_err=paged_tp["max_abs_err"], ms=paged_tp["ms"],
              plain_ms=paged_tp["plain_ms"], bound_ms=paged_tp["bound_ms"],
              bound_by=paged_tp["bound_by"],
              bound_frac=paged_tp["bound_frac"], library_ms=None),
+        # one tp=2 rank's Dh=256 instances (Gemma3-4B, Hq=4, Hkv=2): the tp
+        # phase's vlm step (text waves and decode; image waves are dense)
+        dict(name="flash_attention_gemma3_tp2_rank", route="cuda",
+             source=src + "flash_attention.cu",
+             replaces="dynamo_tpu/ops/attention.py:166",
+             launches=tp["vlm"]["flash_launches"],
+             rank_launches=[r["flash"] for r in tp["vlm"]["rank_launches"]],
+             max_abs_err=flash_vlm_tp["max_abs_err"], ms=flash_vlm_tp["ms"],
+             plain_ms=flash_vlm_tp["plain_ms"],
+             bound_ms=flash_vlm_tp["bound_ms"],
+             bound_by=flash_vlm_tp["bound_by"],
+             bound_frac=flash_vlm_tp["bound_frac"],
+             library_ms=flash_vlm_tp["library_ms"]),
+        dict(name="paged_attention_gemma3_tp2_rank", route="cuda",
+             source=src + "paged_attention.cu",
+             replaces="dynamo_tpu/ops/attention.py:400",
+             also_replaces="dynamo_tpu/ops/attention.py:552",
+             launches=tp["vlm"]["paged_launches"],
+             rank_launches=[r["paged"] for r in tp["vlm"]["rank_launches"]],
+             splits=paged_vlm_tp["splits"],
+             max_abs_err=paged_vlm_tp["max_abs_err"],
+             ms=paged_vlm_tp["ms"], plain_ms=paged_vlm_tp["plain_ms"],
+             bound_ms=paged_vlm_tp["bound_ms"],
+             bound_by=paged_vlm_tp["bound_by"],
+             bound_frac=paged_vlm_tp["bound_frac"], library_ms=None),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

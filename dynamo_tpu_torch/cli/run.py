@@ -145,6 +145,7 @@ def make_engines(args, card: ModelDeploymentCard):
             core = TorchEngine(cfg)
         else:
             core = _tp_engine(args, card, extra)
+            vlm_card_wiring(card, core.core.cfg.model)
         return (build_chat_engine(card, "core", core),
                 build_completion_engine(card, "core", core), core)
     if out.startswith(("pystr:", "pytok:")):

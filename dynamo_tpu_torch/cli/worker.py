@@ -29,7 +29,7 @@ The engine is built before the worker connects to the store, so no
 liveness lease exists while the bring-up holds the process (see
 :func:`build_engine`).
 
-On the simple serving path (no disagg, no cluster KV) a
+On the simple serving path (no disagg, no cluster KV, one node) a
 :class:`~..fleet.mobility.MobilityAgent` follows the fleet's
 ``mobility/`` commands, as the JAX worker's does: it stages prefetch-hinted
 sibling checkpoints into a host weight cache (pinned on a card), and a swap
@@ -37,7 +37,9 @@ command drains the worker, overwrites its weights in place
 (``TorchEngine.swap_weights``) and re-registers it under the sibling's
 component — or, on a typed refusal, rebuilds the engine cold after freeing
 the old one's device memory. Either way the rebuild runs while the worker
-holds no lease.
+holds no lease. A tensor-parallel worker swaps each rank's own shard, and
+its cold reload ends the rank group and starts a new one on the new
+model (:func:`reload_engine`).
 
 With ``--tp N`` the worker is tensor-parallel over N ranks, one process a
 rank (``parallel/``, the JAX multi-host worker's model): this process is
@@ -50,11 +52,12 @@ nothing: it runs its ranks as followers of the leader at
 may repeat: ranks then share it over ``--dist-backend gloo``; NCCL refuses
 two ranks on one GPU). A one-node tp worker keeps prefix reuse, the host
 and disk tiers, ``--enable-disagg``, ``DYN_KV_CLUSTER`` and speculative
-decoding: the leader plans, and each KV copy is a frame its followers
-replay, the bytes moving through a host collective (``engine/engine.py``).
-Across nodes (``--num-nodes`` above 1) prefix reuse and the tiers are off,
-as the JAX multi-host worker sets them. KV paging, image models and
-weight swaps are refused at tp > 1, naming ROADMAP Queue 1 item 11c.
+decoding, the KV paging lane, image models and model mobility: the
+leader plans, and each device change is a frame its followers replay, the
+bytes moving through a host collective (``engine/engine.py``). Across
+nodes (``--num-nodes`` above 1) prefix reuse and the tiers are off, and
+the worker runs no mobility agent, as the JAX multi-host worker sets
+them.
 
 Not ported yet, and refused at start instead of ignored: ``--num-nodes``
 above 1 with ranks that are not tp ranks (pp, sp, ep across nodes: ROADMAP
@@ -300,6 +303,53 @@ def tp_engine(layout: RankLayout, card: ModelDeploymentCard, extra: dict, *,
         raise
 
 
+def group_starter(layout: RankLayout, *, kv_block_size: int = 64,
+                  engine_args: Optional[str] = None):
+    """The ``start_plane`` of :func:`reload_engine` for ``layout``'s ranks
+    on one node: a new group on a fresh rendezvous and dispatch channel,
+    whose followers build the model of ``cfg`` (its checkpoint, else its
+    seed) on ``engine_args`` at the leader's resolved context."""
+    import dataclasses
+
+    def start(cfg):
+        fresh = dataclasses.replace(layout, coordinator=None,
+                                    dispatch_port=None)
+        extra = json.loads(engine_args) if engine_args else {}
+        return start_ranks(fresh, model_path=cfg.params_path,
+                           kv_block_size=kv_block_size,
+                           engine_args=json.dumps(dict(
+                               extra, max_context=cfg.max_context,
+                               seed=cfg.seed)))
+    return start
+
+
+def reload_engine(old, new_cfg, start_plane=None):
+    """The cold reload (a refused swap's fallback): shut ``old`` down and
+    give its device memory back first (two 8B engines plus their KV do not
+    fit one card with headroom), then build the engine of ``new_cfg``. A
+    tensor-parallel ``old`` sends its followers the ``shutdown`` frame and
+    waits for them to exit; ``start_plane(new_cfg)`` then starts the new
+    rank group (:func:`start_ranks`) whose mesh the new leader takes."""
+    import dataclasses
+
+    from ..engine.engine import TorchEngine
+
+    try:
+        old.shutdown()
+    except Exception:  # noqa: BLE001 - the reload must go on
+        log.exception("engine shutdown during reload")
+    old.core.release_device()
+    if start_plane is None:
+        return TorchEngine(new_cfg)
+    plane = start_plane(new_cfg)
+    try:
+        return TorchEngine(dataclasses.replace(
+            new_cfg, tp=plane.mesh.tp, mesh=plane.mesh), plane=plane)
+    except BaseException:
+        plane.close()
+        raise
+
+
 def _build_card(args) -> ModelDeploymentCard:
     if args.model_path:
         card = ModelDeploymentCard.resolve(args.model_path, args.model_name)
@@ -375,7 +425,10 @@ def run_follower(args) -> None:
     log.info("tp rank %d/%d on %s: following the leader at %s:%d",
              layout.rank, layout.tp, mesh.device, leader_host,
              layout.channel_port())
-    FollowerLoop(core, leader_host, layout.channel_port()).run()
+    try:
+        FollowerLoop(core, leader_host, layout.channel_port()).run()
+    finally:
+        core.close()
     if ranks is not None:
         ranks.close()
 
@@ -558,7 +611,8 @@ def engine_counters(core, worker_id: int) -> dict:
     mirrors' blocks, bytes, seconds and host enqueue seconds
     (``dyn_kv_writethrough_*_total``). A tensor-parallel worker adds each
     follower rank's dispatches, launches and peak memory, and every
-    rank's weight bytes (``dyn_weight_bytes``), from the counters the
+    rank's weight bytes (``dyn_weight_bytes``) and swap bytes and
+    seconds, from the counters the
     leader last gathered (``EngineCore.rank_stats``), under the worker
     label ``{worker}/rank{r}``.
     Port-only series: the JAX worker publishes none of them."""
@@ -589,9 +643,18 @@ def engine_counters(core, worker_id: int) -> dict:
     if core.tp > 1:
         w = r.gauge("dyn_weight_bytes", "Weight bytes on this rank's device",
                     ("worker",))
+        rank_counters = [
+            (r.counter("dyn_weight_swap_bytes_total",
+                       "Weight bytes this rank overwrote in hot swaps",
+                       ("worker",)), "swap_bytes"),
+            (r.counter("dyn_weight_swap_seconds_total",
+                       "Seconds of this rank's swap streams, each to its "
+                       "barrier", ("worker",)), "swap_seconds")]
         for rank, st in enumerate(core.rank_stats):
-            w.set(wid if rank == 0 else f"{wid}/rank{rank}",
-                  value=st["weight_bytes"])
+            label = wid if rank == 0 else f"{wid}/rank{rank}"
+            w.set(label, value=st["weight_bytes"])
+            for c, key in rank_counters:
+                c.inc(label, amount=st[key])
     if core.cfg.cluster_writethrough:
         r.counter("dyn_kv_writethrough_blocks_total",
                   "Sealed blocks mirrored to the host tier (cluster "
@@ -706,10 +769,10 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
         await endpoint.serve(await _disagg_handler(args, drt, component,
                                                    engine, gate, cluster))
     else:
-        # model mobility (simple path only: no disagg/cluster — those
-        # keep the plain cold-spawn wake): handlers stream through an
-        # EngineRef so a cold-reload fallback can rebind the engine
-        if core is not None and cluster is None:
+        # model mobility (simple path only: no disagg/cluster/multi-node —
+        # those keep the plain cold-spawn wake): handlers stream through
+        # an EngineRef so a cold-reload fallback can rebind the engine
+        if core is not None and cluster is None and args.num_nodes == 1:
             from ..fleet.mobility import EngineRef
 
             engine_ref = EngineRef(engine)
@@ -738,12 +801,7 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
     # --- model mobility agent (simple path only) ---------------------
     mobility = None
     stopped = asyncio.Event()     # set when a failed swap ends the worker
-    if engine_ref is not None and core.tp > 1:
-        # a swap or a cold reload would rebuild the leader alone
-        log.warning("model mobility off at tp=%d: weight swaps are not "
-                    "mirrored across tensor-parallel ranks yet (ROADMAP "
-                    "Queue 1 item 11c)", core.tp)
-    elif engine_ref is not None:
+    if engine_ref is not None:
         from ..fleet.mobility import MobilityAgent
 
         async def _reregister(payload):
@@ -784,26 +842,20 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
         async def _cold_reload(new_cfg):
             """Typed swap-fallback: rebuild the engine off-loop (the
             weight load can exceed the lease TTL; the agent drained, so
-            no lease is live) and re-attach the KV event hooks. The old
-            engine shuts down and gives its device memory back FIRST:
-            two 8B engines plus their KV do not fit one card with
-            headroom. The EngineRef rebinding is the agent's job."""
+            no lease is live) and re-attach the KV event hooks
+            (:func:`reload_engine`; at tp > 1 a new rank group on the
+            new model). The EngineRef rebinding is the agent's job."""
             nonlocal engine, core
-            from ..engine.engine import TorchEngine
-
             old = engine_ref.engine
             core = None           # the metrics beat reads no dead core
-
-            def _build():
-                try:
-                    old.shutdown()
-                except Exception:  # noqa: BLE001 - the reload must
-                    log.exception("engine shutdown during reload")
-                old.core.release_device()
-                return TorchEngine(new_cfg)
-
+            start_plane = None
+            if args.tp > 1:
+                start_plane = group_starter(
+                    RankLayout.of(args), kv_block_size=args.kv_block_size,
+                    engine_args=args.extra_engine_args)
             new_engine = await asyncio.get_running_loop(
-                ).run_in_executor(None, _build)
+                ).run_in_executor(None, reload_engine, old, new_cfg,
+                                  start_plane)
             engine = new_engine
             core = new_engine.core
             core.pool.on_block_sealed = pub.block_stored
@@ -865,36 +917,45 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
         else:
             await stopped.wait()
     finally:
-        drt.store.on_lease_lost = None
-        mtask.cancel()
-        await obs_handle.stop()
         try:
-            await span_sink.stop()
-        except Exception:
-            log.warning("span sink final flush failed; tail spans lost",
-                        exc_info=True)
-        await pub.stop()
-        # deregistration cleanup: drop the published metric snapshots so
-        # aggregators stop rendering a ghost worker when a shared runtime
-        # outlives this serve loop
-        from ..llm.metrics_aggregator import clear_worker_keys
+            drt.store.on_lease_lost = None
+            mtask.cancel()
+            await obs_handle.stop()
+            try:
+                await span_sink.stop()
+            except Exception:
+                log.warning("span sink final flush failed; tail spans "
+                            "lost", exc_info=True)
+            await pub.stop()
+            # deregistration cleanup: drop the published metric snapshots
+            # so aggregators stop rendering a ghost worker when a shared
+            # runtime outlives this serve loop (the Worker shell closed
+            # ours already at a signal: nothing is left to drop)
+            from ..llm.metrics_aggregator import clear_worker_keys
 
-        await clear_worker_keys(drt.store, args.namespace, args.component,
-                                drt.worker_id)
-        if cluster is not None:
             try:
-                await cluster.stop()   # cancel publisher, drop registry key
-            except Exception:
-                log.warning("kv-cluster detach failed", exc_info=True)
-        if mobility is not None:
-            mobility.cache.close()     # drop pinned host weight trees
-        if core is not None:
-            try:
-                engine.shutdown()   # joins the engine thread, clears gauges
-            except Exception:
-                log.exception("engine shutdown failed")
-        if own_drt:
-            await drt.close()
+                await clear_worker_keys(drt.store, args.namespace,
+                                        args.component, drt.worker_id)
+            except Exception:  # noqa: BLE001 - best-effort
+                log.debug("metric keys not cleared", exc_info=True)
+            if cluster is not None:
+                try:
+                    await cluster.stop()   # cancel publisher, drop registry
+                except Exception:
+                    log.warning("kv-cluster detach failed", exc_info=True)
+        finally:
+            # whatever failed above (a store call on the runtime the
+            # Worker shell closed ends cancelled), the engine shuts down:
+            # a tp leader's followers take its shutdown frame and exit 0
+            if mobility is not None:
+                mobility.cache.close()     # drop pinned host weight trees
+            if core is not None:
+                try:
+                    engine.shutdown()   # joins the engine thread, clears
+                except Exception:       # gauges
+                    log.exception("engine shutdown failed")
+            if own_drt:
+                await drt.close()
 
 
 def parse_args(argv=None) -> argparse.Namespace:

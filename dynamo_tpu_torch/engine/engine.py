@@ -100,8 +100,13 @@ Architecture:
   (``parallel.collectives.gather_heads``/``scatter_heads``), not through
   the frames, so host blocks, the disagg wire and the tiers hold all kv
   heads as at tp=1. The tiers and the proposer (an n-gram table or a draft
-  model, unsharded) are the leader's alone. What a program cannot mirror
-  yet raises at construction (``TP_GAP``).
+  model, unsharded) are the leader's alone. So are the KV paging lane's
+  plan and pager (its chunks and windows are ``kvpage_prefill`` and
+  ``kvpage_decode`` frames, each segment scattered to the ranks at its
+  upload step) and a VLM's tower (an image wave's frame carries the
+  soft-token rows it reads). A weight swap overwrites every rank's own
+  shard from its own host cut (``swap_prefetch``, ``swap_check``,
+  ``swap``).
 
 Not ported yet (the JAX engine has them): MoE checkpoints (neither
 package's loader maps expert tensors) and pp/sp/ep.
@@ -169,10 +174,8 @@ RANK_STATS = ("flash_launches", "paged_launches", "prefill_dispatches",
               "decode_dispatches", "decode_steps", "weight_bytes",
               "device_memory_peak_bytes", "spec_dispatches",
               "kv_restore_bytes", "kv_restore_seconds", "kv_offload_bytes",
-              "kv_offload_seconds")
-
-#: what a tensor-parallel engine cannot mirror on its followers yet
-TP_GAP = "not mirrored across tensor-parallel ranks yet (ROADMAP Queue 1 item 11c)"
+              "kv_offload_seconds", "kvpage_pagein_bytes",
+              "kvpage_pagein_seconds", "swap_bytes", "swap_seconds")
 
 #: why tp > 1 needs a mesh: there is no single-controller SPMD in PyTorch
 TP_NEEDS_RANKS = (
@@ -314,6 +317,9 @@ class _Slot:
     # tokens on the device, flattened to [n_images * mm_tokens, D]
     mm_spans: Optional[np.ndarray] = None
     mm_soft: Optional[torch.Tensor] = None
+    # at tp > 1 the leader's host copy of ``mm_soft`` (the model's host
+    # dtype): an image wave's frame carries the rows it reads
+    mm_host: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -519,6 +525,12 @@ class EngineCore:
         # and the host clock of each program, its collective included
         self.kv_restore_bytes = self.kv_offload_bytes = 0
         self.kv_restore_seconds = self.kv_offload_seconds = 0.0
+        # this rank's weight swaps: bytes overwritten, and the host clock
+        # of each swap (its barrier included)
+        self.swap_bytes = 0
+        self.swap_seconds = 0.0
+        # tp > 1: this rank's host cuts of sibling models (_shard_cache)
+        self._shards = None
 
         B = cfg.max_batch
         self.slots: List[Optional[_Slot]] = [None] * B
@@ -613,7 +625,9 @@ class EngineCore:
             why = PagedPrograms.validate(cfg)
             if why is not None:
                 raise ValueError(f"KV paging does not support {why}")
-            if self.tiered is None:
+            # the tier is the leader's: a follower's lane only runs the
+            # programs of the leader's frames
+            if cfg.host_cache_blocks <= 0:
                 raise ValueError("KV paging needs a host tier to demote "
                                  "into (set host_cache_blocks > 0)")
             if self.spec is not None:
@@ -638,6 +652,11 @@ class EngineCore:
         vcfg = siglip.SiglipVisionConfig.from_hf_config(m.vision,
                                                         dtype=m.dtype)
         self.vision_cfg = vcfg
+        self.vision_params = self.proj_params = None
+        if self.rank > 0:
+            # the tower and projector are the leader's, unsharded: a
+            # follower gets an image wave's soft tokens in its frame
+            return
         path = self.cfg.params_path
         if given is not None:
             self.vision_params, self.proj_params = given
@@ -721,10 +740,9 @@ class EngineCore:
 
     def _check_tp(self) -> None:
         """Construction checks of a tensor-parallel rank: the model shards
-        (heads, FFN), each rank's heads form an integral GQA group for the
-        kernels (there is no fallback path), and every option whose device
-        work the followers cannot mirror yet raises, naming its item."""
-        cfg, m = self.cfg, self.cfg.model
+        (heads, FFN) and each rank's heads form an integral GQA group for
+        the kernels (there is no fallback path)."""
+        m = self.cfg.model
         llama.validate_tp(m, self.tp)
         if not llama.kernel_tp_ok(m, self.tp):
             raise ValueError(
@@ -733,16 +751,6 @@ class EngineCore:
                 f"{llama.local_kv_heads(m, self.tp)} kv heads; the attention "
                 f"kernels have no layout for it")
         llama.kv_head_range(m, self.tp, self.rank)  # straddling groups raise
-        from ..llm.kvpage.runner import PagedConfig
-
-        refused = [
-            ("KV paging", PagedConfig.resolve(cfg) is not None),
-            ("image requests (a VLM model)", m.vision is not None),
-        ]
-        for what, on in refused:
-            if on:
-                raise NotImplementedError(f"tp={self.tp}: {what} is "
-                                          f"{TP_GAP}")
 
     def _check_ranks_agree(self) -> None:
         """Every rank must build the same engine, or its page tables and
@@ -797,10 +805,6 @@ class EngineCore:
         # request
         torch.cuda.synchronize(d)
 
-    def _refuse_at_tp(self, what: str) -> None:
-        if self.tp > 1:
-            raise NotImplementedError(f"tp={self.tp}: {what} is {TP_GAP}")
-
     # ------------------------------------------------------------------
     # public API (engine thread)
     # ------------------------------------------------------------------
@@ -812,6 +816,8 @@ class EngineCore:
             self.kvpager.close()
         if self.tiered is not None:
             self.tiered.close()
+        if self._shards is not None:
+            self._shards.close()
 
     def release_device(self) -> None:
         """Drop every device tensor this core holds — weights, KV pools,
@@ -934,9 +940,10 @@ class EngineCore:
             host.append(h)
         ev = torch.cuda.Event()
         ev.record()
-        # dynalint: ok(host-sync) disagg KV export (extract_kv,
-        # prefill_extract): one event wait for a whole batch of pinned copies,
-        # off the decode enqueue
+        # dynalint: ok(host-sync) one event wait for a whole batch of pinned
+        # copies, off the decode enqueue: disagg KV export (extract_kv,
+        # prefill_extract), a tp image request's soft tokens at admission, a
+        # sibling's seeded cut (swap prefetch)
         ev.synchronize()       # the pinned buffers are read after this
         return [to_host_array(h) for h in host]
 
@@ -1835,7 +1842,7 @@ class EngineCore:
             return "rejected"
         if not self.pool.can_admit(len(prompt) + 1):
             return "blocked"  # decode will free KV space eventually
-        mm_spans = mm_soft = None
+        mm_spans = mm_soft = mm_host = None
         # lora_id salts the block-hash chain: blocks computed under
         # different adapters never alias in reuse or in the router index
         chain_salt = getattr(req, "lora_id", 0)
@@ -1848,6 +1855,10 @@ class EngineCore:
                                       error_stage="engine_admission"))
                 return "rejected"
             mm_spans, mm_soft, img_digest = got
+            if self.tp > 1:
+                # once a request: the soft tokens' host copy its waves'
+                # frames carry
+                mm_host = self._to_host([mm_soft.to(self.cfg.model.dtype)])[0]
             # the same placeholder ids with different images never alias;
             # the frontend's salt, when set, is used verbatim so that the
             # router's overlap scoring hashes under the same salt
@@ -1855,7 +1866,8 @@ class EngineCore:
                           or (chain_salt ^ img_digest) & ((1 << 63) - 1))
         self.waiting.popleft()
         slot_idx = self.slots.index(None)
-        slot = _Slot(seq_id, req, prompt, mm_spans=mm_spans, mm_soft=mm_soft)
+        slot = _Slot(seq_id, req, prompt, mm_spans=mm_spans, mm_soft=mm_soft,
+                     mm_host=mm_host)
         self.slots[slot_idx] = slot
         self.by_seq[seq_id] = slot
         self.pool.create(seq_id, lora_id=chain_salt)
@@ -1982,8 +1994,29 @@ class EngineCore:
         t0 = time.perf_counter()
         d = self.device
         idx = [w[0] for w in work]
-        mm_kw: Dict[str, Any] = {}
-        if image_wave:
+        mm_kw: Optional[Dict[str, Any]] = None
+        arrs = {"tokens": tokens, "positions": positions,
+                "write_idx": write_idx, "read_idx": read_idx,
+                "read_pos": read_pos, "read_valid": read_valid,
+                "last_i": last_i, "temp": self.temperature[idx],
+                "top_p": self.top_p[idx], "top_k": self.top_k[idx],
+                "uniforms": uniforms}
+        if image_wave and self.tp > 1:
+            # JAX's four arrays, with ov_vals compact: only the soft-token
+            # rows the wave reads (ov_rows indexes them), not a dense
+            # [Bp, C, hidden] buffer
+            parts, at = [], 0
+            for lane, w in enumerate(work):
+                if w[1].mm_spans is None:
+                    continue
+                hit = ov_mask[lane]
+                parts.append(w[1].mm_host[ov_rows[lane][hit]])
+                ov_rows[lane][hit] = at + np.arange(int(hit.sum()))
+                ov_rows[lane][~hit] = 0
+                at += int(hit.sum())
+            arrs.update(ov_vals=np.concatenate(parts), ov_rows=ov_rows,
+                        ov_mask=ov_mask, q_span=q_span, read_span=read_span)
+        elif image_wave:
             ov_vals = torch.zeros((Bp, C, cfg.model.hidden_size),
                                   dtype=cfg.model.dtype, device=d)
             for lane, w in enumerate(work):
@@ -1993,19 +2026,11 @@ class EngineCore:
             mm_kw = dict(embed_override=(ov_vals, mask_d),
                          attn_spans=(to_device(q_span, d),
                                      to_device(read_span, d)))
-            self.image_waves += 1
-        arrs = {"tokens": tokens, "positions": positions,
-                "write_idx": write_idx, "read_idx": read_idx,
-                "read_pos": read_pos, "read_valid": read_valid,
-                "last_i": last_i, "temp": self.temperature[idx],
-                "top_p": self.top_p[idx], "top_k": self.top_k[idx],
-                "uniforms": uniforms}
-        # image waves never reach a tp > 1 leader (refused at
-        # construction): their device inputs are the leader's own
+        self.image_waves += image_wave
         with self._framed("prefill", {
                 "Bp": Bp, "C": C, "S": S, "seeds": [],
                 "last_lanes": [lane for lane, w in enumerate(work) if w[4]],
-                "mm": False}, arrs):
+                "mm": image_wave}, arrs):
             sampled = self._run_prefill_program(arrs, mm_kw)
         # dynalint: ok(host-sync) the prefill dispatch's designed fetch: every
         # lane's (token, logprob) in one packed read a dispatch
@@ -2049,10 +2074,19 @@ class EngineCore:
         """A prefill dispatch's device program, from its host inputs alone
         (every rank runs it): one forward over the lanes' chunks, writing
         their KV, and each lane's sampled (token, logprob) as a device
-        tensor [Bp, 2]. Image waves (``mm_kw``) take the dense path: the
-        span or-mask has no kernel input; text waves keep the flash
-        kernel."""
+        tensor [Bp, 2]. Image waves take the dense path (the span or-mask
+        has no kernel input); text waves keep the flash kernel. An image
+        wave's inputs are the tp=1 leader's device ``mm_kw``, or at tp > 1
+        the frame's arrays: the soft-token rows it reads (``ov_vals``,
+        indexed by ``ov_rows`` under ``ov_mask``) and the spans."""
         d, m = self.device, self.cfg.model
+        if mm_kw is None and "ov_vals" in arrs:
+            vals = to_device(from_host_array(arrs["ov_vals"], m.dtype), d)
+            mm_kw = dict(
+                embed_override=(vals[to_device(arrs["ov_rows"], d)],
+                                to_device(arrs["ov_mask"], d)),
+                attn_spans=(to_device(arrs["q_span"], d),
+                            to_device(arrs["read_span"], d)))
         logits, _, _ = llama.forward(
             self.params, m, to_device(arrs["tokens"], d),
             to_device(arrs["positions"], d), self.k_pool, self.v_pool,
@@ -2261,6 +2295,154 @@ class EngineCore:
         return torch.stack([torch.stack(toks).float(), torch.stack(logps)],
                            -1)                        # [N, Ba, 2]
 
+    # ------------------------------------------------------------------
+    # model mobility: a weight swap on every rank
+    # ------------------------------------------------------------------
+    def swap_weights(self, new_cfg, host_params=None,
+                     group_layers: Optional[int] = None):
+        """Overwrite the weights in place with the sibling ``new_cfg``
+        names (engine thread, post-drain): ``hot_swap`` from
+        ``host_params`` at tp=1. At tp > 1 every rank overwrites its own
+        shard from the cut its :meth:`prefetch_shards` staged (loaded now
+        where it has not): the leader's gate and every rank's residency
+        check run before the ``swap`` frame, so a typed ``SwapError``
+        leaves every rank serving the old model."""
+        from ..fleet.mobility import swap as sw
+
+        if self.tp == 1:
+            return sw.hot_swap(self, host_params, new_cfg, group_layers)
+        t0 = time.monotonic()
+        sw.check_swap(self, new_cfg)
+        src = _shard_source(new_cfg)
+        with self._framed("swap_check", src, {}):
+            bad = self._run_swap_check(src)
+        if bad is not None:
+            why = ("has no resident cut" if bad == "weights_unavailable"
+                   else "has a cut that does not fit its shard")
+            raise sw.SwapError(bad, f"a rank {why} of {src['key']}")
+        demoted = self.flush_reusable()
+        meta = dict(src, group_layers=group_layers,
+                    preset=getattr(new_cfg, "preset", None))
+        with self._framed("swap", meta, {}):
+            groups, nbytes, secs = self._run_swap_program(meta)
+        sw.clear_kv(self)
+        return sw.finish_swap(self, new_cfg, t0, groups, demoted, nbytes,
+                              secs)
+
+    def prefetch_shards(self, new_cfg) -> None:
+        """Stage this tp engine's cut of the sibling ``new_cfg`` names on
+        every rank: a ``swap_prefetch`` frame, each rank loading its own
+        cut into its own host weight cache in the background (the swap
+        agent's prefetch hint). Engine thread."""
+        src = _shard_source(new_cfg)
+        with self._framed("swap_prefetch", src, {}):
+            self._shard_cache().prefetch(src["key"], src)
+
+    def _shard_cache(self):
+        """This rank's host cache of sibling cuts (pinned on a card)."""
+        if self._shards is None:
+            from ..fleet.mobility.weightcache import WeightCache
+
+            self._shards = WeightCache(loader=self._load_shard,
+                                       pinned=self.device.type == "cuda")
+        return self._shards
+
+    def _load_shard(self, key: str, src: Dict[str, Any]):
+        """This rank's host cut of a sibling: placed from its checkpoint
+        (``engine/loader.py``'s shard placement), else drawn from its seed
+        as a fresh engine of that seed draws it here."""
+        m, tp, rank = self.cfg.model, self.tp, self.rank
+        host = torch.device("cpu")
+        path = src.get("params_path")
+        if path and _has_safetensors(path):
+            from .loader import load_llama_params
+
+            return load_llama_params(path, m, host, tp, rank)
+        if path and (gguf := _gguf_file(path)):
+            from ..llm.gguf import load_llama_params_gguf
+
+            return load_llama_params_gguf(gguf, cfg=m, device=host,
+                                          dtype=m.dtype, tp=tp,
+                                          rank=rank)[1]
+        gen = torch.Generator(device=self.device).manual_seed(
+            int(src["seed"]))
+        # drawn where a fresh engine of that seed draws it, then to the host
+        # in one event wait; on this rank's card, whichever thread loads
+        # (the prefetch thread's current device is cuda:0)
+        with torch.no_grad(), (torch.cuda.device(self.device)
+                               if self.device.type == "cuda"
+                               else contextlib.nullcontext()):
+            tree = llama.init_params(m, gen, self.device, tp, rank)
+            keys = [(k, n) for k, v in tree.items()
+                    for n in (v if isinstance(v, dict) else (None,))]
+            leaves = [tree[k] if n is None else tree[k][n] for k, n in keys]
+            dtypes = [t.dtype for t in leaves]
+            host = self._to_host(leaves)
+            del tree, leaves
+        out: Dict[str, Any] = {}
+        for (k, n), a, dt in zip(keys, host, dtypes):
+            t = from_host_array(a, dt)
+            if n is None:
+                out[k] = t
+            else:
+                out.setdefault(k, {})[n] = t
+        return out
+
+    def _run_swap_check(self, src: Dict[str, Any]) -> Optional[str]:
+        """Every rank: its cut of ``src`` resident (loaded now if the
+        prefetch has not landed) and shaped as its shard, reduced over the
+        ranks (the most severe status wins). Returns the refusal's reason,
+        or None when every rank can swap."""
+        from ..fleet.mobility import swap as sw
+
+        cache = self._shard_cache()
+        tree = cache.load_now(src["key"], src)
+        status = 0
+        if tree is None:
+            status = 1
+        else:
+            try:
+                sw.check_tree(self, tree)
+            except sw.SwapError:
+                status = 2
+        import torch.distributed as dist
+
+        flag = to_device(np.asarray([float(status)], np.float32),
+                         self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+        # dynalint: ok(host-sync) the swap's residency check, once a swap,
+        # with the engine drained
+        status = int(flag.cpu()[0])
+        if status:
+            return ("weights_unavailable", "shape_mismatch")[status - 1]
+        cache.pin(src["key"])
+        return None
+
+    def _run_swap_program(self, meta: Dict[str, Any]
+                          ) -> Tuple[int, int, float]:
+        """Every rank: overwrite its shard in place from its resident cut
+        (the ``swap`` frame's program), then agree again with the other
+        ranks on the new weights; returns (groups, bytes, seconds of the
+        stream to its barrier)."""
+        from ..fleet.mobility import swap as sw
+
+        cache = self._shard_cache()
+        try:
+            new_flat, old_flat = sw.check_tree(self, cache.get(meta["key"]))
+            t0 = time.monotonic()
+            groups, nbytes = sw.overwrite(self, new_flat, old_flat,
+                                          meta.get("group_layers"))
+            sw.barrier(self)
+            secs = time.monotonic() - t0
+        finally:
+            cache.unpin(meta["key"])
+        self.swap_bytes += nbytes
+        self.swap_seconds += secs
+        self.cfg = replace(self.cfg, params_path=meta.get("params_path"),
+                           preset=meta.get("preset"))
+        self._check_ranks_agree()
+        return groups, nbytes, secs
+
     def mirror_dispatch(self, kind: str, meta: Dict[str, Any],
                         arrs: Dict[str, np.ndarray]) -> None:
         """A follower's replay of a leader dispatch (the JAX engine's
@@ -2272,6 +2454,7 @@ class EngineCore:
             if kind == "prefill":
                 self._run_prefill_program(arrs)
                 self.prefill_dispatches += 1
+                self.image_waves += bool(meta.get("mm"))
             elif kind == "decode":
                 self._run_decode_program(arrs)
                 self.decode_dispatches += 1
@@ -2289,6 +2472,14 @@ class EngineCore:
                 self._run_extract_program(arrs, meta)
             elif kind == "kv_inject":
                 self._run_inject_program(arrs, meta)
+            elif kind in ("kvpage_prefill", "kvpage_decode"):
+                self.kvpager.mirror(kind, meta, arrs)
+            elif kind == "swap_prefetch":
+                self._shard_cache().prefetch(meta["key"], meta)
+            elif kind == "swap_check":
+                self._run_swap_check(meta)
+            elif kind == "swap":
+                self._run_swap_program(meta)
             elif kind == "stats":
                 self._gather_rank_stats()
             else:
@@ -2336,7 +2527,10 @@ class EngineCore:
                 float(self.decode_steps_run), float(_tree_nbytes(self.params)),
                 float(peak), float(self.spec_dispatch_total),
                 float(self.kv_restore_bytes), self.kv_restore_seconds,
-                float(self.kv_offload_bytes), self.kv_offload_seconds]
+                float(self.kv_offload_bytes), self.kv_offload_seconds,
+                float(self.kvpager.pagein_bytes if self.kvpager else 0),
+                self.kvpager.stage_seconds if self.kvpager else 0.0,
+                float(self.swap_bytes), self.swap_seconds]
         k = len(mine)
         got = to_device(np.zeros(k * self.tp, np.float64), self.device)
         got[self.rank * k:(self.rank + 1) * k] = to_device(
@@ -2598,6 +2792,14 @@ def _kv_tensor(arr: np.ndarray) -> torch.Tensor:
         _kv_dtype(arr.dtype))
 
 
+def _shard_source(cfg) -> Dict[str, Any]:
+    """What names a sibling's weights on every rank: its checkpoint, else
+    its seed (``key`` names its cut in the ranks' host caches)."""
+    path = getattr(cfg, "params_path", None)
+    return {"key": path or f"seed:{cfg.seed}", "params_path": path,
+            "seed": int(cfg.seed)}
+
+
 def _tree_nbytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_tree_nbytes(v) for v in tree.values())
@@ -2822,14 +3024,13 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
         """Model-mobility hot-swap on the engine thread (single-threaded
         core contract), post-drain; a typed ``SwapError`` reaches the
         agent's fallback path through the future."""
-        from ..fleet.mobility.swap import hot_swap
-
         host_params, new_cfg, loop, fut = payload
         try:
-            self.core._refuse_at_tp("a weight swap")
-            res = hot_swap(self.core, host_params, new_cfg)
+            res = self.core.swap_weights(new_cfg, host_params)
             loop.call_soon_threadsafe(_set_result, fut, res)
         except Exception as e:  # noqa: BLE001
+            # a failure inside a frame's program ends a tp worker
+            self._end_if_torn()
             log.exception("weight hot-swap failed")
             loop.call_soon_threadsafe(_set_exception, fut, e)
 
@@ -2838,12 +3039,32 @@ class TorchEngine(AsyncEngine[BackendInput, EngineOutput]):
         the engine thread and await its :class:`~dynamo_tpu_torch.fleet.
         mobility.swap.SwapOutcome`. The caller must have drained first
         (``has_work`` False); a typed ``SwapError`` propagates here when
-        the sibling's shape signature does not match."""
+        the sibling's shape signature does not match. At tp > 1
+        ``host_params`` goes unused: every rank swaps its own cut
+        (:meth:`EngineCore.swap_weights`)."""
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
         self._inbox.put(("swap", "", (host_params, new_cfg, loop, fut)))
         self._wake.set()
         return await fut
+
+    @property
+    def shard_swaps(self) -> bool:
+        """Does each rank swap its own cut (tp > 1)? Then a swap agent
+        stages siblings through :meth:`prefetch_shards` and hands no host
+        tree to :meth:`swap_weights`."""
+        return self.core.tp > 1
+
+    def prefetch_shards(self, new_cfg) -> None:
+        """Queue :meth:`EngineCore.prefetch_shards` on the engine thread
+        (its frame goes out in the thread's order of frames); returns at
+        once."""
+        import concurrent.futures
+
+        self._inbox.put(("call", "", (
+            lambda core: core.prefetch_shards(new_cfg),
+            concurrent.futures.Future())))
+        self._wake.set()
 
     def _ingest_fail(self, seq_id: str, e: Exception) -> None:
         """Engine-thread cleanup of a failed stream inject: release the

@@ -21,13 +21,19 @@ to the two record kinds addressed at its CURRENT component:
   worker ends and its orchestrator reaps it and its cards. The JAX agent
   logs and lives on there, a zombie that holds its cards.
 
+A tensor-parallel engine (``TorchEngine.shard_swaps``) keeps no whole
+tree here: a prefetch hint becomes a ``swap_prefetch`` frame that has
+every rank stage its own cut of the sibling, and the swap overwrites each
+rank's shard from it (``EngineCore.swap_weights``). Its cold reload
+rebuilds the whole rank group (the worker's ``cold_reload``).
+
 The agent publishes the wake record (``mobility/{ns}/wake/{model}``)
 and the ``dyn_model_wake_seconds``/``dyn_model_swaps_total`` series;
 wake latency is measured from command receipt to serving registration,
 which is the number the arbiter's swap preference is buying down.
 
 Scope gate: hot-swap is only wired for the simple serving path — no
-disagg, no cluster KV attach (the worker CLI enforces this at
+disagg, no cluster KV attach, one node (the worker CLI enforces this at
 construction; those paths keep the plain cold-spawn wake).
 """
 
@@ -52,9 +58,10 @@ log = logging.getLogger("dynamo_tpu_torch.mobility")
 #: swap candidate's config — the KV pool and batch lanes were sized from
 #: these, on this device, so the sibling must be evaluated against the
 #: SAME geometry (a matching model class then signature-matches and swaps
-#: in place). The JAX package's list, less tp (a tensor-parallel worker
-#: runs no mobility agent: ``engine.TP_GAP``) and the options the port has
-#: not ported (``engine._NOT_PORTED``), plus the device the engine runs on
+#: in place). The JAX package's list, less tp (the sibling's config is a
+#: tp=1 config from its card; a tp engine's ranks keep their layout) and
+#: the options the port has not ported (``engine._NOT_PORTED``), plus the
+#: device the engine runs on
 GEOMETRY_FIELDS = (
     "page_size", "max_batch", "max_context",
     "prefill_chunk", "num_pages", "decode_steps",
@@ -116,6 +123,9 @@ class MobilityAgent:
         self.swaps = 0            # completed wakes (either path)
 
     # ------------------------------------------------------------------
+    def _shard_swaps(self) -> bool:
+        return bool(getattr(self.engine_ref.engine, "shard_swaps", False))
+
     def _on_card(self) -> bool:
         core = getattr(self.engine_ref.engine, "core", None)
         device = getattr(core, "device", None)
@@ -183,7 +193,12 @@ class MobilityAgent:
                 log.warning("prefetch hint for %s unresolvable", path,
                             exc_info=True)
                 continue
-            if self.cache.prefetch(path, cfg.model):
+            if self._shard_swaps():
+                # every rank stages its own cut (a swap_prefetch frame)
+                self.engine_ref.engine.prefetch_shards(cfg)
+                log.info("prefetching sibling weights on every rank: %s",
+                         path)
+            elif self.cache.prefetch(path, cfg.model):
                 log.info("prefetching sibling weights: %s", path)
 
     # ------------------------------------------------------------------
@@ -236,9 +251,12 @@ class MobilityAgent:
         t0 = time.monotonic()
         new_cfg = self._cfg_builder(model, model_path)
         # the source tree must survive the swap window even under cache
-        # pressure from a concurrent prefetch
-        host = self.cache.get(model_path) if model_path else None
-        if host is None and model_path:
+        # pressure from a concurrent prefetch. A tp engine's ranks hold
+        # their own cuts (the swap loads any that has not landed)
+        shards = self._shard_swaps()
+        host = self.cache.get(model_path) if model_path and not shards \
+            else None
+        if host is None and model_path and not shards:
             host = await asyncio.to_thread(
                 self.cache.load_now, model_path, new_cfg.model)
         if model_path:
@@ -251,7 +269,7 @@ class MobilityAgent:
             drained = await self._wait_drained()
             outcome: Optional[SwapOutcome] = None
             try:
-                if host is None:
+                if host is None and not (shards and model_path):
                     raise SwapError("weights_unavailable",
                                     model_path or "no model_path")
                 if not drained:

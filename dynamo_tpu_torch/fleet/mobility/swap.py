@@ -23,6 +23,13 @@ Swap sequencing (engine thread, post-drain):
 4. ...tears down KV state: tiered cache + hash registries clear (block
    hashes carry no model identity — old-model KV must not alias), then
    one barrier on the copies.
+
+Under tensor parallelism every rank overwrites its own shard from its own
+host cut of the sibling (``EngineCore.swap_weights``): the leader checks
+the gate, a ``swap_check`` frame has every rank report its cut resident
+and shaped as its shard (one small all-reduce), the leader demotes, and a
+``swap`` frame runs :func:`overwrite` and :func:`barrier` on every rank.
+A refusal therefore leaves every rank serving the old model.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import dataclasses
 import json
 import logging
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -43,9 +50,10 @@ log = logging.getLogger("dynamo_tpu_torch.mobility")
 DEFAULT_GROUP_LAYERS = 4
 
 #: TorchEngineConfig fields the signature holds beside the model config:
-#: the JAX package's geometry, less tp (a tensor-parallel engine refuses
-#: swaps: ``engine.TP_GAP``) and the options the port has not ported
-#: (``engine._NOT_PORTED``: sp/ep/pp, prefill_lanes, attn_impl, warmup)
+#: the JAX package's geometry, less tp (a sibling's config comes from its
+#: card at tp=1; the ranks' shards follow the incumbent's tp) and the
+#: options the port has not ported (``engine._NOT_PORTED``: sp/ep/pp,
+#: prefill_lanes, attn_impl, warmup)
 SIGNATURE_GEOMETRY = (
     "page_size", "max_batch", "max_context", "prefill_chunk", "num_pages",
     "decode_steps", "spec", "spec_k", "spec_draft")
@@ -112,15 +120,10 @@ def _host_tensor(leaf, dtype):
     return t
 
 
-def hot_swap(core, host_params, new_cfg, group_layers: Optional[int] = None
-             ) -> SwapOutcome:
-    """Overwrite ``core``'s weight tensors with ``host_params`` (the new
-    model's host tree) in place. Engine-thread only, post-drain. Raises
-    :class:`SwapError` (typed, never hangs) when the swap cannot reuse
-    the engine as it is; the caller then takes the full-reload path."""
-    import torch
-
-    t0 = time.monotonic()
+def check_swap(core, new_cfg) -> None:
+    """The swap's gate on the engine as it is (the leader's, before any
+    frame): drained, the shape signature, and no state derived from the
+    weights outside the param tree. Raises :class:`SwapError`."""
     if core.by_seq or core.waiting or core._inflight \
             or core._stream_injects:
         raise SwapError("not_drained",
@@ -143,6 +146,13 @@ def hot_swap(core, host_params, new_cfg, group_layers: Optional[int] = None
         # the draft model's weights and KV are not part of the tree
         raise SwapError("unsupported",
                         "engines with a draft model reload cold")
+
+
+def check_tree(core, host_params) -> Tuple[Dict[tuple, Any],
+                                          Dict[tuple, Any]]:
+    """(new, old) flat trees once ``host_params`` holds every leaf of the
+    engine's params at its shape (a tp rank's: its shard). Raises
+    :class:`SwapError` ``shape_mismatch``."""
     new_flat = _flat(host_params)
     old_flat = _flat(core.params)
     if set(new_flat) != set(old_flat):
@@ -155,11 +165,16 @@ def hot_swap(core, host_params, new_cfg, group_layers: Optional[int] = None
                 "shape_mismatch",
                 f"{'/'.join(path)}: {tuple(new_flat[path].shape)} vs "
                 f"{tuple(leaf.shape)}")
+    return new_flat, old_flat
 
-    # ---- demote sealed KV to the host tier ----------------------------
-    demoted = core.flush_reusable()
 
-    # ---- enqueue the weight overwrite (async device work) ------------
+def overwrite(core, new_flat, old_flat, group_layers: Optional[int] = None
+              ) -> Tuple[int, int]:
+    """Enqueue the in-place overwrite of every live leaf from its host
+    source, a layer group at a time (async device work); returns (groups,
+    bytes)."""
+    import torch
+
     if group_layers is None:
         group_layers = max(1, int(env_float(
             "DYN_SWAP_GROUP_LAYERS", DEFAULT_GROUP_LAYERS, minimum=1.0)))
@@ -167,7 +182,6 @@ def hot_swap(core, host_params, new_cfg, group_layers: Optional[int] = None
     groups = 0
     slab_bytes = 0
     cs = core.copy_stream
-    t_enq = time.monotonic()
     with torch.no_grad():
         for path, leaf in old_flat.items():
             src = _host_tensor(new_flat[path], leaf.dtype)
@@ -175,14 +189,22 @@ def hot_swap(core, host_params, new_cfg, group_layers: Optional[int] = None
             if path[0] == "layers" and leaf.shape[0] == L \
                     and L > group_layers:
                 for g0 in range(0, L, group_layers):
+                    # dynalint: ok(flow-accounting) the caller records the
+                    # whole stream once (finish_swap: swap_slab)
                     cs.h2d_param_slab(leaf, g0, src[g0:g0 + group_layers])
                     groups += 1
             else:
                 # non-stacked leaves (embed/final_norm/lm_head) and small
                 # stacks: one whole-leaf copy through the same stream
+                # dynalint: ok(flow-accounting) recorded with the whole
+                # stream (finish_swap: swap_slab)
                 cs.h2d_param_slab(leaf, 0, src)
+    return groups, slab_bytes
 
-    # ---- KV teardown on the host while the device streams weights ----
+
+def clear_kv(core) -> None:
+    """The KV teardown on the host: tiered cache and hash registries clear
+    (block hashes carry no model identity: old-model KV must not alias)."""
     if core._wt_copies:
         core._retire_writethrough(wait=True)   # before the tier clears
     if core.tiered is not None:
@@ -199,23 +221,61 @@ def hot_swap(core, host_params, new_cfg, group_layers: Optional[int] = None
     core.prefix_query_tokens = 0
     core.last_prefix_hit = 0
 
-    # ---- barrier: weights resident before the first new-model token --
+
+def barrier(core) -> None:
+    """Weights resident before the first new-model token."""
+    import torch
+
     if core.device.type == "cuda":
         # the swap cutover's one host sync, never on a request
         # dynalint: ok(host-sync) the swap's one cutover barrier: every slab
         # landed before the new weights serve
         torch.cuda.current_stream(core.device).synchronize()
+
+
+def hot_swap(core, host_params, new_cfg, group_layers: Optional[int] = None
+             ) -> SwapOutcome:
+    """Overwrite ``core``'s weight tensors with ``host_params`` (the new
+    model's host tree) in place. Engine-thread only, post-drain. Raises
+    :class:`SwapError` (typed, never hangs) when the swap cannot reuse
+    the engine as it is; the caller then takes the full-reload path."""
+    t0 = time.monotonic()
+    check_swap(core, new_cfg)
+    new_flat, old_flat = check_tree(core, host_params)
+
+    # ---- demote sealed KV to the host tier ----------------------------
+    demoted = core.flush_reusable()
+
+    # ---- enqueue the weight overwrite (async device work) ------------
+    t_enq = time.monotonic()
+    groups, slab_bytes = overwrite(core, new_flat, old_flat, group_layers)
+
+    # ---- KV teardown on the host while the device streams weights ----
+    clear_kv(core)
+
+    # ---- barrier: weights resident before the first new-model token --
+    barrier(core)
     # one flow for the whole weight stream: the barrier bounds it, so
     # bytes/seconds is the swap's real h2d rate
     slab_seconds = time.monotonic() - t_enq
+    core.swap_bytes += slab_bytes
+    core.swap_seconds += slab_seconds
+    return finish_swap(core, new_cfg, t0, groups, demoted, slab_bytes,
+                       slab_seconds)
+
+
+def finish_swap(core, new_cfg, t0: float, groups: int, demoted: int,
+                slab_bytes: int, slab_seconds: float) -> SwapOutcome:
+    """The leader's record of a completed swap: the ``swap_slab`` flow,
+    the new weights' names in its config, ``dyn_model_swaps_total``."""
     from ...obs.flows import record_flow
+    from ...utils.prometheus import stage_metrics
+
     record_flow("swap_slab", slab_bytes, slab_seconds)
     core.cfg = dataclasses.replace(
         core.cfg, params_path=getattr(new_cfg, "params_path", None),
         preset=getattr(new_cfg, "preset", None))
     seconds = time.monotonic() - t0
-    from ...utils.prometheus import stage_metrics
-
     stage_metrics().model_swaps.inc("swap")
     log.info("hot-swap to %s: %.2fs, %d layer-group copies, %d KV "
              "blocks demoted (weights overwritten in place)",

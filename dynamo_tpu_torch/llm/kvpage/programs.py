@@ -63,11 +63,14 @@ def _partial_attend(cfg, q, k, v, mask):
                          v.permute(0, 2, 1, 3), ~mask[:, None, None], T)
 
 
-def _q_heads(cfg, q):
-    """q [B, T, Hq, Dh] -> head-major f32 [B, Hkv, G*T, Dh] (rows g, t)."""
-    B, T, _, Dh = q.shape
-    Hkv = cfg.num_kv_heads
-    G = cfg.num_heads // Hkv
+def _q_heads(cfg, q, hkv: Optional[int] = None):
+    """q [B, T, Hq, Dh] -> head-major f32 [B, Hkv, G*T, Dh] (rows g, t).
+    ``hkv`` is the kv heads the pools hold (a tp rank's: the model's
+    ``num_kv_heads`` by default); G is q's heads over them, which is the
+    model's Hq/Hkv only while a rank keeps whole groups of its own."""
+    B, T, Hq, Dh = q.shape
+    Hkv = cfg.num_kv_heads if hkv is None else hkv
+    G = Hq // Hkv
     return q.reshape(B, T, Hkv, G, Dh).permute(0, 2, 3, 1, 4).reshape(
         B, Hkv, G * T, Dh).float()
 
@@ -101,7 +104,13 @@ class PagedPrograms:
     takes a leading batch dim (1 for a prefill chunk, the lane count for a
     batched decode step). Layer classes (window span, local rope) follow
     the JAX package: :attr:`classes` lists them, :attr:`windows` gives
-    each layer's span (None = full attention)."""
+    each layer's span (None = full attention).
+
+    Under tensor parallelism the params and pools are one rank's shard:
+    the partial passes run on the rank's heads, :meth:`layer_out` sums the
+    o-projection's and the FFN's partial products over ``group`` in place,
+    and :meth:`head` gathers a vocab-sharded head's logits, so every rank
+    samples the same token from the same uniforms."""
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -145,7 +154,7 @@ class PagedPrograms:
         wp, wo = flat // self.page, flat % self.page
         k_pool[l, :, wp, wo] = k.reshape(B * T, *k.shape[2:]).transpose(0, 1)
         v_pool[l, :, wp, wo] = v.reshape(B * T, *v.shape[2:]).transpose(0, 1)
-        return _q_heads(m, q)
+        return _q_heads(m, q, k_pool.shape[1])
 
     def attn_hot(self, qh, l: int, k_pool, v_pool, read_idx, read_pos,
                  read_valid, positions):
@@ -202,30 +211,32 @@ class PagedPrograms:
             got = self._iota[key] = torch.arange(S, device=device) // page
         return got
 
-    def layer_out(self, params, l: int, x, o, m_, d):
-        """Normalize the merged accumulators, then o-proj, residual, FFN."""
+    def layer_out(self, params, l: int, x, o, m_, d, group=None):
+        """Normalize the merged accumulators, then o-proj, residual, FFN
+        (the row-parallel products summed over the tp ``group``)."""
         m = self.cfg.model
         lp = params["layers"]
         B, Hkv, G, T, Dh = o.shape
         attn = o / torch.where(d == 0.0, torch.ones_like(d), d)[..., None]
         attn = attn.permute(0, 3, 1, 2, 4).reshape(
             B, T, Hkv * G, Dh).to(x.dtype)
-        x = llama._attn_out(x, attn, lp, l, m)
-        return llama._ffn_block(x, lp, l, m)
+        x = llama._attn_out(x, attn, lp, l, m, group)
+        return llama._ffn_block(x, lp, l, m, group)
 
     def head(self, params, x, last_i, temp, top_p, top_k, uniforms, counts,
-             freq_pen, pres_pen, active):
+             freq_pen, pres_pen, active, group=None):
         """Sample one token per row at ``x[b, last_i[b]]``: (packed [B, 2]
         f32 = (token, logprob), tokens [B] int64). Penalty ``counts`` [B, V]
         (a view of the lane-persistent rows) gain the sampled token only
         on ``active`` rows, so a padded row counts nothing (its uniform is
-        0: it drew nothing either). Token ids < 2^24 are exact in f32."""
+        0: it drew nothing either). Token ids < 2^24 are exact in f32. A
+        vocab-sharded head's logits are gathered over the tp ``group``."""
         from ...engine.sampling import apply_penalties, sample
 
         B = x.shape[0]
         rows = torch.arange(B, device=x.device)
         xs = x[rows, last_i][:, None]
-        logits = llama._lm_head(xs, params, self.cfg.model)[:, 0]
+        logits = llama._lm_head(xs, params, self.cfg.model, group)[:, 0]
         lg = apply_penalties(logits, counts, freq_pen, pres_pen)
         tok, logp = sample(lg, temp, top_p, top_k, uniforms)
         counts[rows, tok] += active.to(counts.dtype)

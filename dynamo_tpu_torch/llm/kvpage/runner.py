@@ -26,7 +26,7 @@ The virtual-memory model (the JAX package's ``docs/long_context.md``):
   count row per lane) advances only on a lane's own rows, so every lane's
   token stream is the one it would get alone, and the dense engine's.
 - **Page-in staging.** Host slots are pinned on a card and reused (a free
-  list per batch width; a slot is rewritten only after the upload that
+  list per slot shape; a slot is rewritten only after the upload that
   last read it completed). Uploads run on a side stream into two device
   slots: the attention on a slot waits on that slot's upload event, and
   an upload into a slot waits on the event of the attention that last
@@ -36,7 +36,7 @@ The virtual-memory model (the JAX package's ``docs/long_context.md``):
   cannot change inside a window, so only the first step pays the pager's
   takes. A window past that bound takes every segment from the pager
   again at each step through the ring, so pinned staging stays at most
-  ``WINDOW_CACHE_BYTES`` plus ``STAGE_RING`` free slots per batch width
+  ``WINDOW_CACHE_BYTES`` plus ``STAGE_RING`` free slots per slot shape
   whatever the context length (torch keeps freed pinned blocks for reuse,
   so the process holds its peak).
 - **Prefix reuse for free.** Demoted blocks carry their chained sequence
@@ -50,6 +50,19 @@ one prefill chunk (lanes round-robin) or one decode window across every
 decode-ready lane, prefill first when both exist. Admission is
 byte-honest across lanes: each admitted request's working set is
 reserved against the host tier up front.
+
+Tensor parallelism: the lane's plan, its pager and the host tier are the
+leader's. Each prefill chunk and decode window is a device program every
+rank runs from a frame (``kvpage_prefill``, ``kvpage_decode``: the hot
+reads, each layer's segment plan, the sampling rows and uniforms); a
+demotion is the engine's ``kv_offload`` frame. At each upload step the
+leader assembles the whole segment and scatters each rank its kv heads
+(``parallel.collectives.scatter_heads``, one host collective a (layer,
+step) on the engine thread, in plan order), and each rank uploads its
+slice; the JAX package's host tier likewise holds whole blocks and its
+puts split them by ``kv_sharding``. Every pin is checked on the leader
+before a frame goes out: a miss after it would leave the followers in a
+collective.
 
 Differences from the JAX lane: there is no compile, so every work unit
 feeds the goodput meter (JAX skips a shape's first, compiling use), and
@@ -72,6 +85,7 @@ import torch
 
 from ...device import to_device
 from ...obs.flows import record_flow
+from ...parallel import collectives
 from ...utils.knobs import env_float as _env_float
 from ...utils.prometheus import stage_metrics
 from ..kvbm.pool import OutOfBlocks
@@ -84,7 +98,7 @@ from .programs import PagedPrograms
 
 log = logging.getLogger("dynamo_tpu_torch.kvpage")
 
-#: free host staging slots kept per batch width: the oldest is waited on
+#: free host staging slots kept per slot shape: the oldest is waited on
 #: and reused before a new one is pinned, and slots given back past this
 #: count are dropped
 STAGE_RING = 4
@@ -239,6 +253,9 @@ class PagedEngine:
         self.upload_seconds = 0.0       # the uploads' device time (card)
         self.stage_slots_made = 0       # host staging slots allocated
         self.uncached_windows = 0       # windows past WINDOW_CACHE_BYTES
+        # host clock of this rank's staging: the pager's takes, the
+        # segments' scatter to the ranks (tp > 1) and the uploads' enqueue
+        self.stage_seconds = 0.0
 
     # ------------------------------------------------------------------
     @property
@@ -362,7 +379,10 @@ class PagedEngine:
                 try:
                     self._prefill_chunk(seq, out)
                 except Exception as e:  # noqa: BLE001 - kill THIS request,
-                    # never the engine (see _fail)
+                    # never the engine (see _fail), unless a frame's
+                    # program broke off (tp > 1: the worker ends)
+                    if self._torn():
+                        raise
                     log.exception("paged sequence %s failed", seq.seq_id)
                     self._fail(seq, e, out)
             elif decoding:
@@ -440,7 +460,8 @@ class PagedEngine:
         else:
             seed = core._seed_source.getrandbits(63)
         self._gens[lane] = lane_generator(seed)
-        self._counts[lane].zero_()
+        # the lane's penalty-count row is zeroed on the device by the
+        # prefill program that samples its first token
         self.lanes[lane] = seq
         self._set_gauges()
         return seq
@@ -505,8 +526,9 @@ class PagedEngine:
         hashes = [seq.tokseq.blocks[seq.first_res + i].sequence_hash
                   for i in range(n)]
         t0 = time.perf_counter()
-        k, v = self.core.copy_stream.d2h_pages(
-            self.core.k_pool, self.core.v_pool, pages)
+        # a kv_offload frame: each rank's d2h of its kv heads, gathered
+        # into whole blocks on the leader
+        k, v = self.core._offload_pages(pages)
         record_flow("kvpage_pageout", n * self.block_bytes,
                     time.perf_counter() - t0, trace_id=seq.seq_id)
         tiered = self.core.tiered
@@ -533,15 +555,18 @@ class PagedEngine:
     # ------------------------------------------------------------------
     # page-in staging
     # ------------------------------------------------------------------
-    def _slot_shape(self, B: int) -> Tuple[int, ...]:
+    def _slot_shape(self, B: int, local: bool = False) -> Tuple[int, ...]:
+        """A staging slot [2, B, Hkv, seg_pages, page, Dh]: every kv head
+        (the leader's whole slot, the tier's layout), or with ``local``
+        this rank's kv heads (what it uploads)."""
         m = self.core.cfg.model
-        return (2, B, m.num_kv_heads, self.pcfg.seg_pages, self.page,
-                m.head_dim)
+        heads = self.core.k_pool.shape[1] if local else m.num_kv_heads
+        return (2, B, heads, self.pcfg.seg_pages, self.page, m.head_dim)
 
-    def _take_host(self, B: int) -> _HostSlot:
-        """A host slot for batch width ``B`` whose last upload is done.
-        New slots are not zeroed: :meth:`_upload_batch` writes every row."""
-        free = self._host_free.setdefault(B, collections.deque())
+    def _take_host(self, shape: Tuple[int, ...]) -> _HostSlot:
+        """A host slot of ``shape`` whose last upload is done. New slots
+        are not zeroed: the staging writes every row."""
+        free = self._host_free.setdefault(shape, collections.deque())
         if free and (free[0].done is None or free[0].done.query()
                      or len(free) >= STAGE_RING):
             hs = free.popleft()
@@ -550,7 +575,7 @@ class PagedEngine:
                 # staging ring is still in flight (STAGE_RING uploads)
                 hs.done.synchronize()
             return hs
-        t = torch.empty(self._slot_shape(B), dtype=self.core.k_pool.dtype,
+        t = torch.empty(shape, dtype=self.core.k_pool.dtype,
                         pin_memory=self._cuda)
         self.stage_slots_made += 1
         return _HostSlot(t, to_host_array(t))
@@ -559,7 +584,8 @@ class PagedEngine:
         """Back to the free list, or dropped once it holds ``STAGE_RING``
         (torch's host allocator waits on the slot's last copy before it
         reuses the memory)."""
-        free = self._host_free.setdefault(hs.t.shape[1], collections.deque())
+        free = self._host_free.setdefault(tuple(hs.t.shape),
+                                          collections.deque())
         if len(free) < STAGE_RING:
             free.append(hs)
 
@@ -575,7 +601,7 @@ class PagedEngine:
 
         if self._side is None:
             self._side = tc.Stream(self.device)
-            n = int(np.prod(self._slot_shape(self.batch)))
+            n = int(np.prod(self._slot_shape(self.batch, local=True)))
             self._dev_slots = [torch.empty(n, dtype=hs.t.dtype,
                                            device=self.device)
                                for _ in range(2)]
@@ -620,23 +646,24 @@ class PagedEngine:
         return {"bytes": float(self.pagein_bytes),
                 "uploads": float(self.pagein_uploads),
                 "assemble_s": self.assemble_seconds,
-                "upload_s": self.upload_seconds}
+                "upload_s": self.upload_seconds,
+                "stage_s": self.stage_seconds}
 
     # ------------------------------------------------------------------
-    # forward
+    # the leader's plan of a forward
     # ------------------------------------------------------------------
     def _hot_width(self, n: int) -> int:
         """The hot read's width: ``n`` resident positions rounded up to a
         page (masked keys add exactly 0)."""
         return -(-n // self.page) * self.page
 
-    def _build_plans(self, parts, positions: np.ndarray
-                     ) -> Dict[int, List[List[Tuple[int, Tuple[int, ...]]]]]:
+    def _plan(self, parts, positions: np.ndarray
+              ) -> Dict[int, List[List[Tuple[int, Tuple[int, ...]]]]]:
         """Per-row per-layer cold plans for one forward (or one decode
-        window), installed with the pager per lane. Sliding layers drop
-        segments wholly below their window at the FIRST query position:
-        later window steps only move the window forward, so a segment
-        kept in is at worst an all-masked exact no-op for them."""
+        window). Sliding layers drop segments wholly below their window at
+        the FIRST query position: later window steps only move the window
+        forward, so a segment kept in is at worst an all-masked exact
+        no-op for them."""
         prg = self.programs
         L = self.core.cfg.model.num_layers
         page = self.page
@@ -656,10 +683,30 @@ class PagedEngine:
                         [sg for sg in segs
                          if (sg[0] + len(sg[1])) * page - 1 > p0 - w])
             plans[row] = per_layer
-            self.pager.begin(
-                PageinPlan([[sg[1] for sg in pl] for pl in per_layer]),
-                lane=seq.lane)
         return plans
+
+    def _install(self, parts, plans) -> None:
+        """Hand each lane's plan to the pager, which starts assembling."""
+        for row, seq in parts:
+            pl = plans.get(row)
+            if pl is not None:
+                self.pager.begin(PageinPlan([[sg[1] for sg in segs]
+                                             for segs in pl]),
+                                 lane=seq.lane)
+
+    def _check_pins(self, plans) -> None:
+        """Every cold block of ``plans`` is in the tier (its pin held), so
+        that no take can miss once the forward's frame went out: a miss
+        raises here, before it (the pin discipline failed)."""
+        tiered = self.core.tiered
+        for pl in plans.values():
+            for segs in pl:
+                for _, hashes in segs:
+                    for h in hashes:
+                        if h not in tiered:
+                            raise KvPageMiss(
+                                f"cold block {h:x} missing from every "
+                                f"tier; the pin discipline was violated")
 
     def _plan_bytes(self, plans, B: int) -> int:
         """Host staging bytes of one forward's plans (a slot per (layer,
@@ -669,36 +716,30 @@ class PagedEngine:
                     for l in range(L))
         return steps * self._slot_bytes(B)
 
-    def _meta(self, plans, B: int) -> torch.Tensor:
-        """Every (layer, step) segment's [B, 2] meta of one forward (or
-        window) = (valid blocks, first token position), zeros where a lane
-        has no segment: one upload, from which the device rebuilds each
-        pass's mask."""
+    def _plan_arrays(self, plans, B: int, width: int = 1
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """A forward's plan as its frame carries it: the staging steps of
+        each layer [L], and every (layer, step) segment's [B, 2] meta
+        [L, max(width, steps), B, 2] = (valid blocks, first token
+        position), zeros where a lane has no segment; the device rebuilds
+        each pass's mask from those two numbers."""
         L = self.core.cfg.model.num_layers
-        steps = max((len(pl[l]) for pl in plans.values() for l in range(L)),
-                    default=0)
-        meta = np.zeros((L, max(steps, 1), B, 2), np.int64)
+        steps = np.asarray([max((len(pl[l]) for pl in plans.values()),
+                                default=0) for l in range(L)], np.int64)
+        meta = np.zeros((L, max(width, int(steps.max(initial=0)), 1), B, 2),
+                        np.int64)
         for row, pl in plans.items():
             for l in range(L):
                 for s, (start_blk, hashes) in enumerate(pl[l]):
                     meta[l, s, row] = (len(hashes), start_blk * self.page)
-        return to_device(meta, self.device)
+        return steps, meta
 
-    def _upload_batch(self, parts, plans, B: int, l: int, s: int,
-                      cache: Optional[Dict] = None):
-        """Take every lane's (layer, step) staging segment into one host
-        slot (k over v, lanes stacked: the whole slot is ONE upload; the
-        mask comes from :meth:`_meta`) and enqueue its upload; returns
-        (device slot, ring index). Lanes with no segment at this step ride
-        along masked-invalid. Within a decode window the host slots are
-        ``cache``d per (layer, step): later window steps re-upload them
-        without taking from the pager."""
-        key = (l, s)
-        assemble_s = 0.0
-        if cache is not None and key in cache:
-            hs = cache[key]
-        else:
-            hs = self._take_host(B)
+    def _filler(self, parts, plans, B: int):
+        """The leader's fill of a (layer, step) whole host slot: every
+        lane's staging segment taken from the pager (k over v, lanes
+        stacked: the slot is ONE upload), zeros where a lane has none."""
+        def fill(hs: _HostSlot, l: int, s: int) -> None:
+            assemble_s = 0.0
             filled = set()
             for row, seq in parts:
                 pl = plans.get(row)
@@ -714,51 +755,85 @@ class PagedEngine:
             for row in range(B):
                 if row not in filled:
                     hs.arr[:, row] = 0  # masked out: finite, multiplied by 0
-            if cache is not None:
-                cache[key] = hs
+            self.assemble_seconds += assemble_s
+            self._flow[1] += assemble_s
+        return fill
+
+    # ------------------------------------------------------------------
+    # the device program of a forward (every rank)
+    # ------------------------------------------------------------------
+    def _stage(self, B: int, l: int, s: int, cache: Optional[Dict], fill
+               ) -> Tuple[_HostSlot, bool]:
+        """This rank's host slot of (layer ``l``, step ``s``) and whether
+        the window's ``cache`` keeps it. The leader ``fill``s the whole
+        slot from the pager; at tp > 1 it then scatters each rank its kv
+        heads of it (one host collective a (layer, step), posted by every
+        rank in plan order on its engine thread). Within a decode window
+        the slots are kept per (layer, step) in ``cache``: later steps
+        re-upload them with no take and no scatter."""
+        key = (l, s)
+        if cache is not None and key in cache:
+            return cache[key], True
+        if self.core.tp == 1:
+            hs = self._take_host(self._slot_shape(B))
+            fill(hs, l, s)
+        else:
+            whole = None
+            if fill is not None:
+                whole = self._take_host(self._slot_shape(B))
+                fill(whole, l, s)
+            hs = self._take_host(self._slot_shape(B, local=True))
+            collectives.scatter_heads(
+                None if whole is None else whole.arr, self.core.host_group,
+                self.core._kv_heads, hs.arr.shape, hs.arr.dtype, axis=2,
+                out=hs.arr)
+            if whole is not None:
+                self._give_host(whole)      # the scatter read it already
+        if cache is not None:
+            cache[key] = hs
+        return hs, cache is not None
+
+    def _upload_step(self, B: int, l: int, s: int, cache, fill):
+        """Stage and enqueue the upload of one (layer, step) slot; returns
+        (device slot, ring index)."""
         t0 = time.perf_counter()
+        hs, kept = self._stage(B, l, s, cache, fill)
+        t1 = time.perf_counter()
         kv_dev, i = self._upload(hs)
-        if cache is None:
+        if not kept:
             self._give_host(hs)     # reused only once its upload is done
         self.pagein_bytes += hs.arr.nbytes
         self.pagein_uploads += 1
-        self.assemble_seconds += assemble_s
-        self._flow[0] += hs.arr.nbytes
-        self._flow[1] += assemble_s + time.perf_counter() - t0
+        now = time.perf_counter()
+        self.stage_seconds += now - t0
+        # the ledger's page-in: every kv head's bytes (the tier served the
+        # whole slot), priced at assembly + upload enqueue
+        self._flow[0] += self._slot_bytes(B)
+        self._flow[1] += now - t1
         return kv_dev, i
 
     def _release_cache(self, cache: Optional[Dict]) -> None:
         if cache is None:
             return
-        for key, hs in cache.items():
-            if key != "meta":
-                self._give_host(hs)
+        for hs in cache.values():
+            self._give_host(hs)
         cache.clear()
 
-    def _forward(self, parts, B: int, tokens: torch.Tensor,
-                 positions: np.ndarray, write_idx: np.ndarray,
-                 read_idx: np.ndarray, read_pos: np.ndarray,
-                 read_valid: np.ndarray, plans=None,
-                 cache: Optional[Dict] = None) -> torch.Tensor:
-        """The segmented forward over ``parts`` = [(row, seq)]: per layer,
-        qkv and the pool write, hot partial attention through the pool
-        (every lane in one pass), cold segments merged one lane-stacked
+    def _forward(self, B: int, tokens: torch.Tensor, positions: np.ndarray,
+                 write_idx: np.ndarray, read_idx: np.ndarray,
+                 read_pos: np.ndarray, read_valid: np.ndarray,
+                 steps: np.ndarray, meta: torch.Tensor,
+                 cache: Optional[Dict] = None, fill=None) -> torch.Tensor:
+        """The segmented forward of ``B`` lanes: per layer, qkv and the
+        pool write, hot partial attention through the pool (every lane in
+        one pass), ``steps[l]`` cold segments merged one lane-stacked
         upload at a time (the next step's upload enqueued before the
-        current step's attention), then the layer's tail. ``plans`` and
-        ``cache`` let a decode window plan and stage once for all its
-        steps; a prefill chunk plans here."""
+        current step's attention, its mask from ``meta[l, s]``), then the
+        layer's tail. ``fill`` is the leader's (None on a follower)."""
         core = self.core
         prg = self.programs
         d = self.device
         L = core.cfg.model.num_layers
-        if plans is None:
-            plans = self._build_plans(parts, positions)
-        if cache is not None and "meta" in cache:
-            meta = cache["meta"]
-        else:
-            meta = self._meta(plans, B)
-            if cache is not None:
-                cache["meta"] = meta
         pos_d = to_device(positions, d)
         w_d = to_device(write_idx, d)
         r_idx = to_device(read_idx, d)
@@ -774,46 +849,118 @@ class PagedEngine:
                         w_d)
             o, m, dd = prg.attn_hot(q, l, core.k_pool, core.v_pool, r_idx,
                                     r_pos, r_val, pos_d)
-            steps = max((len(plans[row][l]) for row in plans), default=0)
-            if steps:
-                nxt = self._upload_batch(parts, plans, B, l, 0, cache)
-                for s in range(steps):
+            n = int(steps[l])
+            if n:
+                nxt = self._upload_step(B, l, 0, cache, fill)
+                for s in range(n):
                     kv_dev, i = nxt
-                    if s + 1 < steps:
-                        nxt = self._upload_batch(parts, plans, B, l, s + 1,
-                                                 cache)
+                    if s + 1 < n:
+                        nxt = self._upload_step(B, l, s + 1, cache, fill)
                     self._attend_slot(i)
                     o, m, dd = prg.attn_cold(l, q, pos_d, kv_dev, meta[l, s],
                                              o, m, dd)
                     self._slot_read(i)
-            x = prg.layer_out(core.params, l, x, o, m, dd)
-        # one ledger record a forward: every lane-stacked upload's bytes,
-        # priced at assembly (0 on a window-cache hit) + upload enqueue
-        # (a record an upload cost more host time than the upload)
-        record_flow("kvpage_pagein", self._flow[0], self._flow[1])
+            x = prg.layer_out(core.params, l, x, o, m, dd, core.group)
+        if fill is not None:
+            # one ledger record a forward: every lane-stacked upload's
+            # bytes, priced at assembly (0 on a window-cache hit) + upload
+            # enqueue (a record an upload cost more host time than the
+            # upload)
+            record_flow("kvpage_pagein", self._flow[0], self._flow[1])
         return x
 
-    def _sample_row(self, seq: _PagedSeq, x: torch.Tensor,
-                    last_i: int) -> Tuple[int, float]:
-        """Sample ONE lane's token from a B=1 pass (the prefill tail)
-        through that lane's sampling state: the draw equals a batched
-        one's."""
-        ln = seq.lane
+    def _sampling(self, lanes: List[int]) -> Dict[str, np.ndarray]:
+        """The lanes' sampling rows a frame carries."""
+        return {"temp": self._temp[lanes], "top_p": self._top_p[lanes],
+                "top_k": self._top_k[lanes], "freq": self._freq[lanes],
+                "pres": self._pres[lanes]}
+
+    def _run_prefill_program(self, arrs: Dict[str, np.ndarray],
+                             fill=None) -> Optional[torch.Tensor]:
+        """A prefill chunk's device program, from its host inputs alone
+        (every rank runs it: the ``kvpage_prefill`` frame): the segmented
+        forward of the chunk, and on the prompt's last chunk the first
+        token sampled through the lane's (freshly zeroed) penalty row from
+        the frame's uniform: the packed (token, logprob) [1, 2] on the
+        device (None for an earlier chunk)."""
         d = self.device
-        u = torch.rand(1, generator=self._gens[ln])
+        x = self._forward(1, to_device(arrs["tokens"], d), arrs["positions"],
+                          arrs["write_idx"], arrs["read_idx"],
+                          arrs["read_pos"], arrs["read_valid"], arrs["steps"],
+                          to_device(arrs["meta"], d), fill=fill)
+        if "uniforms" not in arrs:
+            return None
+        ln = int(arrs["lane"][0])
+        self._counts[ln].zero_()
         packed, _ = self.programs.head(
-            self.core.params, x, to_device(np.asarray([last_i]), d),
-            to_device(self._temp[ln:ln + 1], d),
-            to_device(self._top_p[ln:ln + 1], d),
-            to_device(self._top_k[ln:ln + 1], d), to_device(u, d),
-            self._counts[ln:ln + 1], to_device(self._freq[ln:ln + 1], d),
-            to_device(self._pres[ln:ln + 1], d),
-            torch.ones(1, dtype=torch.bool, device=d))
-        # the lane's designed fetch: the prefill tail's (token, logprob)
-        # dynalint: ok(host-sync) the paging lane's prefill-tail fetch: one
-        # (token, logprob) a prompt
-        arr = packed.cpu().numpy()
-        return int(arr[0, 0]), float(arr[0, 1])
+            self.core.params, x, to_device(arrs["last_i"], d),
+            to_device(arrs["temp"], d), to_device(arrs["top_p"], d),
+            to_device(arrs["top_k"], d), to_device(arrs["uniforms"], d),
+            self._counts[ln:ln + 1], to_device(arrs["freq"], d),
+            to_device(arrs["pres"], d),
+            torch.ones(1, dtype=torch.bool, device=d), self.core.group)
+        return packed
+
+    def _run_decode_program(self, arrs: Dict[str, np.ndarray],
+                            meta: Dict[str, Any], step_fill=None
+                            ) -> torch.Tensor:
+        """A decode window's device program, from its host inputs alone
+        (every rank runs it: the ``kvpage_decode`` frame): N chained steps
+        over the B lanes, each sampled token feeding the next forward on
+        the device; returns the packed (token, logprob) [N, B, 2].
+        ``step_fill(i)`` (the leader's) installs step i's plan with the
+        pager when it changes and returns its fill; with ``meta["cached"]``
+        every rank keeps its staged slots for the whole window."""
+        d = self.device
+        prg, core = self.programs, self.core
+        N, B = arrs["uniforms"].shape
+        lane_args = [to_device(arrs[k], d) for k in ("temp", "top_p",
+                                                     "top_k")]
+        freq, pres = to_device(arrs["freq"], d), to_device(arrs["pres"], d)
+        act_d, uni_d = (to_device(arrs["active"], d),
+                        to_device(arrs["uniforms"], d))
+        meta_d = to_device(arrs["meta"], d)
+        last_i = torch.zeros(B, dtype=torch.long, device=d)
+        tok_d = to_device(arrs["tokens"], d)
+        cache: Optional[Dict] = {} if meta["cached"] else None
+        packed_list: List[torch.Tensor] = []
+        try:
+            for i in range(N):
+                S = int(arrs["hot"][i])
+                fill = step_fill(i) if step_fill is not None else None
+                x = self._forward(
+                    B, tok_d, arrs["positions"][i], arrs["write_idx"][i],
+                    *(np.ascontiguousarray(arrs[k][i, :, :S])
+                      for k in ("read_idx", "read_pos", "read_valid")),
+                    arrs["steps"][i], meta_d[i], cache=cache, fill=fill)
+                packed, tok = prg.head(
+                    core.params, x, last_i, *lane_args, uni_d[i],
+                    self._counts, freq, pres, act_d, core.group)
+                packed_list.append(packed)
+                # each lane's sampled token feeds its next forward on the
+                # device: no host round trip between window steps
+                tok_d = tok[:, None]
+        finally:
+            self._release_cache(cache)
+        return torch.stack(packed_list)
+
+    def mirror(self, kind: str, meta: Dict[str, Any],
+               arrs: Dict[str, np.ndarray]) -> None:
+        """A follower's replay of the leader's ``kvpage_prefill`` or
+        ``kvpage_decode`` frame."""
+        if kind == "kvpage_prefill":
+            self._run_prefill_program(arrs)
+            self.prefill_chunks += 1
+        else:
+            self._run_decode_program(arrs, meta)
+            self.decode_windows += 1
+            self.decode_steps_run += int(arrs["uniforms"].shape[0])
+
+    def _torn(self) -> bool:
+        """Did a failure leave a frame whose program did not return here?
+        Then the followers may wait inside a collective: the step must
+        fail the worker (``TorchEngine._end_if_torn``), not one lane."""
+        return self.core.frames_out != self.core.frames_done
 
     # ------------------------------------------------------------------
     def _hot_row(self, seq: _PagedSeq, upto: int, padded: int
@@ -834,6 +981,9 @@ class PagedEngine:
         return slots, pos, valid
 
     def _prefill_chunk(self, seq: _PagedSeq, out: List) -> None:
+        """The leader's host plan of one prefill chunk, its program (a
+        ``kvpage_prefill`` frame), then seal-and-demote beyond the hot
+        window (a ``kv_offload`` frame)."""
         from ...engine.engine import StepOutput
         from ...utils.roofline import prefill_cost
 
@@ -856,19 +1006,39 @@ class PagedEngine:
         read_valid = np.zeros((1, S), bool)
         read_idx[0], read_pos[0], read_valid[0] = self._hot_row(
             seq, start + count, S)
-        x = self._forward([(0, seq)], 1, to_device(tokens, self.device),
-                          positions, write_idx, read_idx, read_pos,
-                          read_valid)
+        parts = [(0, seq)]
+        plans = self._plan(parts, positions)
+        self._check_pins(plans)
+        self._install(parts, plans)
+        steps, meta = self._plan_arrays(plans, 1)
+        arrs = {"tokens": tokens, "positions": positions,
+                "write_idx": write_idx, "read_idx": read_idx,
+                "read_pos": read_pos, "read_valid": read_valid,
+                "steps": steps, "meta": meta}
+        is_last = start + count >= len(prompt)
+        if is_last:
+            ln = seq.lane
+            arrs.update(self._sampling([ln]),
+                        lane=np.asarray([ln], np.int64),
+                        last_i=np.asarray([count - 1], np.int64),
+                        uniforms=torch.rand(
+                            1, generator=self._gens[ln]).numpy())
+        with self.core._framed("kvpage_prefill", {}, arrs):
+            packed = self._run_prefill_program(
+                arrs, self._filler(parts, plans, 1))
         for t in prompt[start:start + count]:
             seq.tokseq.append(int(t))
         seq.total_len = start + count
         seq.prefill_done = start + count
-        is_last = seq.prefill_done >= len(prompt)
         # demote beyond the hot window now that the writes are enqueued
         self._demote(seq, self.hot_keep)
         tok = lp = None
         if is_last:
-            tok, lp = self._sample_row(seq, x, count - 1)
+            # the lane's designed fetch: the prefill tail's (token, logprob)
+            # dynalint: ok(host-sync) the paging lane's prefill-tail fetch:
+            # one (token, logprob) a prompt
+            arr = packed.cpu().numpy()
+            tok, lp = int(arr[0, 0]), float(arr[0, 1])
         elapsed = time.perf_counter() - t_disp
         self.prefill_chunks += 1
         self.prefill_seconds += elapsed
@@ -901,14 +1071,15 @@ class PagedEngine:
         """One chained decode window across every decode-ready lane: N =
         the least window bound over lanes, so no lane oversteps its token
         budget; each step samples one token a lane from one batched pass,
-        with ONE host fetch at the end."""
+        with ONE host fetch at the end. The leader plans every step on the
+        host (the hot reads, the cold plans, the uniforms), then runs the
+        window's program (a ``kvpage_decode`` frame)."""
         from ...engine.engine import StepOutput
         from ...utils.roofline import decode_cost
 
         t_disp = time.perf_counter()
         N = min(self._window(seq) for _, seq in parts)
         B = self.batch
-        d = self.device
         # per-lane residency setup: a failure here (pool pressure) is
         # lane-local, nothing shared is touched yet, so only the starved
         # lane errors and the window goes on without it. Demotion comes
@@ -924,13 +1095,14 @@ class PagedEngine:
                 self._ensure_resident(seq, seq.total_len + N)
                 ready.append((row, seq))
             except Exception as e:  # noqa: BLE001 - typed per-lane error
+                if self._torn():
+                    raise
                 log.exception("paged sequence %s failed", seq.seq_id)
                 self._fail(seq, e, out)
         if not ready:
             return
         parts = ready
         self.max_window_lanes = max(self.max_window_lanes, len(parts))
-        prg = self.programs
         active = np.zeros(B, bool)
         tokens = np.zeros((B, 1), np.int64)
         uniforms = np.zeros((N, B), np.float32)
@@ -939,59 +1111,67 @@ class PagedEngine:
             tokens[row, 0] = seq.last_token
             uniforms[:, row] = torch.rand(
                 N, generator=self._gens[seq.lane]).numpy()
-        lane_args = [to_device(a, d) for a in
-                     (self._temp, self._top_p, self._top_k)]
-        freq, pres = to_device(self._freq, d), to_device(self._pres, d)
-        act_d, uni_d = to_device(active, d), to_device(uniforms, d)
-        last_i = torch.zeros(B, dtype=torch.long, device=d)
-        tok_d = to_device(tokens, d)
-        packed_list: List[torch.Tensor] = []
-        cache: Optional[Dict[Any, Any]] = None
+        positions = np.zeros((N, B, 1), np.int32)
+        write_idx = np.zeros((N, B, 1), np.int64)    # pad -> scratch
+        hot = np.ones(N, np.int64)
+        for i in range(N):
+            S = 1
+            for row, seq in parts:
+                pos = seq.total_len + i
+                positions[i, row, 0] = pos
+                write_idx[i, row, 0] = self._slot(seq, pos)
+                S = max(S, pos + 1 - seq.first_res * self.page)
+            hot[i] = self._hot_width(S)
+        Smax = int(hot.max())
+        read_idx = np.zeros((N, B, Smax), np.int64)
+        read_pos = np.zeros((N, B, Smax), np.int32)
+        read_valid = np.zeros((N, B, Smax), bool)
+        for i in range(N):
+            for row, seq in parts:
+                (read_idx[i, row, :hot[i]], read_pos[i, row, :hot[i]],
+                 read_valid[i, row, :hot[i]]) = self._hot_row(
+                    seq, seq.total_len + i + 1, int(hot[i]))
+        # one page-in plan and one set of host slots serve every chained
+        # step (demotion happens only at window boundaries) while they
+        # fit the cache bound; past it each step plans and takes its
+        # segments again
+        plans = [self._plan(parts, positions[0])]
+        cached = self._plan_bytes(plans[0], B) <= WINDOW_CACHE_BYTES
+        if not cached:
+            self.uncached_windows += 1
+            plans += [self._plan(parts, positions[i]) for i in range(1, N)]
+        for pl in plans:
+            self._check_pins(pl)
+        width = max(int(self._plan_arrays(pl, B)[0].max(initial=0))
+                    for pl in plans)
+        step_arrays = [self._plan_arrays(plans[min(i, len(plans) - 1)], B,
+                                         width) for i in range(N)]
+        arrs = dict(self._sampling(list(range(B))), tokens=tokens,
+                    active=active, uniforms=uniforms, positions=positions,
+                    write_idx=write_idx, read_idx=read_idx,
+                    read_pos=read_pos, read_valid=read_valid, hot=hot,
+                    steps=np.stack([a[0] for a in step_arrays]),
+                    meta=np.stack([a[1] for a in step_arrays]))
+
+        def step_fill(i: int):
+            pl = plans[min(i, len(plans) - 1)]
+            if i == 0 or not cached:
+                self._install(parts, pl)
+            return self._filler(parts, pl, B)
+
         try:
-            for i in range(N):
-                positions = np.zeros((B, 1), np.int32)
-                write_idx = np.zeros((B, 1), np.int64)  # pad -> scratch
-                S = 1
-                for row, seq in parts:
-                    pos = seq.total_len + i
-                    positions[row, 0] = pos
-                    write_idx[row, 0] = self._slot(seq, pos)
-                    S = max(S, pos + 1 - seq.first_res * self.page)
-                S = self._hot_width(S)
-                if i == 0 or cache is None:
-                    # one page-in plan and one set of host slots serve
-                    # every chained step (demotion happens only at window
-                    # boundaries) while they fit the cache bound; past it
-                    # each step plans and takes its segments again
-                    plans = self._build_plans(parts, positions)
-                if i == 0:
-                    if self._plan_bytes(plans, B) <= WINDOW_CACHE_BYTES:
-                        cache = {}
-                    else:
-                        self.uncached_windows += 1
-                read_idx = np.zeros((B, S), np.int64)
-                read_pos = np.zeros((B, S), np.int32)
-                read_valid = np.zeros((B, S), bool)
-                for row, seq in parts:
-                    (read_idx[row], read_pos[row],
-                     read_valid[row]) = self._hot_row(
-                        seq, seq.total_len + i + 1, S)
-                x = self._forward(parts, B, tok_d, positions, write_idx,
-                                  read_idx, read_pos, read_valid,
-                                  plans=plans, cache=cache)
-                packed, tok = prg.head(
-                    self.core.params, x, last_i, *lane_args, uni_d[i],
-                    self._counts, freq, pres, act_d)
-                packed_list.append(packed)
-                # each lane's sampled token feeds its next forward on the
-                # device: no host round trip between window steps
-                tok_d = tok[:, None]
+            with self.core._framed("kvpage_decode", {"cached": cached},
+                                   arrs):
+                packed = self._run_decode_program(arrs, {"cached": cached},
+                                                  step_fill)
             # the lane's designed fetch: one packed (token, logprob)
             # [N, B, 2] for the whole window, every lane at once
             # dynalint: ok(host-sync) the paging lane's window fetch: one
             # packed [N, B, 2] read for a whole chained window
-            arr = torch.stack(packed_list).cpu().numpy()
+            arr = packed.cpu().numpy()
         except Exception as e:  # noqa: BLE001 - window-fatal
+            if self._torn():
+                raise
             # a failure inside the batched chain cannot be pinned on one
             # lane once shared state advanced: every participating lane
             # gets the typed error; lanes still prefilling are untouched
@@ -1001,8 +1181,6 @@ class PagedEngine:
             for row, seq in parts:
                 self._fail(seq, e, out)
             return
-        finally:
-            self._release_cache(cache)
         fl = by = tk = 0.0
         for row, seq in parts:
             fin = None

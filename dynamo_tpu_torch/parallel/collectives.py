@@ -92,11 +92,14 @@ def gather_heads(x: np.ndarray, group, heads: Sequence[range],
 
 def scatter_heads(whole: Optional[np.ndarray], group, heads: Sequence[range],
                   shape: Tuple[int, ...], dtype, axis: int = 2,
-                  src: int = 0) -> np.ndarray:
+                  src: int = 0, out: Optional[np.ndarray] = None
+                  ) -> np.ndarray:
     """This rank's kv heads ``heads[rank]`` on ``axis`` of rank ``src``'s
     ``whole`` array (``whole`` is read on ``src`` only): a host array of
-    ``shape`` and ``dtype``."""
-    out = np.empty(shape, dtype)
+    ``shape`` and ``dtype``, written into ``out`` (contiguous) when
+    given."""
+    if out is None:
+        out = np.empty(shape, dtype)
     parts = None
     if group.rank() == src:
         parts = []

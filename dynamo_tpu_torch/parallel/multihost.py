@@ -27,10 +27,22 @@ without a frame:
 - ``kv_extract`` (``slots``; meta ``layer``): a sequence's KV gathered into
   the leader's whole arrays (disaggregated prefill);
 - ``kv_inject`` (``slots``; meta ``l0``, ``layers``): the leader's whole
-  layers scattered into each rank's pool (disaggregated decode).
+  layers scattered into each rank's pool (disaggregated decode);
+- ``kvpage_prefill`` and ``kvpage_decode`` (the KV paging lane's chunk
+  and decode window: tokens, positions, write and hot read slots, each
+  layer's cold segment plan ``steps``/``meta``, the sampling rows and
+  uniforms; decode meta ``cached``): each rank's segmented forward, the
+  leader scattering each rank its kv heads of every staged segment;
+- ``swap_prefetch``, ``swap_check`` and ``swap`` (meta ``key``,
+  ``params_path``, ``seed``; ``swap`` also ``preset``, ``group_layers``):
+  each rank stages its own cut of a sibling model, reports it resident
+  (one all-reduce), and overwrites its shard in place.
 
-The KV bytes of the last four move through a host collective of the tp
-group (``parallel.collectives``), never through the frames.
+The KV bytes of ``kv_offload`` to ``kv_inject`` and the paging lane's
+segments move through a host collective of the tp group
+(``parallel.collectives``), never through the frames. An image wave is
+JAX's ``prefill`` frame with ``mm``: its ``ov_vals`` are the soft-token
+rows the wave reads (``ov_rows`` indexes them), not a dense buffer.
 
 Failure is the slice's, as in the JAX package: the leader exits 13 when a
 follower's socket reads EOF or a send fails (a follower that missed a

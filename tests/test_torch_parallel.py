@@ -13,9 +13,11 @@
 - Dispatch frames round-trip through the JAX package's codec both ways.
 - ``cli.worker --tp 2 --device cpu`` serves one endpoint with two rank
   processes; SIGKILL on its follower makes the leader exit 13.
-- Every option not mirrored across ranks yet (KV paging, image models)
-  raises, naming its ROADMAP item; the KV block manager, disaggregation
-  and speculative decoding at tp=2 are ``tests/test_torch_parallel_kv.py``'s.
+- What tp > 1 refuses (MoE, straddling GQA groups, other axes) raises,
+  naming its ROADMAP item; the KV block manager, disaggregation and
+  speculative decoding at tp=2 are ``tests/test_torch_parallel_kv.py``'s,
+  KV paging, image models and weight swaps
+  ``tests/test_torch_parallel_lanes.py``'s.
 """
 
 import asyncio
@@ -548,18 +550,6 @@ def _mesh_stub():
     # the refusals come before any collective: a mesh with no group
     return ServingMesh(shape={"tp": 2}, rank=0, local_rank=0, device=CPU,
                        groups={"tp": None})
-
-
-@pytest.mark.parametrize("option,preset", [
-    (dict(kvpage_budget=16), "tiny-byte"),
-    ({}, "tiny-gemma3-vlm"),
-], ids=["kvpage", "vlm"])
-def test_engine_refuses_what_ranks_cannot_mirror(option, preset):
-    cfg = TorchEngineConfig(model=tl.preset(preset, dtype=torch.float32),
-                            device="cpu", tp=2, mesh=_mesh_stub(),
-                            **dict(ENGINE, **option))
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        EngineCore(cfg)
 
 
 def test_model_and_layout_refusals():
