@@ -929,15 +929,22 @@ async def run_worker(args, *, ready_event: Optional[asyncio.Event] = None,
             await pub.stop()
             # deregistration cleanup: drop the published metric snapshots
             # so aggregators stop rendering a ghost worker when a shared
-            # runtime outlives this serve loop (the Worker shell closed
-            # ours already at a signal: nothing is left to drop)
+            # runtime outlives this serve loop
             from ..llm.metrics_aggregator import clear_worker_keys
 
             try:
                 await clear_worker_keys(drt.store, args.namespace,
                                         args.component, drt.worker_id)
-            except Exception:  # noqa: BLE001 - best-effort
-                log.debug("metric keys not cleared", exc_info=True)
+            except asyncio.CancelledError:
+                # the Worker shell closed our runtime at a signal: its
+                # store cancels the call, and nothing is left to drop
+                closed = getattr(drt.store, "closed", None)
+                if closed is None or not closed.is_set():
+                    raise
+                log.debug("metric keys not cleared: the runtime is closed")
+            except Exception:
+                log.warning("metric keys not cleared; aggregators may "
+                            "show a ghost worker", exc_info=True)
             if cluster is not None:
                 try:
                     await cluster.stop()   # cancel publisher, drop registry

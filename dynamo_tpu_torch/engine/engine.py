@@ -529,8 +529,10 @@ class EngineCore:
         # of each swap (its barrier included)
         self.swap_bytes = 0
         self.swap_seconds = 0.0
-        # tp > 1: this rank's host cuts of sibling models (_shard_cache)
+        # tp > 1: this rank's host cuts of sibling models (_shard_cache),
+        # and the cut a passed swap check holds for the swap frame
         self._shards = None
+        self._swap_tree = None
 
         B = cfg.max_batch
         self.slots: List[Optional[_Slot]] = [None] * B
@@ -2395,8 +2397,11 @@ class EngineCore:
         or None when every rank can swap."""
         from ..fleet.mobility import swap as sw
 
-        cache = self._shard_cache()
-        tree = cache.load_now(src["key"], src)
+        # the check holds the very tree the swap frame overwrites from: a
+        # cut over the cache's budget is returned here but never kept, and
+        # a kept one may be evicted before the frame
+        self._swap_tree = None
+        tree = self._shard_cache().load_now(src["key"], src)
         status = 0
         if tree is None:
             status = 1
@@ -2415,27 +2420,24 @@ class EngineCore:
         status = int(flag.cpu()[0])
         if status:
             return ("weights_unavailable", "shape_mismatch")[status - 1]
-        cache.pin(src["key"])
+        self._swap_tree = tree
         return None
 
     def _run_swap_program(self, meta: Dict[str, Any]
                           ) -> Tuple[int, int, float]:
-        """Every rank: overwrite its shard in place from its resident cut
-        (the ``swap`` frame's program), then agree again with the other
-        ranks on the new weights; returns (groups, bytes, seconds of the
-        stream to its barrier)."""
+        """Every rank: overwrite its shard in place from the cut its
+        swap check held (the ``swap`` frame's program), then agree again
+        with the other ranks on the new weights; returns (groups, bytes,
+        seconds of the stream to its barrier)."""
         from ..fleet.mobility import swap as sw
 
-        cache = self._shard_cache()
-        try:
-            new_flat, old_flat = sw.check_tree(self, cache.get(meta["key"]))
-            t0 = time.monotonic()
-            groups, nbytes = sw.overwrite(self, new_flat, old_flat,
-                                          meta.get("group_layers"))
-            sw.barrier(self)
-            secs = time.monotonic() - t0
-        finally:
-            cache.unpin(meta["key"])
+        tree, self._swap_tree = self._swap_tree, None
+        new_flat, old_flat = sw.check_tree(self, tree)
+        t0 = time.monotonic()
+        groups, nbytes = sw.overwrite(self, new_flat, old_flat,
+                                      meta.get("group_layers"))
+        sw.barrier(self)
+        secs = time.monotonic() - t0
         self.swap_bytes += nbytes
         self.swap_seconds += secs
         self.cfg = replace(self.cfg, params_path=meta.get("params_path"),

@@ -435,6 +435,30 @@ def test_hot_swap_at_tp2_serves_b_after_a_refusal_keeps_a(jax_ref, ckpts):
         assert torch.equal(v, want["layers"][k]), k
 
 
+def test_hot_swap_at_tp2_of_a_cut_the_cache_cannot_keep(jax_ref, ckpts,
+                                                        monkeypatch):
+    """A rank's cut over ``DYN_WEIGHT_CACHE_BYTES``: the cache drops it
+    after the load, and the swap still overwrites from the very tree its
+    check passed."""
+    monkeypatch.setenv("DYN_WEIGHT_CACHE_BYTES", "1")
+    m = _model()
+    cfg_b = TorchEngineConfig(model=m, device="cpu", params_path=ckpts["b"],
+                              **SWAP_ENGINE)
+
+    def drive(core):
+        core.prefetch_shards(cfg_b)             # loaded, then dropped
+        out = core.swap_weights(cfg_b)
+        return out, _drive(core, {"b": _req(SHORT)})["b"], \
+            core._shards.paths()
+
+    (out, b_ids, kept), leader, [(follower, kinds)] = _ranks(
+        2, m, SWAP_ENGINE, TREES["a"], drive)
+    assert out.path == "swap" and kept == [] == follower._shards.paths()
+    assert b_ids == jax_ref["short"]
+    assert (kinds["swap_check"], kinds["swap"]) == (1, 1)
+    assert leader._swap_tree is None and follower._swap_tree is None
+
+
 def _follower_threads(tp, cfg_of, store, port, ready, errs, done):
     """Followers 1 .. tp-1 of a group (threads): each builds its core on
     ``cfg_of(mesh)`` and replays the leader's frames until shutdown."""
